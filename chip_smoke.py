@@ -1,0 +1,465 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port runs on one GPU.
+
+    python3 chip_smoke.py          # from the repository root, one CUDA card
+
+Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
+
+  card       the card's name and power limit (nvidia-smi), torch / CUDA /
+             nvcc versions, and the kernels' build time (from the sources
+             in this checkout);
+  kernels    every CUDA kernel of the main path against its plain PyTorch
+             version on the same inputs, in f32 (rtol = atol = 2e-5) and
+             bf16 (2e-2), the tolerances of tests/test_kernels.py, with
+             device times (CUDA events, median over 100 launches queued
+             behind a device sleep so host enqueue time is not counted),
+             the byte/flop bound, and a one-call PyTorch yardstick where
+             one computes the same function;
+  main_path  ConstellationSim.run() for all 8 Table-1 algorithms on the
+             paper's largest cell (100 satellites, 13 stations), with the
+             kernels' launch counters zeroed just before and read just
+             after;
+  where_time_goes  fedprox for 5 rounds on the same cell: host wall
+             clock, per-span walls (repro_torch.obs) and, from
+             torch.profiler, the device's busy time, idle share and
+             kernel time by name;
+  cpu_vs_card  fedprox on a small cell on the card and on the CPU with
+             the same access windows, init params and minibatch draws:
+             RoundRecords identical, final params within 1e-4.
+
+Each phase prints one JSON line; any failure exits non-zero before the
+last line, which is {"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch import obs  # noqa: E402
+from repro_torch.core import ALGORITHMS, TABLE1_NAMES  # noqa: E402
+from repro_torch.data import synth_femnist  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.models.femnist_mlp import femnist_mlp_init  # noqa: E402
+from repro_torch.orbits import (  # noqa: E402
+    WalkerStar,
+    compute_access_windows,
+    station_subnetwork,
+)
+from repro_torch.params import params_to_numpy  # noqa: E402
+from repro_torch.sim import (  # noqa: E402
+    ConstellationSim,
+    SimConfig,
+    TorchSampler,
+)
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor
+# cores (both kernels compute in f32 on the CUDA cores).
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+TIMED_LAUNCHES = 100
+SLEEP_CYCLES = 100_000_000           # ~50 ms of device sleep at ~2 GHz
+P_MLP = 46_639                       # femnist_mlp parameters
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()
+    require(bool(out), "nvidia-smi printed no card")
+    return out[0]
+
+
+def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_flops / F32_FLOPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ------------------------------------------------------------------ card
+def phase_card() -> dict:
+    line = smi_line()
+    print(line, flush=True)
+    nvcc = build.find_nvcc()
+    nvcc_version = subprocess.run([nvcc, "--version"], capture_output=True,
+                                  text=True, timeout=60,
+                                  check=True).stdout.strip().splitlines()[-1]
+    t0 = time.perf_counter()
+    build.library()
+    build_s = time.perf_counter() - t0
+    info = dict(nvidia_smi=line, name=torch.cuda.get_device_name(0),
+                torch=torch.__version__, cuda=torch.version.cuda,
+                nvcc=nvcc_version, python=sys.version.split()[0],
+                kernel_build_s=build_s)
+    emit("card", **info)
+    return info
+
+
+# --------------------------------------------------------------- kernels
+def device_ms(fn) -> float:
+    """Median device time of one call of `fn`, from CUDA events around
+    each of TIMED_LAUNCHES calls enqueued while the device sleeps."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True)
+              for _ in range(TIMED_LAUNCHES + 1)]
+    torch.cuda._sleep(SLEEP_CYCLES)
+    events[0].record()
+    for i in range(TIMED_LAUNCHES):
+        fn()
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    return statistics.median(events[i].elapsed_time(events[i + 1])
+                             for i in range(TIMED_LAUNCHES))
+
+
+def _max_err(got, want, tol: float) -> float:
+    got, want = got.float(), want.float()
+    require(bool(torch.isfinite(got).all()), "kernel output not finite")
+    err = (got - want).abs()
+    ok = bool((err <= tol + tol * want.abs()).all())
+    require(ok, f"kernel disagrees with its plain version: max abs err "
+                f"{float(err.max())} > tol {tol}")
+    return float(err.max())
+
+
+def check_fedagg(dev, K: int, P: int, dtype: str,
+                 delta: bool) -> dict:
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(K * P)
+    x = torch.randn((K, P), generator=g, device=dev).to(dt)
+    w = torch.rand((K,), generator=g, device=dev)
+    base = torch.randn((P,), generator=g, device=dev).to(dt) if delta \
+        else None
+    scale = 0.5 if delta else 1.0
+    got = ops.fedagg_op(x, w, base, scale)
+    want = ref.fedagg_ref(x, w, base, scale)
+    torch.cuda.synchronize()
+    err = _max_err(got, want, TOL[dtype])
+    es = x.element_size()
+    n_bytes = K * P * es + K * 4 + P * es + (P * es if delta else 0)
+    n_flops = 3 * K * P + 2 * P if delta else 2 * K * P
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    wl = w.to(dt)
+    return dict(
+        name="fedagg", form="delta" if delta else "plain", K=K, P=P,
+        dtype=dtype, max_abs_err=err, tol=TOL[dtype],
+        ms=device_ms(lambda: ops.fedagg_op(x, w, base, scale)),
+        plain_ms=device_ms(lambda: ref.fedagg_ref(x, w, base, scale)),
+        # One PyTorch call computing the plain form (a yardstick only).
+        library_ms=(None if delta else
+                    device_ms(lambda: torch.mv(x.t(), wl))),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def check_prox_sgd(dev, C: int, P: int, dtype: str,
+                   mu: float, shared_anchor: bool) -> dict:
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(C + P)
+    w = torch.randn((C, P), generator=g, device=dev).to(dt)
+    grad = torch.randn((C, P), generator=g, device=dev).to(dt)
+    anchor = torch.randn((P,) if shared_anchor else (C, P), generator=g,
+                         device=dev).to(dt)
+    # Partly masked: 3 of every 10 clients are past their step budget.
+    steps = torch.tensor([2 if c % 10 >= 7 else 8 for c in range(C)],
+                         dtype=torch.int32, device=dev)
+    step, lr = 3, 0.05
+    got, want = w.clone(), w.clone()
+    ops.prox_sgd_op(got, grad, anchor, steps, step, lr, mu)
+    ref.prox_sgd_masked_ref_(want, grad, anchor, steps, step, lr, mu)
+    torch.cuda.synchronize()
+    err = _max_err(got, want, TOL[dtype])
+    masked = steps <= step
+    require(bool(torch.equal(got[masked], w[masked])),
+            "prox_sgd wrote a masked row")
+    live = int((~masked).sum())
+    es = w.element_size()
+    n_bytes = 3 * live * P * es + (P if shared_anchor else live * P) * es \
+        + C * 4
+    b_ms, b_by = bound_ms(n_bytes, 5 * live * P)
+    wk, wp = w.clone(), w.clone()
+    return dict(
+        name="prox_sgd", C=C, P=P, dtype=dtype, mu=mu,
+        anchor="shared" if shared_anchor else "per_client", live=live,
+        max_abs_err=err, tol=TOL[dtype],
+        ms=device_ms(lambda: ops.prox_sgd_op(
+            wk, grad, anchor, steps, step, lr, mu)),
+        plain_ms=device_ms(lambda: ref.prox_sgd_masked_ref_(
+            wp, grad, anchor, steps, step, lr, mu)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_kernels(dev) -> list[dict]:
+    rows = []
+    for dtype in ("float32", "bfloat16"):
+        for K, P in ((10, P_MLP), (100, P_MLP), (7, 12345)):
+            for delta in (False, True):
+                rows.append(check_fedagg(dev, K, P, dtype, delta))
+        for C in (10, 100):
+            for mu in (0.0, 0.1):
+                for shared in (True, False):
+                    rows.append(check_prox_sgd(dev, C, P_MLP, dtype,
+                                               mu, shared))
+    emit("kernels", rows=rows)
+    return rows
+
+
+# ------------------------------------------------------------- main path
+MAIN_CELL = "c10s10/g13"
+MAIN_HORIZON_S = 2 * 86400.0
+
+
+def main_path_setup(dev) -> dict:
+    """The paper's largest cell (100 satellites, 13 stations): data,
+    constellation, stations and access windows (computed on the card)."""
+    t0 = time.perf_counter()
+    data = synth_femnist(100, seed=0)
+    data_s = time.perf_counter() - t0
+    cst, st = WalkerStar(10, 10), station_subnetwork(13)
+    t0 = time.perf_counter()
+    aw = compute_access_windows(cst, st, horizon_s=MAIN_HORIZON_S,
+                                device=dev)
+    torch.cuda.synchronize()
+    return dict(data=data, cst=cst, st=st, aw=aw, data_s=data_s,
+                access_windows_s=time.perf_counter() - t0)
+
+
+def phase_main_path(dev, setup: dict) -> dict:
+    cst, st, data, aw = (setup[k] for k in ("cst", "st", "data", "aw"))
+    cfg = SimConfig(max_rounds=20, horizon_s=MAIN_HORIZON_S, eval_every=5)
+    per_alg = []
+    ops.reset_launches()          # the main path's counts start here
+    for name in TABLE1_NAMES:
+        before = dict(ops.LAUNCHES)
+        t0 = time.perf_counter()
+        sim = ConstellationSim(cst, st, ALGORITHMS[name],
+                               data=data, cfg=cfg, access=aw, device=dev)
+        res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        accs = [a for _, _, a in res.accuracy_curve]
+        per_alg.append(dict(algorithm=name, rounds=res.n_rounds,
+                            wall_s=wall, accuracy=accs,
+                            launches=launches))
+        require(res.n_rounds >= 10,
+                f"{name}: {res.n_rounds} rounds (< 10) in 2 days")
+        require(all(v > 0 for v in launches.values()),
+                f"{name}: a kernel was never launched: {launches}")
+        require(sim.device.type == "cuda" and res.final_params is not None,
+                f"{name}: final params did not come from the card")
+        leaves = [v for layer in res.final_params.values()
+                  for v in layer.values()]
+        require(sum(v.size for v in leaves) == P_MLP
+                and all(bool(np.isfinite(v).all())
+                        for v in leaves), f"{name}: bad final params")
+        require(bool(accs) and all(math.isfinite(a) for a in accs),
+                f"{name}: accuracy not finite: {accs}")
+    totals = dict(ops.LAUNCHES)
+    out = dict(cell=MAIN_CELL, horizon_days=MAIN_HORIZON_S / 86400.0,
+               data_s=setup["data_s"],
+               access_windows_s=setup["access_windows_s"],
+               algorithms=per_alg, launches=totals)
+    emit("main_path", **out)
+    return out
+
+
+# ------------------------------------------------------ where time goes
+PROFILE_ALGORITHM = "fedprox"
+PROFILE_ROUNDS = 5
+
+
+def _busy_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals."""
+    busy, end = 0.0, -math.inf
+    for s, e in sorted(intervals):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
+def phase_where_time_goes(dev, setup: dict) -> dict:
+    """One Table-1 algorithm for a few rounds on the main-path cell, run
+    three times: plain (host wall clock), traced with `repro_torch.obs`
+    (per-span walls; each traced span ends in a device sync) and under
+    `torch.profiler` (device busy time and kernel time by name). The
+    device's idle share is 1 - busy / the plain run's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    cst, st, data, aw = (setup[k] for k in ("cst", "st", "data", "aw"))
+    cfg = SimConfig(max_rounds=PROFILE_ROUNDS, horizon_s=MAIN_HORIZON_S,
+                    eval_every=5)
+
+    def run() -> float:
+        t0 = time.perf_counter()
+        ConstellationSim(cst, st, ALGORITHMS[PROFILE_ALGORITHM], data=data,
+                         cfg=cfg, access=aw, device=dev).run()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    wall = run()
+    with obs.tracing():
+        traced_wall = run()
+        spans = obs.metrics_summary()["spans"]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_wall = run()
+    device_events = [e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA]
+    by_name: dict[str, list] = {}
+    for e in device_events:
+        row = by_name.setdefault(e.name, [0, 0.0])
+        row[0] += 1
+        row[1] += e.time_range.elapsed_us()
+    busy_s = _busy_us([(e.time_range.start, e.time_range.end)
+                       for e in device_events]) / 1e6
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    out = dict(
+        algorithm=PROFILE_ALGORITHM, cell=MAIN_CELL, rounds=PROFILE_ROUNDS,
+        wall_s=wall, traced_wall_s=traced_wall,
+        profiled_wall_s=profiled_wall,
+        spans={k: v for k, v in spans.items() if k.startswith("sim.")},
+        device_events=len(device_events),
+        device_busy_s=busy_s if device_events else None,
+        device_idle_share=(1.0 - busy_s / wall) if device_events else None,
+        device_time_by_name=[dict(name=k[:100], count=n, total_s=us / 1e6)
+                             for k, (n, us) in top])
+    emit("where_time_goes", **out)
+    return out
+
+
+# ----------------------------------------------------------- cpu vs card
+class _OnDevice:
+    """A sampler whose draws are made by `inner` (on the CPU) and moved
+    to `device`, so the CPU and card runs train on the same minibatches."""
+
+    def __init__(self, inner, device):
+        self.inner, self.device = inner, device
+
+    def init(self, workload):
+        return self.inner.init(workload).to(self.device)
+
+    def minibatches(self, n_valid, bound, batch_size):
+        return self.inner.minibatches(n_valid, bound,
+                                      batch_size).to(self.device)
+
+
+def phase_cpu_vs_card(dev) -> dict:
+    cst, st = WalkerStar(2, 2), station_subnetwork(1)
+    horizon = 4 * 86400.0
+    aw = compute_access_windows(cst, st, horizon_s=horizon, device="cpu")
+    data = synth_femnist(cst.n_sats, seed=0)
+    init = params_to_numpy(femnist_mlp_init(
+        torch.Generator().manual_seed(0), "cpu"))
+    cfg = SimConfig(max_rounds=3, horizon_s=horizon, eval_every=1,
+                    max_steps=16)
+    alg = ALGORITHMS["fedprox"]
+    runs = {}
+    for where, device, sampler in (
+            ("cpu", "cpu", TorchSampler(0, "cpu")),
+            ("card", dev, _OnDevice(TorchSampler(0, "cpu"), dev))):
+        runs[where] = ConstellationSim(
+            cst, st, alg, data=data, cfg=cfg, access=aw, device=device,
+            sampler=sampler, init_params=init).run()
+    fields = ("idx", "t_start", "t_end", "participants", "epochs",
+              "idle_s", "compute_s", "comm_s", "relays", "staleness",
+              "relay_hops", "comms_bytes")
+    recs = {k: [[getattr(r, f) for f in fields] for r in v.rounds]
+            for k, v in runs.items()}
+    require(len(recs["card"]) == 3 and recs["card"] == recs["cpu"],
+            "RoundRecords differ between the card and the CPU")
+    gap = max(float(np.max(np.abs(runs["card"].final_params[l][m]
+                                  - runs["cpu"].final_params[l][m])))
+              for l in ("fc1", "fc2") for m in ("b", "w"))
+    out = dict(algorithm="fedprox", cell="c2s2/g1", rounds=3,
+               records_identical=True, final_params_max_abs_gap=gap,
+               tol=1e-4,
+               accuracy_card=[a for _, _, a in runs["card"].accuracy_curve],
+               accuracy_cpu=[a for _, _, a in runs["cpu"].accuracy_curve])
+    emit("cpu_vs_card", **out)
+    require(gap <= 1e-4, f"final params differ by {gap} > 1e-4")
+    return out
+
+
+# ------------------------------------------------------------------ main
+def _pick(rows: list[dict], **match) -> dict:
+    for r in rows:
+        if all(r.get(k) == v for k, v in match.items()):
+            return r
+    raise SmokeFailure(f"no kernel row matches {match}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda:0")
+    t_start = time.perf_counter()
+
+    phase_card()
+    rows = phase_kernels(dev)
+    setup = main_path_setup(dev)
+    main_path = phase_main_path(dev, setup)
+    phase_where_time_goes(dev, setup)
+    phase_cpu_vs_card(dev)
+
+    # Main-path shapes: 10 clients per flush, femnist_mlp, f32.
+    fed = _pick(rows, name="fedagg", form="plain", K=10, dtype="float32")
+    prox = _pick(rows, name="prox_sgd", C=10, dtype="float32", mu=0.1,
+                 anchor="shared")
+    kernels = []
+    for row, source, replaces in (
+            (prox, "src/repro_torch/csrc/prox_sgd.cu",
+             "src/repro/kernels/prox_sgd.py:39"),
+            (fed, "src/repro_torch/csrc/fedagg.cu",
+             "src/repro/kernels/fedagg.py:38")):
+        kernels.append(dict(
+            name=row["name"], route="cuda", source=source,
+            replaces=replaces, launches=main_path["launches"][row["name"]],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+    emit("done", wall_s=time.perf_counter() - t_start)
+    print(smi_line(), flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,100 @@
+"""Satellite hardware/cost model (paper section 5 numbers as defaults).
+
+Port of `repro.core.timing` without the uplink codec: every transfer is
+full precision, which is the reference's `codec=None` pricing bit for bit.
+The paper assumes a SpaceCloud iX5-106 class onboard computer
+(40 GFLOP/s), a 47k-parameter (186 KB) model, 98 MFLOP per local epoch,
+and Planet-Dove class telemetry at 580 Mbps.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from repro_torch.orbits import constants as C
+
+# Private copy of `repro.comms.links.MIN_RATE_BPS`, the deep-fade floor of
+# every transfer-time division. The comms slice ports `links.py` and
+# replaces this copy (ROADMAP).
+MIN_RATE_BPS = 1.0
+
+
+@dataclasses.dataclass(frozen=True)
+class HardwareModel:
+    gflops: float = C.CLIENT_GFLOPS          # onboard compute
+    epoch_mflops: float = C.EPOCH_MFLOPS     # FLOPs per local epoch
+    link_mbps: float = C.LINK_MBPS           # telemetry rate
+    model_bytes: int = C.MODEL_BYTES         # parameters on the wire
+    # Energy/duty-cycle cap on continuous training (UNTIL_CONTACT regime).
+    max_local_epochs: int = 100
+    # Full-precision wire width, bytes/parameter.
+    bytes_per_param: int = C.BYTES_PER_PARAM
+
+    @property
+    def epoch_time_s(self) -> float:
+        return (self.epoch_mflops * 1e6) / (self.gflops * 1e9)
+
+    @property
+    def tx_time_s(self) -> float:
+        """One full-precision model transfer over the telemetry link."""
+        return (self.model_bytes * 8) / (self.link_mbps * 1e6)
+
+    @property
+    def uplink_bytes(self) -> float:
+        """Bytes one client return puts on the wire (no codec)."""
+        return float(self.model_bytes)
+
+    @property
+    def ul_time_s(self) -> float:
+        """One uplink at the constant telemetry rate (== `tx_time_s`)."""
+        return self.tx_time_s
+
+    def ul_time_for(self, rate_bps: float | None = None) -> float:
+        """Uplink time at a window's achievable rate."""
+        return self.tx_time_for(rate_bps=rate_bps)
+
+    @property
+    def round_trip_bytes(self) -> float:
+        """Direct round-trip wire cost: download + uplink. Private copy of
+        `repro.comms.codec.round_trip_bytes` for `codec=None`; the codec
+        slice replaces it (ROADMAP)."""
+        return 2.0 * self.model_bytes
+
+    def tx_time_for(self, n_bytes: float | None = None,
+                    rate_bps: float | None = None) -> float:
+        """Transfer time for `n_bytes` at `rate_bps` (both default to the
+        model's constants, so `tx_time_for()` == `tx_time_s` bit for bit),
+        with the rate floored at `MIN_RATE_BPS`."""
+        if n_bytes is None:
+            n_bytes = self.model_bytes
+        if rate_bps is None:
+            rate_bps = self.link_mbps * 1e6
+        return (n_bytes * 8) / max(rate_bps, MIN_RATE_BPS)
+
+    def epochs_between(self, t0: float, t1: float, *, cap: bool = True) -> int:
+        """How many whole local epochs fit in [t0, t1)."""
+        n = int(max(0.0, t1 - t0) / self.epoch_time_s)
+        return min(n, self.max_local_epochs) if cap else n
+
+    @classmethod
+    def for_workload(cls, workload, *, gflops: float | None = None,
+                     link_mbps: float | None = None,
+                     max_local_epochs: int | None = None) -> "HardwareModel":
+        """Price a `repro_torch.core.workload.Workload` on the paper's
+        satellite. For `femnist_mlp` — whose cost is pinned to the paper
+        constants — this returns exactly `HardwareModel()`."""
+        from repro_torch.core.workload import get_workload
+        wl = get_workload(workload)
+        kwargs = dict(epoch_mflops=float(wl.epoch_mflops),
+                      model_bytes=int(wl.model_bytes),
+                      bytes_per_param=int(wl.bytes_per_param))
+        if gflops is None:
+            gflops = wl.gflops
+        if link_mbps is None:
+            link_mbps = wl.link_mbps
+        if gflops is not None:
+            kwargs["gflops"] = gflops
+        if link_mbps is not None:
+            kwargs["link_mbps"] = link_mbps
+        if max_local_epochs is not None:
+            kwargs["max_local_epochs"] = max_local_epochs
+        return cls(**kwargs)

@@ -1,0 +1,24 @@
+"""Device resolution for every entry point of the port."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None = None) -> torch.device:
+    """`cuda:0` unless the caller asks for something else.
+
+    Raises when CUDA is requested (explicitly or by default) but absent:
+    the port never carries on quietly on the CPU. `"cpu"` runs the plain
+    PyTorch versions of the kernels (the tests use it).
+    """
+    dev = torch.device("cuda:0" if device is None else device)
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {dev} requested but CUDA is not available; pass "
+                "device='cpu' to run the plain PyTorch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,0 +1,120 @@
+"""Build and load the port's CUDA kernels (one shared library, via ctypes).
+
+The sources in `repro_torch/csrc/` are compiled with `nvcc` for Hopper
+(`sm_90a`) at first use, one `nvcc` process per source started together,
+then linked into one `.so` under `build/kernels/` at the repository root.
+The library's name carries a hash of the sources and flags, so an edited
+source rebuilds and an unchanged one loads the cached build. A failed
+build raises with `nvcc`'s stderr. Nothing here runs at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+SOURCES = ("prox_sgd.cu", "fedagg.cu")
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+
+_vp, _i32, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+# (name, argtypes) of every C entry point; each returns cudaGetLastError().
+_SIGNATURES = {
+    # w, g, w0, w0_stride, steps, step, C, P, lr, mu, device, stream
+    "prox_sgd_f32": [_vp, _vp, _vp, _i64, _vp, _i32, _i32, _i64, _f32, _f32,
+                     _i32, _vp],
+    "prox_sgd_bf16": [_vp, _vp, _vp, _i64, _vp, _i32, _i32, _i64, _f32, _f32,
+                      _i32, _vp],
+    # x, w, base, scale, out, K, P, device, stream
+    "fedagg_f32": [_vp, _vp, _vp, _f32, _vp, _i32, _i64, _i32, _vp],
+    "fedagg_bf16": [_vp, _vp, _vp, _f32, _vp, _i32, _i64, _i32, _vp],
+}
+
+
+def find_nvcc() -> str:
+    """`nvcc` from CUDA_HOME / CUDA_PATH, PATH, or /usr/local/cuda."""
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").exists():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if DEFAULT_NVCC.exists():
+        return str(DEFAULT_NVCC)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH); "
+                       "the port's CUDA kernels are built from source")
+
+
+def _digest(nvcc: str) -> str:
+    h = hashlib.sha256()
+    h.update(" ".join([nvcc] + FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run commands concurrently; raise with the stderr of any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    failures = []
+    for cmd, proc in zip(cmds, procs):
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"$ {' '.join(cmd)}\n{out}{err}")
+    if failures:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+
+
+def build() -> Path:
+    """Compile the sources (if the cached build is stale) and return the
+    path of the shared library."""
+    nvcc = find_nvcc()
+    lib = BUILD_DIR / f"libreprokernels-{_digest(nvcc)}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{os.getpid()}"
+    objs = [BUILD_DIR / f"{Path(s).stem}-{tag}.o" for s in SOURCES]
+    _run_all([[nvcc, *FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+              for s, o in zip(SOURCES, objs)])
+    tmp = lib.with_suffix(f".{tag}.tmp")
+    _run_all([[nvcc, *ARCH, "-shared", *map(str, objs), "-o", str(tmp)]])
+    os.replace(tmp, lib)      # atomic: a concurrent loader sees all or none
+    for o in objs:
+        o.unlink()
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call, then cached)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")

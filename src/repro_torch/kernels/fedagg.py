@@ -1,0 +1,55 @@
+"""CUDA kernel wrapper: federated weighted aggregation (paper Eq. 1).
+
+    out[p] = sum_k w[k] * x[k, p]
+    out[p] = base[p] + scale * sum_k w[k] * (x[k, p] - base[p])   (with base)
+
+Port of the Pallas TPU kernel `repro.kernels.fedagg.fedagg`, plus the
+delta form that `weighted_delta_update` (FedBuff) needs, in the same
+single pass. The kernel is `repro_torch/csrc/fedagg.cu`; it is bound by
+bytes on the H100 (see the source's header note).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: "fedagg_f32", torch.bfloat16: "fedagg_bf16"}
+
+
+def fedagg(x: torch.Tensor, w: torch.Tensor,
+           base: torch.Tensor | None = None,
+           scale: float = 1.0) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors. x: (K, P) contiguous f32 or
+    bf16; w: (K,) f32; base: optional (P,) in x's dtype. Returns (P,) in
+    x's dtype, accumulated in f32."""
+    named = [("x", x), ("w", w)] + ([("base", base)] if base is not None
+                                    else [])
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"fedagg: {name} must be a CUDA tensor on "
+                             f"{x.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"fedagg: {name} must be contiguous")
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"fedagg: dtype {x.dtype} not supported "
+                        "(float32 or bfloat16)")
+    if w.dtype != torch.float32:
+        raise TypeError("fedagg: weights must be float32")
+    if x.dim() != 2:
+        raise ValueError(f"fedagg: x must be (K, P), got {tuple(x.shape)}")
+    K, P = x.shape
+    if w.shape != (K,):
+        raise ValueError(f"fedagg: w must be ({K},), got {tuple(w.shape)}")
+    if base is not None and (base.shape != (P,) or base.dtype != x.dtype):
+        raise ValueError(f"fedagg: base must be ({P},) {x.dtype}, got "
+                         f"{tuple(base.shape)} {base.dtype}")
+    out = torch.empty((P,), dtype=x.dtype, device=x.device)
+    if P == 0:
+        return out
+    fn = getattr(build.library(), _DTYPES[x.dtype])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    build.check(fn(x.data_ptr(), w.data_ptr(),
+                   None if base is None else base.data_ptr(), float(scale),
+                   out.data_ptr(), K, P, x.device.index, stream), "fedagg")
+    return out

@@ -1,0 +1,25 @@
+"""repro_torch.obs — phase tracing and counters (own copy of `repro.obs`).
+
+  span(name, **args)    nestable timing context manager (no-op when off)
+  count(name, n=1)      named counter (no-op when off)
+  enable() / disable()  install / remove the global tracer (default: off)
+  enabled()             is a tracer installed?
+  tracing()             scoped enable (tests)
+  metrics_summary()     counters + per-phase aggregates + hit rates
+
+The exporters and the launcher logger are not ported yet (ROADMAP item 11).
+"""
+from repro_torch.obs.trace import (
+    Tracer,
+    count,
+    disable,
+    enable,
+    enabled,
+    get_tracer,
+    metrics_summary,
+    span,
+    tracing,
+)
+
+__all__ = ["Tracer", "count", "disable", "enable", "enabled", "get_tracer",
+           "metrics_summary", "span", "tracing"]

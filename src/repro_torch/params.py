@@ -1,0 +1,103 @@
+"""Flat parameter layout: one contiguous float32 buffer per model.
+
+The reference carries parameters as nested dicts (pytrees). The port keeps
+them in one contiguous `(P,)` buffer — or `(C, P)` for a stack of clients —
+so a kernel sees a whole model (or a whole round's client stack) as one
+array: one `prox_sgd` launch per local step and one `fedagg` launch per
+aggregation, with no concatenation copy. Named per-leaf views are laid out
+in `jax.tree.leaves` order (sorted dict keys), which is also the order the
+reference's kernel wrappers flatten in.
+
+`params_from_jax` / `params_to_numpy` carry weights across the two
+packages as nested dicts of numpy arrays with the reference's leaf names
+and shapes.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamLayout:
+    """Leaf paths ("fc1/w") and shapes, in flattening order."""
+
+    leaves: tuple[tuple[str, tuple[int, ...]], ...]
+
+    @property
+    def sizes(self) -> tuple[int, ...]:
+        return tuple(math.prod(shape) for _, shape in self.leaves)
+
+    @property
+    def size(self) -> int:
+        return sum(self.sizes)
+
+    def views(self, flat: torch.Tensor) -> dict:
+        """Nested dict of views into `flat` ((P,) or (C, P)); each view
+        keeps any leading client axis. No copy: writes go to `flat`."""
+        if flat.shape[-1] != self.size:
+            raise ValueError(f"flat params have {flat.shape[-1]} entries, "
+                             f"layout expects {self.size}")
+        out: dict = {}
+        for (path, shape), piece in zip(
+                self.leaves, torch.split(flat, self.sizes, dim=-1)):
+            *parents, name = path.split("/")
+            node = out
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[name] = piece.unflatten(-1, shape)
+        return out
+
+    def from_tree(self, tree: dict, device=None) -> torch.Tensor:
+        """Flatten a nested dict of arrays (optionally with a shared
+        leading client axis) into one contiguous float32 buffer."""
+        parts = []
+        for path, shape in self.leaves:
+            node = tree
+            for p in path.split("/"):
+                node = node[p]
+            arr = np.asarray(node, dtype=np.float32)
+            lead = arr.shape[:arr.ndim - len(shape)]
+            if arr.shape[arr.ndim - len(shape):] != tuple(shape):
+                raise ValueError(f"leaf {path}: shape {arr.shape} does not "
+                                 f"end in {shape}")
+            parts.append(arr.reshape(lead + (-1,)))
+        flat = np.concatenate(parts, axis=-1)
+        return torch.as_tensor(flat, device=device).contiguous()
+
+    def to_tree(self, flat: torch.Tensor) -> dict:
+        """Nested dict of numpy arrays (host copies) from a flat buffer."""
+        host = flat.detach().cpu()
+        views = self.views(host)
+        return _map_tree(lambda v: v.numpy().copy(), views)
+
+
+def _map_tree(fn, tree: dict) -> dict:
+    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+# 784 -> 56 -> 47 MLP (`repro.models.femnist_mlp`): P = 46,639.
+FEMNIST_MLP = ParamLayout((
+    ("fc1/b", (56,)),
+    ("fc1/w", (784, 56)),
+    ("fc2/b", (47,)),
+    ("fc2/w", (56, 47)),
+))
+
+
+def params_from_jax(tree: dict, layout: ParamLayout = FEMNIST_MLP,
+                    device=None) -> torch.Tensor:
+    """Reference params (nested dict of numpy arrays, e.g. from
+    `jax.device_get`) -> flat float32 tensor, (P,) or (C, P)."""
+    return layout.from_tree(tree, device=device)
+
+
+def params_to_numpy(flat: torch.Tensor,
+                    layout: ParamLayout = FEMNIST_MLP) -> dict:
+    """Flat tensor -> nested dict of numpy arrays with the reference's
+    leaf names and shapes (what the reference's `jax.device_get` gives)."""
+    return layout.to_tree(flat)

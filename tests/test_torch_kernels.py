@@ -1,0 +1,158 @@
+"""Port kernels' plain versions vs the reference Pallas kernels.
+
+On the CPU the port's `ops` take the plain PyTorch versions
+(`repro_torch.kernels.ref`); the reference kernels run in interpret mode,
+as `tests/test_kernels.py` runs them, with its shapes and tolerances. The
+CUDA kernels themselves are held against the same plain versions on the
+card by `chip_smoke.py`.
+"""
+from __future__ import annotations
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.fedagg import fedagg as jax_fedagg
+from repro.kernels.prox_sgd import prox_sgd as jax_prox_sgd
+from repro.kernels.ref import fedagg_ref as jax_fedagg_ref
+from repro.kernels.ref import prox_sgd_ref as jax_prox_sgd_ref
+from repro_torch.kernels import build, ops, ref
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JAX = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values in both frameworks (bf16 rounded once, RNE)."""
+    return (jnp.asarray(a, jnp.float32).astype(JAX[dtype]),
+            torch.as_tensor(a, dtype=torch.float32).to(TORCH[dtype]))
+
+
+def _np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        return t.float().numpy()
+    return np.asarray(t, np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,p", [(2, 100), (10, 47887), (64, 4096),
+                                 (7, 12345)])
+def test_fedagg_plain_matches_reference(k, p, dtype):
+    rng = np.random.default_rng(k * p)
+    xj, xt = _pair(rng.normal(size=(k, p)), dtype)
+    w = rng.random(k).astype(np.float32)
+    out = ops.fedagg_op(xt, torch.as_tensor(w))
+    assert out.dtype == TORCH[dtype] and out.shape == (p,)
+    tol = TOL[dtype]
+    want = jax_fedagg(xj, jnp.asarray(w), interpret=True)
+    np.testing.assert_allclose(_np(out), _np(want), rtol=tol, atol=tol)
+    np.testing.assert_allclose(_np(out), _np(jax_fedagg_ref(xj, jnp.asarray(w))),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,p", [(2, 100), (10, 47887), (7, 12345)])
+@pytest.mark.parametrize("scale", [1.0, 0.5])
+def test_fedagg_delta_form_matches_reference(k, p, scale, dtype):
+    """base + scale * sum_k w_k (x_k - base), the reference computed as
+    its fedagg kernel over the deltas."""
+    rng = np.random.default_rng(k + p)
+    x = rng.normal(size=(k, p)).astype(np.float32)
+    base = rng.normal(size=(p,)).astype(np.float32)
+    w = rng.random(k).astype(np.float32)
+    _, xt = _pair(x, dtype)
+    bj, bt = _pair(base, dtype)
+    out = ops.fedagg_op(xt, torch.as_tensor(w), base=bt, scale=scale)
+    delta = jax_fedagg(jnp.asarray(x - _np(bt)[None]), jnp.asarray(w),
+                       interpret=True)
+    want = (bj.astype(jnp.float32) + scale * delta).astype(JAX[dtype])
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(out), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("p", [47887, 8192, 130])
+def test_prox_sgd_plain_matches_reference(p, dtype):
+    rng = np.random.default_rng(p)
+    (wj, wt), (gj, gt), (aj, at) = (_pair(rng.normal(size=(p,)), dtype)
+                                    for _ in range(3))
+    want = jax_prox_sgd(wj, gj, aj, 0.05, 0.1, interpret=True)
+    tol = TOL[dtype]
+    np.testing.assert_allclose(_np(ref.prox_sgd_ref(wt, gt, at, 0.05, 0.1)),
+                               _np(want), rtol=tol, atol=tol)
+    # The stacked, masked op on a one-client buffer is the same step.
+    w1 = wt[None].clone()
+    ops.prox_sgd_op(w1, gt[None], at, torch.tensor([1], dtype=torch.int32),
+                    0, 0.05, 0.1)
+    np.testing.assert_allclose(_np(w1[0]), _np(want), rtol=tol, atol=tol)
+    np.testing.assert_allclose(
+        _np(w1[0]), _np(jax_prox_sgd_ref(wj, gj, aj, 0.05, 0.1)),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("mu", [0.0, 0.1])
+@pytest.mark.parametrize("shared_anchor", [True, False])
+def test_prox_sgd_step_mask(mu, shared_anchor):
+    """Rows with step >= steps[c] are bitwise untouched; live rows take
+    the reference step."""
+    rng = np.random.default_rng(7)
+    C, P, step = 5, 4099, 3
+    w = rng.normal(size=(C, P)).astype(np.float32)
+    g = rng.normal(size=(C, P)).astype(np.float32)
+    a = rng.normal(size=(P,) if shared_anchor else (C, P)).astype(np.float32)
+    steps = np.array([0, 3, 4, 8, 2], np.int32)
+    wt = torch.as_tensor(w.copy())
+    out = ops.prox_sgd_op(wt, torch.as_tensor(g), torch.as_tensor(a),
+                          torch.as_tensor(steps), step, 0.05, mu)
+    assert out is wt                                   # in place
+    for c in range(C):
+        if step < steps[c]:
+            anchor = a if shared_anchor else a[c]
+            want = jax_prox_sgd(jnp.asarray(w[c]), jnp.asarray(g[c]),
+                                jnp.asarray(anchor), 0.05, mu,
+                                interpret=True)
+            np.testing.assert_allclose(wt[c].numpy(), np.asarray(want),
+                                       rtol=2e-5, atol=2e-5)
+        else:
+            assert np.array_equal(wt[c].numpy().view(np.uint32),
+                                  w[c].view(np.uint32))
+
+
+def test_cuda_path_never_falls_back_to_plain():
+    """A tensor that is not on the CPU goes to the kernel wrapper, which
+    raises for anything but a CUDA tensor; the launch counters only move
+    on a real launch."""
+    before = dict(ops.LAUNCHES)
+    x = torch.empty((3, 8), device="meta")
+    w = torch.empty((3,), device="meta")
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.fedagg_op(x, w)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.prox_sgd_op(x, x, x, torch.empty((3,), dtype=torch.int32,
+                                             device="meta"), 0, 0.05, 0.1)
+    assert ops.LAUNCHES == before
+
+
+def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(build.shutil, "which", lambda _: None)
+    monkeypatch.setattr(build, "DEFAULT_NVCC", tmp_path / "no-nvcc")
+    monkeypatch.setattr(build, "_lib", None)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.library()
+
+
+def test_build_sources_exist_and_hash_changes_with_source(tmp_path,
+                                                          monkeypatch):
+    for name in build.SOURCES:
+        assert (build.CSRC / name).is_file()
+    before = build._digest("nvcc")
+    for name in build.SOURCES:
+        (tmp_path / name).write_bytes((build.CSRC / name).read_bytes())
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    assert build._digest("nvcc") == before
+    (tmp_path / build.SOURCES[0]).write_text("// edited\n")
+    assert build._digest("nvcc") != before
