@@ -6,8 +6,8 @@
 Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
 
   card       the card's name and power limit (nvidia-smi), torch / CUDA /
-             nvcc versions, and the kernels' build time (from the sources
-             in this checkout);
+             nvcc versions, the kernels' build time (from the sources in
+             this checkout) and ptxas's registers and spills per kernel;
   kernels    every CUDA kernel of the main path against its plain PyTorch
              version on the same inputs, in f32 (rtol = atol = 2e-5) and
              bf16 (2e-2), the tolerances of tests/test_kernels.py, with
@@ -26,6 +26,21 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
   cpu_vs_card  fedprox on a small cell on the card and on the CPU with
              the same access windows, init params and minibatch draws:
              RoundRecords identical, final params within 1e-4.
+  lm_kernels flash_attention and wkv6 against their plain versions at
+             hymba-1.5b's serving shapes and in every mask variant
+             (flash 3e-5 in f32; in bf16 rtol 8e-3 + atol 1e-3, about
+             one bf16 rounding step, since both sides round one f32
+             result; wkv6 2e-4), with device times, bounds and, for
+             flash, scaled_dot_product_attention as the yardstick;
+  serve      full-width hymba-1.5b (bf16, random weights from a seed):
+             one batch of `serve.serve_batch` plain (wall) and under
+             torch.profiler, then `repro_torch.launch.serve.main` with
+             8 requests, batch 4, 2048-token prompts (past the 1024
+             window: the ring cache rolls), 32 new tokens, launch
+             counters zeroed just before and read just after;
+  serve_cpu_vs_card  reduced hymba-1.5b and gemma-2b (f32) from the same
+             weights on the card and on the CPU, 160-token prompts:
+             identical greedy tokens, logits within 1e-4.
 
 Each phase prints one JSON line; any failure exits non-zero before the
 last line, which is {"ok": true, "device": {...}}.
@@ -47,10 +62,17 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import obs  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import ALGORITHMS, TABLE1_NAMES  # noqa: E402
 from repro_torch.data import synth_femnist  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
 from repro_torch.models.femnist_mlp import femnist_mlp_init  # noqa: E402
+from repro_torch.models.lm.params import (  # noqa: E402
+    lm_params_from_jax,
+    lm_params_to_numpy,
+)
+from repro_torch.models.lm.transformer import init_params  # noqa: E402
 from repro_torch.orbits import (  # noqa: E402
     WalkerStar,
     compute_access_windows,
@@ -64,10 +86,11 @@ from repro_torch.sim import (  # noqa: E402
 )
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# H100 SXM data sheet: HBM3 bandwidth and float32 rate outside the tensor
-# cores (both kernels compute in f32 on the CUDA cores).
+# H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the tensor
+# cores, and the dense bf16 tensor-core rate.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 TIMED_LAUNCHES = 100
 SLEEP_CYCLES = 100_000_000           # ~50 ms of device sleep at ~2 GHz
 P_MLP = 46_639                       # femnist_mlp parameters
@@ -95,9 +118,10 @@ def smi_line() -> str:
     return out[0]
 
 
-def bound_ms(n_bytes: float, n_flops: float) -> tuple[float, str]:
+def bound_ms(n_bytes: float, n_flops: float,
+             flops_per_s: float = F32_FLOPS_PER_S) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = n_flops / F32_FLOPS_PER_S
+    t_ops = n_flops / flops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -116,7 +140,8 @@ def phase_card() -> dict:
     info = dict(nvidia_smi=line, name=torch.cuda.get_device_name(0),
                 torch=torch.__version__, cuda=torch.version.cuda,
                 nvcc=nvcc_version, python=sys.version.split()[0],
-                kernel_build_s=build_s)
+                kernel_build_s=build_s,
+                kernel_resources=build.resource_usage())
     emit("card", **info)
     return info
 
@@ -140,13 +165,16 @@ def device_ms(fn) -> float:
                              for i in range(TIMED_LAUNCHES))
 
 
-def _max_err(got, want, tol: float) -> float:
+def _max_err(got, want, rtol: float, atol: float | None = None) -> float:
+    """Max |got - want|; fails unless every element is within
+    atol + rtol * |want| (atol = rtol unless given)."""
+    atol = rtol if atol is None else atol
     got, want = got.float(), want.float()
     require(bool(torch.isfinite(got).all()), "kernel output not finite")
     err = (got - want).abs()
-    ok = bool((err <= tol + tol * want.abs()).all())
+    ok = bool((err <= atol + rtol * want.abs()).all())
     require(ok, f"kernel disagrees with its plain version: max abs err "
-                f"{float(err.max())} > tol {tol}")
+                f"{float(err.max())} > atol {atol} + rtol {rtol} * |want|")
     return float(err.max())
 
 
@@ -271,7 +299,7 @@ def phase_main_path(dev, setup: dict) -> dict:
                             launches=launches))
         require(res.n_rounds >= 10,
                 f"{name}: {res.n_rounds} rounds (< 10) in 2 days")
-        require(all(v > 0 for v in launches.values()),
+        require(launches["prox_sgd"] > 0 and launches["fedagg"] > 0,
                 f"{name}: a kernel was never launched: {launches}")
         require(sim.device.type == "cuda" and res.final_params is not None,
                 f"{name}: final params did not come from the card")
@@ -312,7 +340,6 @@ def phase_where_time_goes(dev, setup: dict) -> dict:
     (per-span walls; each traced span ends in a device sync) and under
     `torch.profiler` (device busy time and kernel time by name). The
     device's idle share is 1 - busy / the plain run's wall time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     cst, st, data, aw = (setup[k] for k in ("cst", "st", "data", "aw"))
@@ -333,6 +360,22 @@ def phase_where_time_goes(dev, setup: dict) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         profiled_wall = run()
+    out = dict(
+        algorithm=PROFILE_ALGORITHM, cell=MAIN_CELL, rounds=PROFILE_ROUNDS,
+        wall_s=wall, traced_wall_s=traced_wall,
+        profiled_wall_s=profiled_wall,
+        spans={k: v for k, v in spans.items() if k.startswith("sim.")},
+        **_device_time(prof, wall))
+    emit("where_time_goes", **out)
+    return out
+
+
+def _device_time(prof, wall_s: float) -> dict:
+    """Device events of a `torch.profiler` run: their count, the busy
+    time (union of their intervals), the idle share against `wall_s` (a
+    plain run's wall), and time by kernel name (top 12)."""
+    from torch.autograd import DeviceType
+
     device_events = [e for e in prof.events()
                      if e.device_type == DeviceType.CUDA]
     by_name: dict[str, list] = {}
@@ -343,18 +386,12 @@ def phase_where_time_goes(dev, setup: dict) -> dict:
     busy_s = _busy_us([(e.time_range.start, e.time_range.end)
                        for e in device_events]) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    out = dict(
-        algorithm=PROFILE_ALGORITHM, cell=MAIN_CELL, rounds=PROFILE_ROUNDS,
-        wall_s=wall, traced_wall_s=traced_wall,
-        profiled_wall_s=profiled_wall,
-        spans={k: v for k, v in spans.items() if k.startswith("sim.")},
+    return dict(
         device_events=len(device_events),
         device_busy_s=busy_s if device_events else None,
-        device_idle_share=(1.0 - busy_s / wall) if device_events else None,
+        device_idle_share=(1.0 - busy_s / wall_s) if device_events else None,
         device_time_by_name=[dict(name=k[:100], count=n, total_s=us / 1e6)
                              for k, (n, us) in top])
-    emit("where_time_goes", **out)
-    return out
 
 
 # ----------------------------------------------------------- cpu vs card
@@ -410,6 +447,239 @@ def phase_cpu_vs_card(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ lm kernels
+# (rtol, atol). In bf16 both sides round one f32 result, so they differ
+# by at most one bf16 step: 2**-7 * |want| < 8e-3 * |want|.
+FLASH_TOL = {"float32": (3e-5, 3e-5), "bfloat16": (8e-3, 1e-3)}
+WKV6_TOL = 2e-4
+# hymba-1.5b serving: batch 4, 2048-token prompts, 25 query heads on 5 KV
+# heads of 64; its SSD heads: 50 heads, state 16, head dim 64.
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS = 4, 2048, 32, 8
+
+
+def _flash_pairs(S: int, causal: bool, window: int | None) -> int:
+    """(q, k) pairs that the masks leave, over positions 0..S-1."""
+    q = np.arange(S)
+    lo = np.maximum(0, q - window + 1) if window else np.zeros(S, np.int64)
+    hi = q + 1 if causal else np.full(S, S)
+    return int((hi - lo).sum())
+
+
+def check_flash(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
+                dtype: str, causal: bool = True, window: int | None = None,
+                softcap: float | None = None) -> dict:
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device=dev).manual_seed(B * H * S + D)
+    q = torch.randn((B, H, S, D), generator=g, device=dev).to(dt)
+    k, v = (torch.randn((B, KV, S, D), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ops.flash_attention_op(q, k, v, **kw)
+    want = ref.flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = _max_err(got, want, *FLASH_TOL[dtype])
+    pairs = B * H * _flash_pairs(S, causal, window)
+    n_bytes = (2 * B * H * S * D + 2 * B * KV * S * D) * q.element_size()
+    b_ms, b_by = bound_ms(n_bytes, 4 * D * pairs,
+                          BF16_FLOPS_PER_S if dtype == "bfloat16"
+                          else F32_FLOPS_PER_S)
+    # One PyTorch call computing the same function (a yardstick only).
+    library = None
+    if causal and softcap is None:
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        if window is None:
+            library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
+        else:
+            pos = torch.arange(S, device=dev)
+            lag = pos[:, None] - pos[None, :]
+            mask = (lag >= 0) & (lag < window)
+            library = lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+    return dict(
+        name="flash_attention", case=case, B=B, H=H, KV=KV, S=S, D=D,
+        dtype=dtype, causal=causal, window=window, softcap=softcap,
+        pairs=pairs, max_abs_err=err, rtol=FLASH_TOL[dtype][0],
+        atol=FLASH_TOL[dtype][1],
+        ms=device_ms(lambda: ops.flash_attention_op(q, k, v, **kw)),
+        plain_ms=device_ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
+        library_ms=None if library is None else device_ms(library),
+        bound_ms=b_ms, bound_by=b_by)
+
+
+def check_wkv6(dev, case: str, B: int, H: int, T: int, K: int, V: int,
+               chunk: int = 64, strong_decay: bool = False) -> dict:
+    g = torch.Generator(device=dev).manual_seed(B * H * T + K)
+    r, k = (torch.randn((B, H, T, K), generator=g, device=dev)
+            for _ in range(2))
+    v = torch.randn((B, H, T, V), generator=g, device=dev)
+    if strong_decay:                     # near-total decay every step
+        lw = torch.full((B, H, T, K), -5.0, device=dev)
+        s0 = torch.zeros((B, H, K, V), device=dev)
+    else:
+        lw = -0.3 * torch.randn((B, H, T, K), generator=g, device=dev).abs()
+        s0 = torch.randn((B, H, K, V), generator=g, device=dev)
+    args = (r, k, v, lw, s0)
+    o, s_final = ops.wkv6_op(*args, chunk=chunk)
+    want_o, want_s = ref.wkv6_ref(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    err = max(_max_err(o, want_o, WKV6_TOL), _max_err(s_final, want_s,
+                                                       WKV6_TOL))
+    n_bytes = (3 * B * H * T * K + 2 * B * H * T * V + 2 * B * H * K * V) * 4
+    # The step-by-step recurrence: o = r.S (2KV), S = w S + k v^T (3KV).
+    b_ms, b_by = bound_ms(n_bytes, 5 * B * H * T * K * V)
+    return dict(
+        name="wkv6", case=case, B=B, H=H, T=T, K=K, V=V, chunk=chunk,
+        strong_decay=strong_decay, max_abs_err=err, tol=WKV6_TOL,
+        ms=device_ms(lambda: ops.wkv6_op(*args, chunk=chunk)),
+        plain_ms=device_ms(lambda: ref.wkv6_ref(*args, chunk=chunk)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_lm_kernels(dev) -> list[dict]:
+    B, S = SERVE_BATCH, SERVE_PROMPT
+    rows = []
+    for dtype in ("bfloat16", "float32"):
+        rows.append(check_flash(dev, "serve_swa", B, 25, 5, S, 64, dtype,
+                                window=1024))
+        rows.append(check_flash(dev, "serve_full", B, 25, 5, S, 64, dtype))
+    # The mask cases of tests/test_kernels.py (its D = 32 GQA case at 64).
+    for b, h, kv, s, d, causal, window, softcap in (
+            (1, 2, 2, 128, 64, True, None, None),
+            (2, 4, 2, 128, 64, True, None, None),
+            (1, 4, 1, 256, 64, True, 64, None),
+            (1, 2, 2, 128, 64, False, None, None),
+            (1, 2, 2, 128, 64, True, None, 30.0),
+            (1, 2, 1, 64, 128, True, 16, None)):
+        rows.append(check_flash(dev, "mask_sweep", b, h, kv, s, d, "float32",
+                                causal, window, softcap))
+    rows.append(check_flash(dev, "bf16", 1, 2, 2, 128, 64, "bfloat16"))
+    rows.append(check_flash(dev, "ragged_S", B, 25, 5, 1000, 64, "bfloat16",
+                            window=256))
+    rows.append(check_flash(dev, "mqa_d256", 1, 8, 1, S, 256, "bfloat16"))
+    rows.append(check_flash(dev, "gqa_d128", 1, 32, 8, 1024, 128,
+                            "bfloat16", window=512))
+    rows.append(check_wkv6(dev, "serve", B, 50, S, 16, 64))
+    rows.append(check_wkv6(dev, "k64_v64", B, 32, S, 64, 64))
+    rows.append(check_wkv6(dev, "ragged_T", 2, 50, 1000, 16, 64))
+    rows.append(check_wkv6(dev, "strong_decay", 1, 1, 256, 32, 32,
+                           chunk=128, strong_decay=True))
+    emit("lm_kernels", rows=rows)
+    return rows
+
+
+# ----------------------------------------------------------------- serve
+SERVE_ARCH = "hymba-1.5b"
+
+
+def phase_serve(dev) -> dict:
+    """Full-width hymba-1.5b: one batch of `serve.serve_batch` plain
+    (wall) and under torch.profiler (device busy time and kernel time by
+    name), after a warm-up batch on the same weights; then `serve.main`
+    (traced, so the prefill span and every decode step end in a device
+    sync), which draws its own weights as a user's run does."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = get_config(SERVE_ARCH)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                            generator=torch.Generator(dev).manual_seed(1),
+                            device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve.serve_batch(cfg, params, prompts, SERVE_NEW)   # warm-up
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    serve.serve_batch(cfg, params, prompts, SERVE_NEW)
+    torch.cuda.synchronize()
+    batch_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        serve.serve_batch(cfg, params, prompts, SERVE_NEW)
+        torch.cuda.synchronize()
+    profiled = dict(wall_s=batch_wall, **_device_time(prof, batch_wall))
+    profile_s = time.perf_counter() - t0
+    del params, prof
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                 # the serve path's counts start here
+    t0 = time.perf_counter()
+    with obs.tracing():
+        done, tokens, logits = serve.main([
+            "--arch", SERVE_ARCH, "--full-config", "--device", "cuda",
+            "--requests", str(SERVE_REQUESTS), "--batch", str(SERVE_BATCH),
+            "--prompt-len", str(SERVE_PROMPT), "--max-new", str(SERVE_NEW)])
+        summary = obs.metrics_summary()
+    torch.cuda.synchronize()
+    main_wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_batches = SERVE_REQUESTS // SERVE_BATCH
+    want = cfg.n_layers * n_batches
+    require(launches["flash_attention"] == want
+            and launches["wkv6"] == want,
+            f"serve launched {launches}; expected {want} flash_attention "
+            f"and {want} wkv6")
+    require(tokens.shape == (SERVE_REQUESTS, SERVE_NEW + 1)
+            and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+            f"serve tokens out of range or misshapen: {tuple(tokens.shape)}")
+    require(logits.shape == (SERVE_REQUESTS, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), "serve logits not finite")
+    spans, counters = summary["spans"], summary["counters"]
+    require(counters.get("launch.requests_served") == SERVE_REQUESTS
+            and counters.get("launch.decode_tokens")
+            == SERVE_REQUESTS * SERVE_NEW, f"serve counters: {counters}")
+    serving_s = spans["launch.serve_batch"]["total_s"]
+    out = dict(
+        arch=SERVE_ARCH, dtype=cfg.dtype, requests=SERVE_REQUESTS,
+        batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, max_new=SERVE_NEW,
+        launches=launches, record=done, main_wall_s=main_wall,
+        serving_wall_s=serving_s,
+        tokens_per_s=SERVE_REQUESTS * SERVE_NEW / serving_s,
+        prefill_ms_per_batch=spans["launch.prefill"]["total_s"]
+        / spans["launch.prefill"]["count"] * 1e3,
+        decode_ms_per_batch=spans["launch.decode"]["total_s"]
+        / spans["launch.decode"]["count"] * 1e3,
+        decode_p50_ms=done["decode_p50_ms"],
+        decode_p99_ms=done["decode_p99_ms"],
+        peak_device_memory_bytes=peak,
+        setup_s=dict(init=init_s, warmup=warmup_s, profile=profile_s),
+        profiled_batch=profiled)
+    emit("serve", **out)
+    return out
+
+
+def phase_serve_cpu_vs_card(dev) -> dict:
+    """Reduced hymba-1.5b and gemma-2b (f32) from the same weights through
+    `serve.serve_batch` on the CPU and the card: prefill of a 160-token
+    prompt (the reduced 128-token window rolls), then 8 greedy decode
+    steps."""
+    out = {}
+    for arch in (SERVE_ARCH, "gemma-2b"):
+        cfg = get_config(arch).reduced()
+        cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+        card_params = lm_params_from_jax(lm_params_to_numpy(cpu_params), dev)
+        prompts = torch.randint(0, cfg.vocab_size, (2, 160),
+                                generator=torch.Generator().manual_seed(1))
+        runs = {}
+        for where, params in (("cpu", cpu_params), ("card", card_params)):
+            toks, _, logits = serve.serve_batch(
+                cfg, params, prompts.to(params["embed"].device), 8)
+            runs[where] = (toks.cpu(), logits.cpu())
+        same = bool(torch.equal(runs["card"][0], runs["cpu"][0]))
+        gap = float((runs["card"][1] - runs["cpu"][1]).abs().max())
+        out[arch] = dict(tokens_identical=same, logits_max_abs_gap=gap,
+                         tol=1e-4)
+        require(same, f"{arch}: greedy tokens differ between card and CPU")
+        require(gap <= 1e-4, f"{arch}: logits differ by {gap} > 1e-4")
+    emit("serve_cpu_vs_card", **out)
+    return out
+
+
 # ------------------------------------------------------------------ main
 def _pick(rows: list[dict], **match) -> dict:
     for r in rows:
@@ -425,30 +695,49 @@ def main() -> int:
     dev = torch.device("cuda:0")
     t_start = time.perf_counter()
 
-    phase_card()
-    rows = phase_kernels(dev)
-    setup = main_path_setup(dev)
-    main_path = phase_main_path(dev, setup)
-    phase_where_time_goes(dev, setup)
-    phase_cpu_vs_card(dev)
+    phases_s: dict[str, float] = {}
+
+    def timed(name: str, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phases_s[name] = time.perf_counter() - t0
+        return out
+
+    timed("card", phase_card)
+    rows = timed("kernels", phase_kernels, dev)
+    setup = timed("main_path_setup", main_path_setup, dev)
+    main_path = timed("main_path", phase_main_path, dev, setup)
+    timed("where_time_goes", phase_where_time_goes, dev, setup)
+    timed("cpu_vs_card", phase_cpu_vs_card, dev)
+    lm_rows = timed("lm_kernels", phase_lm_kernels, dev)
+    served = timed("serve", phase_serve, dev)
+    timed("serve_cpu_vs_card", phase_serve_cpu_vs_card, dev)
 
     # Main-path shapes: 10 clients per flush, femnist_mlp, f32.
     fed = _pick(rows, name="fedagg", form="plain", K=10, dtype="float32")
     prox = _pick(rows, name="prox_sgd", C=10, dtype="float32", mu=0.1,
                  anchor="shared")
+    # Serving shapes: hymba-1.5b bf16, 29 of its 32 layers windowed.
+    flash = _pick(lm_rows, name="flash_attention", case="serve_swa",
+                  dtype="bfloat16")
+    wkv = _pick(lm_rows, name="wkv6", case="serve")
     kernels = []
-    for row, source, replaces in (
+    for row, source, replaces, launches in (
             (prox, "src/repro_torch/csrc/prox_sgd.cu",
-             "src/repro/kernels/prox_sgd.py:39"),
+             "src/repro/kernels/prox_sgd.py:39", main_path["launches"]),
             (fed, "src/repro_torch/csrc/fedagg.cu",
-             "src/repro/kernels/fedagg.py:38")):
+             "src/repro/kernels/fedagg.py:38", main_path["launches"]),
+            (flash, "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:114", served["launches"]),
+            (wkv, "src/repro_torch/csrc/wkv6.cu",
+             "src/repro/kernels/wkv6.py:90", served["launches"])):
         kernels.append(dict(
             name=row["name"], route="cuda", source=source,
-            replaces=replaces, launches=main_path["launches"][row["name"]],
+            replaces=replaces, launches=launches[row["name"]],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"]))
-    emit("done", wall_s=time.perf_counter() - t_start)
+    emit("done", wall_s=time.perf_counter() - t_start, phases_s=phases_s)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

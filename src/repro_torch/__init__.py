@@ -6,10 +6,10 @@ It imports torch, numpy and the standard library only: never `jax`, and
 nothing of `repro` (pure-Python helpers are copied, not shared).
 
 Entry points run on `cuda` unless the caller passes `device="cpu"`
-(`repro_torch.device.resolve_device`). The two kernels of the simulator's
-main path, `prox_sgd` and `fedagg`, are hand-written CUDA C++ for
-Hopper (`repro_torch/csrc/`); CPU tensors take their plain PyTorch
-versions (`repro_torch.kernels.ref`).
+(`repro_torch.device.resolve_device`). The kernels — the simulator's
+`prox_sgd` and `fedagg`, the LM prefill's `flash_attention` and `wkv6` —
+are hand-written CUDA C++ for Hopper (`repro_torch/csrc/`); CPU tensors
+take their plain PyTorch versions (`repro_torch.kernels.ref`).
 """
 import torch
 

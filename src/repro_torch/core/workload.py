@@ -34,10 +34,10 @@ EXECUTION_MODES = ("host", "mesh")
 # Reference workloads still to port, with the ROADMAP item that brings each.
 _NOT_PORTED = {
     "femnist_cnn": "ROADMAP femnist_cnn slice",
-    "lm_tiny": "ROADMAP LM stack",
-    "lm_moe_tiny": "ROADMAP LM stack",
-    "lm_rwkv6_tiny": "ROADMAP LM stack",
-    "lm_hybrid_tiny": "ROADMAP LM stack",
+    "lm_tiny": "ROADMAP LM training slice",
+    "lm_moe_tiny": "ROADMAP LM training slice",
+    "lm_rwkv6_tiny": "ROADMAP LM training slice",
+    "lm_hybrid_tiny": "ROADMAP LM training slice",
 }
 
 

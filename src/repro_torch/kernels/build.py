@@ -5,23 +5,26 @@ The sources in `repro_torch/csrc/` are compiled with `nvcc` for Hopper
 then linked into one `.so` under `build/kernels/` at the repository root.
 The library's name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the cached build. A failed
-build raises with `nvcc`'s stderr. Nothing here runs at import time.
+build raises with `nvcc`'s stderr. `ptxas`'s resource report (registers,
+stack frame, spill stores and loads per kernel) is kept beside the
+library and read by `resource_usage()`. Nothing here runs at import time.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("prox_sgd.cu", "fedagg.cu")
+SOURCES = ("prox_sgd.cu", "fedagg.cu", "flash_attention.cu", "wkv6.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 
 _lock = threading.Lock()
@@ -29,6 +32,7 @@ _lib: ctypes.CDLL | None = None
 
 _vp, _i32, _i64, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
+_i64p = ctypes.POINTER(ctypes.c_int64)
 # (name, argtypes) of every C entry point; each returns cudaGetLastError().
 _SIGNATURES = {
     # w, g, w0, w0_stride, steps, step, C, P, lr, mu, device, stream
@@ -39,6 +43,16 @@ _SIGNATURES = {
     # x, w, base, scale, out, K, P, device, stream
     "fedagg_f32": [_vp, _vp, _vp, _f32, _vp, _i32, _i64, _i32, _vp],
     "fedagg_bf16": [_vp, _vp, _vp, _f32, _vp, _i32, _i64, _i32, _vp],
+    # q, k, v, o, strides[4][3] (b, h, s of q, k, v, o), B, H, KV, S, D,
+    # scale, causal, window (0 = none), softcap (0 = none), device, stream
+    "flash_attention_f32": [_vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
+                            _i32, _i32, _f32, _i32, _i32, _f32, _i32, _vp],
+    "flash_attention_bf16": [_vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
+                             _i32, _i32, _f32, _i32, _i32, _f32, _i32, _vp],
+    # r, k, v, logw, s0, o, s_final, strides[7][4], B, H, T, K, V, chunk,
+    # device, stream
+    "wkv6_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
+                 _i32, _i32, _i32, _i32, _vp],
 }
 
 
@@ -66,18 +80,21 @@ def _digest(nvcc: str) -> str:
     return h.hexdigest()[:16]
 
 
-def _run_all(cmds: list[list[str]]) -> None:
-    """Run commands concurrently; raise with the stderr of any failure."""
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run commands concurrently; raise with the stderr of any failure,
+    else return their output (stdout, then stderr) in command order."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for c in cmds]
-    failures = []
+    failures, logs = [], []
     for cmd, proc in zip(cmds, procs):
         out, err = proc.communicate()
+        logs.append(out + err)
         if proc.returncode != 0:
             failures.append(f"$ {' '.join(cmd)}\n{out}{err}")
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    return "".join(logs)
 
 
 def build() -> Path:
@@ -90,8 +107,11 @@ def build() -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{os.getpid()}"
     objs = [BUILD_DIR / f"{Path(s).stem}-{tag}.o" for s in SOURCES]
-    _run_all([[nvcc, *FLAGS, "-c", str(CSRC / s), "-o", str(o)]
-              for s, o in zip(SOURCES, objs)])
+    log = _run_all([[nvcc, *FLAGS, "-c", str(CSRC / s), "-o", str(o)]
+                    for s, o in zip(SOURCES, objs)])
+    log_tmp = lib.with_suffix(f".ptxas.{tag}.tmp")
+    log_tmp.write_text(log)
+    os.replace(log_tmp, lib.with_suffix(".ptxas.txt"))
     tmp = lib.with_suffix(f".{tag}.tmp")
     _run_all([[nvcc, *ARCH, "-shared", *map(str, objs), "-o", str(tmp)]])
     os.replace(tmp, lib)      # atomic: a concurrent loader sees all or none
@@ -112,6 +132,43 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\S+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def _demangle(names: list[str]) -> list[str]:
+    """C++ names from `cu++filt` beside nvcc, or the mangled ones."""
+    filt = Path(find_nvcc()).with_name("cu++filt")
+    if not filt.exists():
+        return names
+    out = subprocess.run([str(filt), *names], capture_output=True, text=True,
+                         timeout=60)
+    lines = out.stdout.splitlines()
+    return lines if out.returncode == 0 and len(lines) == len(names) \
+        else names
+
+
+def resource_usage() -> list[dict]:
+    """Per kernel of the built library, from `ptxas -v`: registers per
+    thread, stack frame and spill store/load bytes."""
+    rows: list[dict] = []
+    for line in build().with_suffix(".ptxas.txt").read_text().splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            rows.append(dict(kernel=m.group(1)))
+        elif rows and (m := _FRAME.search(line)):
+            rows[-1].update(stack_bytes=int(m.group(1)),
+                            spill_store_bytes=int(m.group(2)),
+                            spill_load_bytes=int(m.group(3)))
+        elif rows and (m := _REGS.search(line)):
+            rows[-1]["registers"] = int(m.group(1))
+    for row, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        row["kernel"] = name
+    return rows
 
 
 def check(err: int, kernel: str) -> None:

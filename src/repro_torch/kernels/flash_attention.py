@@ -1,0 +1,78 @@
+"""CUDA kernel wrapper: flash attention (causal / sliding-window /
+softcapped GQA) over positions 0..S-1.
+
+Port of the Pallas TPU kernel `repro.kernels.flash_attention`
+(`flash_attention`, `_flash_kernel`): online-softmax attention with f32
+running max, denominator (clamped at 1e-30) and accumulator; tiles that
+no query row of a block can reach are skipped. Unlike the TPU kernel, S
+need not be a multiple of a block size: the tail tile is masked. The
+kernel is `repro_torch/csrc/flash_attention.cu`; see its header for the
+design and what bounds it on the H100.
+
+The kernel takes strides for the batch, head and sequence axes (the head
+dim must be contiguous), so the model's (B, S, H, D) tensors go in as
+transposed views, and the output keeps q's memory layout
+(`torch.empty_like`).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: "flash_attention_f32",
+           torch.bfloat16: "flash_attention_bf16"}
+HEAD_DIMS = (64, 128, 256)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors. q: (B, H, S, D); k/v:
+    (B, KV, S, D) with H % KV == 0; one dtype, f32 or bf16; D in
+    (64, 128, 256). A (q, k) pair counts if `kpos <= qpos` (causal) and
+    `qpos - kpos < window`. Returns (B, H, S, D) in q's dtype and memory
+    layout."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"flash_attention: {name} must be a CUDA "
+                             f"tensor on {q.device}, got {t.device}")
+        if t.dtype != q.dtype:
+            raise TypeError("flash_attention: q, k and v must share one "
+                            "dtype")
+        if t.dim() != 4 or t.stride(-1) != 1:
+            raise ValueError(f"flash_attention: {name} must be 4-D with a "
+                             "contiguous last axis")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
+                        "(float32 or bfloat16)")
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    if k.shape != (B, KV, S, D) or v.shape != k.shape:
+        raise ValueError(f"flash_attention: k and v must be ({B}, KV, {S}, "
+                         f"{D}), got {tuple(k.shape)} and {tuple(v.shape)}")
+    if KV == 0 or H % KV:
+        raise ValueError(f"flash_attention: H = {H} is not a multiple of "
+                         f"KV = {KV}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window must be >= 1, got "
+                         f"{window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"flash_attention: softcap must be > 0, got "
+                         f"{softcap}")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    strides = (ctypes.c_int64 * 12)(*(
+        s for t in (q, k, v, out) for s in t.stride()[:3]))
+    fn = getattr(build.library(), _DTYPES[q.dtype])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   strides, B, H, KV, S, D, float(D ** -0.5), int(causal),
+                   int(window or 0), float(softcap or 0.0), q.device.index,
+                   stream), "flash_attention")
+    return out

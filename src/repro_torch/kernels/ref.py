@@ -2,11 +2,14 @@
 
 `repro_torch.kernels.ops` takes these for tensors that lie on the CPU;
 `chip_smoke.py` holds each CUDA kernel against them on the card. Mirrors
-`repro.kernels.ref`.
+`repro.kernels.ref`; `wkv6_ref` is the chunked form the TPU kernel
+computes (the reference's oracle is a step-by-step scan, which
+`tests/test_torch_lm_kernels.py` holds it against).
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def fedagg_ref(x: torch.Tensor, w: torch.Tensor,
@@ -34,3 +37,67 @@ def prox_sgd_masked_ref_(w: torch.Tensor, g: torch.Tensor,
     `step < steps[c]` take `prox_sgd_ref`, the others keep their bits."""
     live = (step < steps)[:, None]
     return w.copy_(torch.where(live, prox_sgd_ref(w, g, w0, lr, mu), w))
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None) -> torch.Tensor:
+    """q: (B,H,S,D), k/v: (B,KV,S,D) -> (B,H,S,D) in q.dtype. Naive
+    softmax in f32 over positions 0..S-1; query head h reads KV head
+    h // (H / KV). A pair counts if `kpos <= qpos` (causal) and
+    `qpos - kpos < window`."""
+    B, H, S, D = q.shape
+    rep = H // k.shape[1]
+    k = k.repeat_interleave(rep, dim=1)
+    v = v.repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, s0: torch.Tensor,
+             chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+    """Strict-past chunked decay scan, f32. r/k/logw: (B,H,T,K); v:
+    (B,H,T,V); s0: (B,H,K,V) -> (o (B,H,T,V), s_final (B,H,K,V)).
+
+    T is zero-padded to a multiple of `chunk` (zero r/k/v with logw = 0
+    leave the state unchanged). Per chunk, with logc the inclusive and
+    logb = logc - logw the exclusive cumulative log decay:
+      o = (r exp(logb)) @ S + A @ v,
+      A[t, i] = sum_k r[t,k] k[i,k] exp(min(logb[t,k] - logc[i,k], 0)), i < t
+      S = S exp(logc[-1]) + (k exp(logc[-1] - logc))^T v
+    """
+    B, H, T, K = r.shape
+    pad = (-T) % chunk
+    r, k, v, logw = (F.pad(x.float(), (0, 0, 0, pad))
+                     for x in (r, k, v, logw))
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    s = s0.float()
+    outs = []
+    for c in range(0, T + pad, chunk):
+        rc, kc, vc, wc = (x[:, :, c:c + chunk] for x in (r, k, v, logw))
+        logc = torch.cumsum(wc, dim=2)
+        logb = logc - wc
+        o = torch.einsum("bhtk,bhkv->bhtv", rc * torch.exp(logb), s)
+        d = logb[:, :, :, None, :] - logc[:, :, None, :, :]   # (B,H,L,L,K)
+        a = (rc[:, :, :, None, :] * kc[:, :, None, :, :]
+             * torch.exp(torch.clamp(d, max=0.0))).sum(-1)
+        a = torch.where(tri, a, 0.0)
+        outs.append(o + torch.einsum("bhti,bhiv->bhtv", a, vc))
+        total = logc[:, :, -1:, :]
+        kd = kc * torch.exp(total - logc)
+        s = s * torch.exp(total[:, :, 0, :, None]) \
+            + torch.einsum("bhik,bhiv->bhkv", kd, vc)
+    return torch.cat(outs, dim=2)[:, :, :T], s

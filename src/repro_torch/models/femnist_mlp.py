@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.params import FEMNIST_MLP
 
 # `jax.nn.initializers.he_normal` is variance_scaling(2, "fan_in",
@@ -26,10 +27,12 @@ def _he_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
 
 
 def femnist_mlp_init(generator: torch.Generator, device=None) -> torch.Tensor:
-    """Flat (P,) params: He-normal (truncated at 2 sigma) weights, zero
-    biases. The distribution matches the reference's; the values do not
-    (torch and jax generators differ)."""
-    flat = torch.zeros(FEMNIST_MLP.size, dtype=torch.float32, device=device)
+    """Flat (P,) params on `device` (CUDA unless asked otherwise):
+    He-normal (truncated at 2 sigma) weights, zero biases. The
+    distribution matches the reference's; the values do not (torch and
+    jax generators differ)."""
+    flat = torch.zeros(FEMNIST_MLP.size, dtype=torch.float32,
+                       device=resolve_device(device))
     views = FEMNIST_MLP.views(flat)
     with torch.no_grad():
         _he_normal_(views["fc1"]["w"], generator)

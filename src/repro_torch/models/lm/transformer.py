@@ -1,0 +1,323 @@
+"""The LM stack for serving: GQA attention and hybrid (attention + SSD)
+layers.
+
+Port of `repro.models.lm.transformer` for the segment kinds
+  attn    — GQA attention + dense MLP
+  hybrid  — parallel GQA attention + SSD heads, then dense MLP
+with the reference's parameter tree: `params["segments"]` is a list of
+dicts, one per `cfg.resolved_segments` entry, whose leaves carry the
+segment's stacked layer axis. Where the reference scans that axis
+(`lax.scan`), the port loops over it in Python and hands each layer
+views of its slice.
+
+Entry points:
+  init_params(cfg, generator, device)           -> params
+  prefill(cfg, params, tokens, max_seq)         -> (logits, cache)
+  decode_step(cfg, params, token, cache)        -> (logits, cache)
+  init_decode_cache(cfg, params, B, max_seq)    -> (logits, cache)
+
+The prefill attention is the `flash_attention` kernel and the SSD prefill
+scan the `wkv6` kernel (through `attention.attention_prefill` and
+`scan_core.chunked_decay_scan`). The decode cache is the reference's, per
+segment with a leading layer axis, plus `cache["pos"]`, a Python int
+(one position for the whole batch, kept on the host). `decode_step`
+updates the cache's tensors in place and returns the cache with `pos`
+advanced: the reference returns new arrays instead.
+
+Not ported yet, each raising NotImplementedError: the `moe` and `rwkv`
+segment kinds, MLA attention, the encoder (enc-dec) and prefix
+embeddings (VLM), `forward_train`.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import resolve_device
+from repro_torch.models.lm.attention import (
+    attention_decode,
+    attention_prefill,
+    cache_update,
+)
+from repro_torch.models.lm.config import ModelConfig, Segment
+from repro_torch.models.lm.layers import (
+    apply_mlp,
+    apply_rope,
+    dense_init,
+    init_mlp,
+    rmsnorm,
+)
+from repro_torch.models.lm.params import map_tree
+from repro_torch.models.lm.ssm import CONV_K, init_ssm, ssm_forward, ssm_step
+
+_ROADMAP = {
+    "moe": "MoE and MLA",
+    "mla": "MoE and MLA",
+    "rwkv": "rwkv6 time-mix",
+    "encoder": "Encoder and prefix embeddings",
+    "prefix": "Encoder and prefix embeddings",
+    "train": "LM training with backward",
+}
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP queue item '{_ROADMAP[item]}')")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    """Raise NotImplementedError for what the port does not run yet."""
+    if cfg.encoder is not None:
+        raise _not_ported(f"{cfg.name}: the encoder (enc-dec)", "encoder")
+    for seg in cfg.resolved_segments:
+        if seg.kind in ("moe", "rwkv"):
+            raise _not_ported(f"{cfg.name}: segment kind '{seg.kind}'",
+                              seg.kind)
+        if cfg.mla is not None and seg.kind == "attn":
+            raise _not_ported(f"{cfg.name}: MLA attention", "mla")
+
+
+# ======================================================================= #
+# Init
+# ======================================================================= #
+def _init_gqa(generator, cfg: ModelConfig, lead, device, dtype) -> dict:
+    hd = cfg.resolved_head_dim
+    d, H, KV = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
+    kw = dict(lead=lead, device=device, dtype=dtype)
+    p = {
+        "wq": dense_init(generator, (d, H * hd), **kw),
+        "wk": dense_init(generator, (d, KV * hd), **kw),
+        "wv": dense_init(generator, (d, KV * hd), **kw),
+        "wo": dense_init(generator, (H * hd, d), **kw),
+    }
+    if cfg.qkv_bias:
+        for name, width in (("bq", H * hd), ("bk", KV * hd), ("bv", KV * hd)):
+            p[name] = torch.zeros(lead + (width,), dtype=dtype, device=device)
+    return p
+
+
+def _init_segment(cfg: ModelConfig, seg: Segment, generator, device,
+                  dtype) -> dict:
+    """One segment's params, every leaf with a leading (n_layers,) axis."""
+    lead = (seg.n_layers,)
+    zeros = lambda *shape: torch.zeros(lead + shape, dtype=dtype,
+                                       device=device)
+    p: dict = {"norm1": zeros(cfg.d_model), "norm2": zeros(cfg.d_model),
+               "attn": _init_gqa(generator, cfg, lead, device, dtype)}
+    if seg.kind == "hybrid":
+        p["ssm"] = init_ssm(generator, cfg.d_model, cfg.ssm, lead, device,
+                            dtype)
+        p["gate_attn"] = zeros()
+        p["gate_ssm"] = zeros()
+    p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff,
+                        cfg.mlp in ("swiglu", "geglu"), lead, device, dtype)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random params from `generator` (which lies on `device`), with the
+    reference's leaf names, shapes, dtype (`cfg.dtype`) and
+    distributions. The values differ from the reference's (torch and jax
+    generators differ); `lm_params_from_jax` carries those across."""
+    _check_supported(cfg)
+    device = resolve_device(device)
+    dt = getattr(torch, cfg.dtype)
+    embed = 0.02 * torch.randn((cfg.vocab_size, cfg.d_model),
+                               generator=generator, device=device)
+    params: dict = {"embed": embed.to(dt),
+                    "final_norm": torch.zeros((cfg.d_model,), dtype=dt,
+                                              device=device)}
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(
+            generator, (cfg.d_model, cfg.vocab_size), device=device, dtype=dt)
+    params["segments"] = [_init_segment(cfg, seg, generator, device, dt)
+                          for seg in cfg.resolved_segments]
+    return params
+
+
+def count_params(params) -> int:
+    n = []
+    map_tree(lambda t: n.append(t.numel()), params)
+    return sum(n)
+
+
+# ======================================================================= #
+# Attention sub-blocks
+# ======================================================================= #
+def _gqa_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
+             positions: torch.Tensor):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    q = x @ p["wq"] + (p["bq"] if "bq" in p else 0.0)
+    k = x @ p["wk"] + (p["bk"] if "bk" in p else 0.0)
+    v = x @ p["wv"] + (p["bv"] if "bv" in p else 0.0)
+    q = q.reshape(B, S, cfg.n_heads, hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, hd)
+    if cfg.rope_theta:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _gqa_full(p, x, cfg: ModelConfig, positions, window):
+    """Prefill GQA over positions 0..S-1. Returns (out, (k, v))."""
+    B, S, _ = x.shape
+    q, k, v = _gqa_qkv(p, x, cfg, positions)
+    o = attention_prefill(q, k, v, window=window,
+                          softcap=cfg.attn_logit_softcap, causal=True)
+    return o.reshape(B, S, -1) @ p["wo"], (k, v)
+
+
+def _gqa_step(p, x, cfg: ModelConfig, cache_k, cache_v, pos: int, window):
+    B = x.shape[0]
+    positions = torch.full((1,), pos, device=x.device)
+    q, k, v = _gqa_qkv(p, x, cfg, positions)
+    cache_update(cache_k, k, pos, window)
+    cache_update(cache_v, v, pos, window)
+    o = attention_decode(q, cache_k, cache_v, pos, window=window,
+                         softcap=cfg.attn_logit_softcap)
+    return o.reshape(B, 1, -1) @ p["wo"]
+
+
+def _seg_window(cfg: ModelConfig, seg: Segment):
+    if seg.full_attention:
+        return None
+    return seg.sliding_window or cfg.sliding_window
+
+
+# ======================================================================= #
+# Layer application (one call per layer)
+# ======================================================================= #
+def _init_segment_cache(cfg: ModelConfig, seg: Segment, B: int,
+                        max_seq: int, dt, device) -> dict:
+    """One segment's decode cache, every leaf with a leading layer axis."""
+    hd = cfg.resolved_head_dim
+    window = _seg_window(cfg, seg)
+    slots = min(max_seq, window) if window else max_seq
+    zeros = lambda *shape: torch.zeros((seg.n_layers, B) + shape, dtype=dt,
+                                       device=device)
+    c = {"k": zeros(slots, cfg.n_kv_heads, hd),
+         "v": zeros(slots, cfg.n_kv_heads, hd)}
+    if seg.kind == "hybrid":
+        d_inner = cfg.ssm.expand * cfg.d_model
+        H = d_inner // cfg.ssm.head_dim
+        c["ssm_s"] = zeros(H, cfg.ssm.state_dim, cfg.ssm.head_dim)
+        c["conv_tail"] = zeros(CONV_K - 1, d_inner)
+    return c
+
+
+def _apply_layer_prefill(cfg: ModelConfig, seg: Segment, lp: dict, x,
+                         positions, cache: dict):
+    """Returns x; fills this layer's `cache` views in place."""
+    S = x.shape[1]
+    window = _seg_window(cfg, seg)
+    h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    o, (k, v) = _gqa_full(lp["attn"], h, cfg, positions, window)
+    slots = cache["k"].shape[1]
+    if window and S > slots:
+        # keep the last `window` tokens, ring-aligned
+        start = (S - slots) % slots
+        cache["k"].copy_(torch.roll(k[:, -slots:], start, dims=1))
+        cache["v"].copy_(torch.roll(v[:, -slots:], start, dims=1))
+    else:
+        cache["k"][:, :S] = k
+        cache["v"][:, :S] = v
+    if seg.kind == "hybrid":
+        s_out, (ssm_s, tail) = ssm_forward(lp["ssm"], h, cfg.ssm)
+        o = torch.exp(lp["gate_attn"]) * o + torch.exp(lp["gate_ssm"]) * s_out
+        cache["ssm_s"].copy_(ssm_s)
+        cache["conv_tail"].copy_(tail)
+    x = x + o
+    h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+    return x + apply_mlp(lp["mlp"], h2, cfg.mlp)
+
+
+def _apply_layer_decode(cfg: ModelConfig, seg: Segment, lp: dict, x,
+                        cache: dict, pos: int):
+    """Returns x; updates this layer's `cache` views in place."""
+    window = _seg_window(cfg, seg)
+    h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+    o = _gqa_step(lp["attn"], h, cfg, cache["k"], cache["v"], pos, window)
+    if seg.kind == "hybrid":
+        s_out, (ssm_s, tail) = ssm_step(lp["ssm"], h, cfg.ssm,
+                                        cache["ssm_s"], cache["conv_tail"])
+        o = torch.exp(lp["gate_attn"]) * o + torch.exp(lp["gate_ssm"]) * s_out
+        cache["ssm_s"].copy_(ssm_s)
+        cache["conv_tail"].copy_(tail)
+    x = x + o
+    h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+    return x + apply_mlp(lp["mlp"], h2, cfg.mlp)
+
+
+# ======================================================================= #
+# Top-level model API
+# ======================================================================= #
+def _layer(tree: dict, i: int) -> dict:
+    """Layer i's views of a segment's stacked leaves."""
+    return map_tree(lambda t: t[i], tree)
+
+
+def _logits(cfg: ModelConfig, params, x):
+    h = rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return h @ params["embed"].T
+    return h @ params["lm_head"]
+
+
+def _check_inputs(cfg: ModelConfig, prefix_embeds, enc_embeds) -> None:
+    _check_supported(cfg)
+    if prefix_embeds is not None:
+        raise _not_ported("prefix embeddings (VLM)", "prefix")
+    if enc_embeds is not None:
+        raise _not_ported("encoder embeddings (enc-dec)", "encoder")
+
+
+def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int,
+            prefix_embeds=None, enc_embeds=None):
+    """Process the prompt (B, S) and build the decode cache.
+
+    Returns (last-position logits (B, V), cache dict)."""
+    _check_inputs(cfg, prefix_embeds, enc_embeds)
+    x = params["embed"][tokens]
+    B, S, _ = x.shape
+    positions = torch.arange(S, device=x.device)
+    caches = []
+    for seg, sp in zip(cfg.resolved_segments, params["segments"]):
+        cache = _init_segment_cache(cfg, seg, B, max_seq, x.dtype, x.device)
+        for i in range(seg.n_layers):
+            x = _apply_layer_prefill(cfg, seg, _layer(sp, i), x, positions,
+                                     _layer(cache, i))
+        caches.append(cache)
+    logits = _logits(cfg, params, x[:, -1:, :])[:, 0]
+    return logits, {"segments": caches, "pos": S}
+
+
+def decode_step(cfg: ModelConfig, params, token: torch.Tensor, cache):
+    """One decode step. token: (B, 1) integer. Returns (logits (B,V),
+    cache), the cache updated in place."""
+    _check_supported(cfg)
+    pos = cache["pos"]
+    x = params["embed"][token]
+    for seg, sp, sc in zip(cfg.resolved_segments, params["segments"],
+                           cache["segments"]):
+        for i in range(seg.n_layers):
+            x = _apply_layer_decode(cfg, seg, _layer(sp, i), x,
+                                    _layer(sc, i), pos)
+    logits = _logits(cfg, params, x)[:, 0]
+    return logits, {"segments": cache["segments"], "pos": pos + 1}
+
+
+def init_decode_cache(cfg: ModelConfig, params, B: int, max_seq: int,
+                      enc_embeds=None, prompt=None, prefix_embeds=None):
+    """Convenience: prefill from a prompt (or a single BOS token)."""
+    if prompt is None:
+        prompt = torch.zeros((B, 1), dtype=torch.int64,
+                             device=params["embed"].device)
+    return prefill(cfg, params, prompt, max_seq, prefix_embeds=prefix_embeds,
+                   enc_embeds=enc_embeds)
+
+
+def forward_train(cfg: ModelConfig, params, tokens, prefix_embeds=None,
+                  enc_embeds=None):
+    raise _not_ported("forward_train", "train")

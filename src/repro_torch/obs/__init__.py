@@ -6,9 +6,12 @@
   enabled()             is a tracer installed?
   tracing()             scoped enable (tests)
   metrics_summary()     counters + per-phase aggregates + hit rates
+  log_record()          structured launcher progress (REPRO_LOG=1 toggle)
 
-The exporters and the launcher logger are not ported yet (ROADMAP item 11).
+The trace exporters are not ported yet (ROADMAP queue item 'Serving
+extras').
 """
+from repro_torch.obs.logging import log_enabled, log_record, set_logging
 from repro_torch.obs.trace import (
     Tracer,
     count,
@@ -22,4 +25,5 @@ from repro_torch.obs.trace import (
 )
 
 __all__ = ["Tracer", "count", "disable", "enable", "enabled", "get_tracer",
-           "metrics_summary", "span", "tracing"]
+           "log_enabled", "log_record", "metrics_summary", "set_logging",
+           "span", "tracing"]

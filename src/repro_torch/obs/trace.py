@@ -31,7 +31,7 @@ Usage::
     metrics_summary()  # {"counters": ..., "spans": ..., ...}
 
 Exporters (Chrome/Perfetto trace.json, flat JSONL) are not ported yet
-(ROADMAP item 11).
+(ROADMAP queue item 'Serving extras').
 """
 from __future__ import annotations
 

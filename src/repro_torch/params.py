@@ -20,6 +20,8 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamLayout:
@@ -53,7 +55,9 @@ class ParamLayout:
 
     def from_tree(self, tree: dict, device=None) -> torch.Tensor:
         """Flatten a nested dict of arrays (optionally with a shared
-        leading client axis) into one contiguous float32 buffer."""
+        leading client axis) into one contiguous float32 buffer on
+        `device` (CUDA unless asked otherwise)."""
+        device = resolve_device(device)
         parts = []
         for path, shape in self.leaves:
             node = tree
@@ -92,7 +96,8 @@ FEMNIST_MLP = ParamLayout((
 def params_from_jax(tree: dict, layout: ParamLayout = FEMNIST_MLP,
                     device=None) -> torch.Tensor:
     """Reference params (nested dict of numpy arrays, e.g. from
-    `jax.device_get`) -> flat float32 tensor, (P,) or (C, P)."""
+    `jax.device_get`) -> flat float32 tensor, (P,) or (C, P), on `device`
+    (CUDA unless asked otherwise)."""
     return layout.from_tree(tree, device=device)
 
 

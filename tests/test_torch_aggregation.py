@@ -48,7 +48,8 @@ def test_weighted_average_matches_reference(weights):
     stacked = _stack(_trees(K))
     w = np.asarray(weights, np.float32)
     want = jax_average(stacked, jnp.asarray(w), use_kernel=False)
-    got = weighted_average(params_from_jax(stacked), torch.as_tensor(w))
+    got = weighted_average(params_from_jax(stacked, device="cpu"),
+                           torch.as_tensor(w))
     _close(got, want)
     np.testing.assert_array_equal(normalized_weights(torch.as_tensor(w)),
                                   np.asarray(jax_normalized(jnp.asarray(w))))
@@ -66,8 +67,8 @@ def test_weighted_delta_update_matches_reference(staleness, server_lr):
     assert np.array_equal(w, jax_admission(ns, st, 4))
     want = jax_delta(glob, stacked, jnp.asarray(w), jnp.asarray(st),
                      server_lr=server_lr)
-    got = weighted_delta_update(params_from_jax(glob),
-                                params_from_jax(stacked),
+    got = weighted_delta_update(params_from_jax(glob, device="cpu"),
+                                params_from_jax(stacked, device="cpu"),
                                 torch.as_tensor(w), torch.as_tensor(st),
                                 server_lr=server_lr)
     _close(got, want)
@@ -75,8 +76,8 @@ def test_weighted_delta_update_matches_reference(staleness, server_lr):
 
 def test_all_zero_weight_round_keeps_the_model():
     trees = _trees(K + 1, seed=3)
-    glob = params_from_jax(trees[0])
-    stacked = params_from_jax(_stack(trees[1:]))
+    glob = params_from_jax(trees[0], device="cpu")
+    stacked = params_from_jax(_stack(trees[1:]), device="cpu")
     zero = torch.zeros(K)
     st = torch.tensor([5, 6, 7, 8, 9], dtype=torch.int32)
     got = weighted_delta_update(glob, stacked, zero, st)

@@ -33,7 +33,7 @@ def _leaves(tree: dict) -> list[np.ndarray]:
 
 def test_flat_layout_round_trips_jax_init_bitwise():
     tree = _jax_params()
-    flat = params_from_jax(tree)
+    flat = params_from_jax(tree, device="cpu")
     assert flat.shape == (46_639,) and flat.dtype == torch.float32
     assert FEMNIST_MLP.size == sum(l.size for l in _leaves(tree))
     back = params_to_numpy(flat)
@@ -46,7 +46,7 @@ def test_flat_layout_round_trips_jax_init_bitwise():
     np.testing.assert_array_equal(
         flat.numpy(), np.concatenate([l.reshape(-1) for l in _leaves(tree)]))
     stacked = jax.tree.map(lambda *xs: np.stack(xs), tree, _jax_params(1))
-    flat2 = params_from_jax(stacked)
+    flat2 = params_from_jax(stacked, device="cpu")
     assert flat2.shape == (2, 46_639)
     for a, b in zip(_leaves(params_to_numpy(flat2)), _leaves(stacked)):
         assert np.array_equal(a, b)
@@ -80,11 +80,11 @@ def test_mlp_logits_match_single_and_stacked():
     tree = _jax_params()
     x = rng.random((2, 16, 28, 28, 1)).astype(np.float32)
     want = np.asarray(jax_apply(tree, jnp.asarray(x[0])))
-    got = femnist_mlp_apply(FEMNIST_MLP.views(params_from_jax(tree)),
-                            torch.as_tensor(x[0]))
+    flat1 = params_from_jax(tree, device="cpu")
+    got = femnist_mlp_apply(FEMNIST_MLP.views(flat1), torch.as_tensor(x[0]))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
     trees = [tree, _jax_params(3)]
-    flat = torch.stack([params_from_jax(t) for t in trees])
+    flat = torch.stack([params_from_jax(t, device="cpu") for t in trees])
     got2 = femnist_mlp_apply(FEMNIST_MLP.views(flat), torch.as_tensor(x))
     for c in range(2):
         want_c = np.asarray(jax_apply(trees[c], jnp.asarray(x[c])))
@@ -125,10 +125,11 @@ def test_vmapped_client_update_matches_reference(mu, anchored):
     idx = torch.as_tensor(replay_indices(rngs, n, bound, B))
     mine = vmapped_client_update(classification_loss(femnist_mlp_apply),
                                  lr=lr, batch_size=B, max_steps=bound)
-    p0 = params_from_jax(params0)
-    got = mine(p0, params_from_jax(anchor), torch.as_tensor(x),
+    p0 = params_from_jax(params0, device="cpu")
+    got = mine(p0, params_from_jax(anchor, device="cpu"), torch.as_tensor(x),
                torch.as_tensor(y).long(), steps.tolist(), mu, idx)
-    assert torch.equal(p0, params_from_jax(params0))   # input untouched
+    # input untouched
+    assert torch.equal(p0, params_from_jax(params0, device="cpu"))
     for a, b in zip(_leaves(params_to_numpy(got)),
                     _leaves(jax.device_get(want))):
         np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
@@ -140,7 +141,7 @@ def test_single_client_update_is_the_stack_of_one():
     x, y, n, steps = _client_inputs(2)
     rngs = jax.random.split(jax.random.PRNGKey(4), 4)
     idx = torch.as_tensor(replay_indices(rngs, n, 8, 16))
-    p0 = params_from_jax(_jax_params())
+    p0 = params_from_jax(_jax_params(), device="cpu")
     loss = classification_loss(femnist_mlp_apply)
     stacked = vmapped_client_update(loss, batch_size=16, max_steps=8)
     single = make_client_update(femnist_mlp_apply, batch_size=16,
@@ -172,7 +173,8 @@ def test_evaluate_matches_reference():
             jnp.argmax(jax_apply(tree, jnp.asarray(x[c, : N // 2])), -1))
     want = float(jax_evaluate(jax_apply, tree, jnp.asarray(x),
                               jnp.asarray(y), jnp.asarray(n_valid)))
-    got = float(evaluate(femnist_mlp_apply, params_from_jax(tree),
+    got = float(evaluate(femnist_mlp_apply,
+                         params_from_jax(tree, device="cpu"),
                          torch.as_tensor(x), torch.as_tensor(y).long(),
                          torch.as_tensor(n_valid)))
     assert want > 0.3

@@ -6,8 +6,10 @@ Run on a machine with an NVIDIA Hopper card and `nvcc`:
 
 The kernels are built from `src/repro_torch/csrc/` at first use. Each is
 held against its plain PyTorch version on the same card inputs with the
-tolerances of `tests/test_kernels.py` (2e-5 in f32, 2e-2 in bf16). This
-file imports neither `jax` nor `repro`, so it runs where only the port is
+tolerances of `tests/test_kernels.py` (2e-5 in f32, 2e-2 in bf16;
+flash_attention 3e-5 in f32, wkv6 2e-4), and flash_attention in bf16
+within about one bf16 rounding step (rtol 8e-3, atol 1e-3). This file
+imports neither `jax` nor `repro`, so it runs where only the port is
 installed.
 """
 from __future__ import annotations
@@ -15,9 +17,14 @@ from __future__ import annotations
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core import ALGORITHMS
 from repro_torch.data import synth_femnist
 from repro_torch.kernels import ops, ref
+from repro_torch.launch import serve
+from repro_torch.models.lm.params import lm_params_from_jax, \
+    lm_params_to_numpy
+from repro_torch.models.lm.transformer import init_params
 from repro_torch.orbits import WalkerStar, compute_access_windows, \
     station_subnetwork
 from repro_torch.orbits.access import visibility_grid
@@ -40,8 +47,10 @@ def dev() -> torch.device:
     return torch.device("cuda:0")
 
 
-def _close(got: torch.Tensor, want: torch.Tensor, tol: float) -> None:
-    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+def _close(got: torch.Tensor, want: torch.Tensor, rtol: float,
+           atol: float | None = None) -> None:
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=rtol if atol is None else atol)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -159,7 +168,7 @@ def test_card_run_matches_cpu_run(dev):
             device=device, sampler=OnDevice()).run()
         moved = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
         if device == dev:
-            assert all(v > 0 for v in moved.values()), moved
+            assert moved["fedagg"] > 0 and moved["prox_sgd"] > 0, moved
         else:
             assert not any(moved.values()), moved
     cpu, card = runs["cpu"], runs[str(dev)]
@@ -173,3 +182,166 @@ def test_card_run_matches_cpu_run(dev):
                 torch.as_tensor(card.final_params[layer][leaf]),
                 torch.as_tensor(cpu.final_params[layer][leaf]),
                 rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------ LM kernels
+# (rtol, atol). In bf16 both sides round one f32 result, so they differ
+# by at most one bf16 step: 2**-7 * |want| < 8e-3 * |want|.
+FLASH_TOL = {torch.float32: (3e-5, 3e-5), torch.bfloat16: (8e-3, 1e-3)}
+FLASH_CASES = [
+    # (B, H, KV, S, D, causal, window, softcap)
+    (4, 25, 5, 2048, 64, True, 1024, None),    # hymba-1.5b serving, SWA
+    (4, 25, 5, 2048, 64, True, None, None),    # hymba-1.5b anchor layers
+    (1, 2, 2, 128, 64, True, None, None),      # test_kernels.py's masks:
+    (2, 4, 2, 128, 64, True, None, None),      # (GQA; D 32 there)
+    (1, 4, 1, 256, 64, True, 64, None),
+    (1, 2, 2, 128, 64, False, None, None),
+    (1, 2, 2, 128, 64, True, None, 30.0),
+    (1, 2, 1, 64, 128, True, 16, None),
+    (2, 4, 2, 1000, 64, True, 100, None),      # S not a tile multiple
+    (1, 8, 1, 300, 256, True, None, None),     # D = 256 with MQA
+    (1, 4, 4, 33, 128, False, 8, 50.0),        # bidirectional window
+]
+
+
+def _flash_inputs(dev, b, h, kv, s, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(b * h * s + d)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, d))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window,softcap", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(dev, b, h, kv, s, d, causal,
+                                              window, softcap, dtype):
+    q, k, v = _flash_inputs(dev, b, h, kv, s, d, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref.flash_attention_ref(q, k, v, **kw), *FLASH_TOL[dtype])
+
+
+def test_flash_attention_reads_the_model_layout_in_place(dev):
+    """(B, S, H, D) tensors go in as transposed views; the output keeps
+    q's layout, so the model's reshape to (B, S, H * D) is a view."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               for t in _flash_inputs(dev, 2, 25, 5, 200, 64, torch.bfloat16))
+    assert not q.is_contiguous()
+    got = ops.flash_attention_op(q, k, v, window=64)
+    assert got.stride() == q.stride()
+    want = ops.flash_attention_op(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), window=64)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _wkv6_inputs(dev, B, H, T, K, V, decay=0.3):
+    g = torch.Generator(device=dev).manual_seed(B * H * T + K)
+    r = torch.randn((B, H, T, K), generator=g, device=dev)
+    k = torch.randn((B, H, T, K), generator=g, device=dev)
+    v = torch.randn((B, H, T, V), generator=g, device=dev)
+    lw = -torch.randn((B, H, T, K), generator=g, device=dev).abs() * decay
+    s0 = torch.randn((B, H, K, V), generator=g, device=dev)
+    return r, k, v, lw, s0
+
+
+@pytest.mark.parametrize("B,H,T,K,V,chunk", [
+    (4, 50, 2048, 16, 64, 64),      # hymba-1.5b serving (SSD heads)
+    (2, 4, 256, 64, 64, 64),        # K = V = 64 (RWKV6 heads)
+    (2, 3, 96, 16, 32, 32),         # test_kernels.py's sweep shapes
+    (2, 3, 64, 64, 64, 16),
+    (2, 3, 100, 16, 64, 64),        # T not a chunk multiple
+    (1, 2, 20, 16, 64, 64),         # T shorter than one chunk
+])
+def test_wkv6_kernel_matches_plain(dev, B, H, T, K, V, chunk):
+    args = _wkv6_inputs(dev, B, H, T, K, V)
+    before = ops.LAUNCHES["wkv6"]
+    o, s = ops.wkv6_op(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["wkv6"] == before + 1
+    wo, ws = ref.wkv6_ref(*args, chunk=chunk)
+    _close(o, wo, 2e-4)
+    _close(s, ws, 2e-4)
+
+
+def test_wkv6_kernel_strong_decay_stays_finite(dev):
+    r, k, v, _, _ = _wkv6_inputs(dev, 1, 1, 256, 32, 32)
+    lw = torch.full_like(r, -5.0)                # near-total per-step decay
+    s0 = torch.zeros((1, 1, 32, 32), device=dev)
+    o, s = ops.wkv6_op(r, k, v, lw, s0, chunk=128)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    wo, ws = ref.wkv6_ref(r, k, v, lw, s0, chunk=128)
+    _close(o, wo, 2e-4)
+    _close(s, ws, 2e-4)
+
+
+def test_wkv6_kernel_reads_broadcast_views(dev):
+    """The SSD heads pass k broadcast over heads and logw over the state
+    dim (stride 0), and v as a transposed view: read where they lie."""
+    B, H, T, N, hd = 2, 6, 130, 16, 64
+    g = torch.Generator(device=dev).manual_seed(7)
+    r = torch.randn((B, H, T, N), generator=g, device=dev)
+    k = torch.randn((B, 1, T, N), generator=g, device=dev).expand(B, H, T, N)
+    lw = -torch.rand((B, H, T, 1), generator=g, device=dev).expand(
+        B, H, T, N)
+    v = torch.randn((B, T, H, hd), generator=g, device=dev).transpose(1, 2)
+    s0 = torch.zeros((B, H, N, hd), device=dev)
+    o, s = ops.wkv6_op(r, k, v, lw, s0)
+    assert o.stride() == v.stride()
+    wo, ws = ops.wkv6_op(r, k.contiguous(), v.contiguous(), lw.contiguous(),
+                         s0)
+    torch.cuda.synchronize()
+    assert torch.equal(o, wo) and torch.equal(s, ws)
+
+
+def test_cuda_tensors_never_take_the_plain_versions(dev, monkeypatch):
+    def refuse(*_a, **_k):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    for name in ("flash_attention_ref", "wkv6_ref", "fedagg_ref",
+                 "prox_sgd_masked_ref_"):
+        monkeypatch.setattr(ref, name, refuse)
+    q, k, v = _flash_inputs(dev, 1, 2, 1, 64, 64, torch.float32)
+    ops.flash_attention_op(q, k, v)
+    ops.wkv6_op(*_wkv6_inputs(dev, 1, 2, 64, 16, 64))
+    x = torch.ones((3, 100), device=dev)
+    ops.fedagg_op(x, torch.ones((3,), device=dev))
+    ops.prox_sgd_op(x, x, x[0], torch.ones((3,), dtype=torch.int32,
+                                           device=dev), 0, 0.1, 0.0)
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        ops.flash_attention_op(q, k.cpu(), v)
+    with pytest.raises(TypeError, match="float32"):
+        ops.wkv6_op(*(t.double() for t in _wkv6_inputs(dev, 1, 1, 8, 16,
+                                                         64)))
+
+
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "gemma-2b"])
+def test_reduced_lm_card_matches_cpu(dev, arch):
+    """Reduced hymba-1.5b / gemma-2b (f32) from one set of weights on the
+    card and on the CPU, with a 160-token prompt (the 128-token window's
+    ring cache rolls): identical greedy tokens over 8 decode steps, logits
+    within 1e-4 (f32 sums in another order)."""
+    cfg = get_config(arch).reduced()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_params = lm_params_from_jax(lm_params_to_numpy(cpu_params), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 160),
+                            generator=torch.Generator().manual_seed(1))
+    out = {}
+    for where, params in (("cpu", cpu_params), ("card", card_params)):
+        before = dict(ops.LAUNCHES)
+        toks, _, logits = serve.serve_batch(
+            cfg, params, prompts.to(params["embed"].device), 8)
+        moved = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES}
+        out[where] = (toks.cpu(), logits.cpu(), moved)
+    assert torch.equal(out["card"][0], out["cpu"][0])
+    _close(out["card"][1], out["cpu"][1], 1e-4)
+    assert not any(out["cpu"][2].values())
+    assert out["card"][2]["flash_attention"] == cfg.n_layers
+    assert out["card"][2]["wkv6"] == (cfg.n_layers if arch == "hymba-1.5b"
+                                      else 0)
+

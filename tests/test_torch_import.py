@@ -73,6 +73,42 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
         resolve_device("meta")
 
 
+def test_femnist_mlp_init_defaults_to_cuda(monkeypatch):
+    """Like every entry point, the femnist init resolves device=None to
+    the card, and raises without one rather than running on the CPU."""
+    from repro_torch.models.femnist_mlp import femnist_mlp_init
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        femnist_mlp_init(torch.Generator().manual_seed(0))
+    assert femnist_mlp_init(torch.Generator().manual_seed(0),
+                            "cpu").device == torch.device("cpu")
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    from repro_torch.models.lm.attention import cache_positions
+    from repro_torch.models.lm.layers import dense_init, init_mlp, rope_freqs
+    from repro_torch.models.lm.params import lm_params_from_jax
+    from repro_torch.models.lm.ssm import init_ssm
+    from repro_torch.models.lm.transformer import init_params
+    from repro_torch.params import params_from_jax
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("hymba-1.5b").reduced()
+    gen = torch.Generator()
+    for call in (lambda: init_params(cfg, gen),
+                 lambda: dense_init(gen, (4, 8)),
+                 lambda: init_mlp(gen, 4, 8, True),
+                 lambda: init_ssm(gen, cfg.d_model, cfg.ssm),
+                 lambda: rope_freqs(8, 1e4),
+                 lambda: cache_positions(3, 4, 2),
+                 lambda: lm_params_from_jax({}),
+                 lambda: params_from_jax({}),
+                 lambda: serve.main(["--arch", "gemma-2b"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
 def test_tf32_pinned_off():
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False

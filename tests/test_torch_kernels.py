@@ -156,3 +156,28 @@ def test_build_sources_exist_and_hash_changes_with_source(tmp_path,
     assert build._digest("nvcc") == before
     (tmp_path / build.SOURCES[0]).write_text("// edited\n")
     assert build._digest("nvcc") != before
+
+
+_PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z12flash_kernelIfLi128EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z12flash_kernelIfLi128EEvv
+    16 bytes stack frame, 16 bytes spill stores, 16 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 488 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z11wkv6_kernelv' for 'sm_90a'
+ptxas info    : Function properties for _Z11wkv6_kernelv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 480 bytes cmem[0]
+"""
+
+
+def test_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
+    lib = tmp_path / "libreprokernels-0.so"
+    lib.with_suffix(".ptxas.txt").write_text(_PTXAS_LOG)
+    monkeypatch.setattr(build, "build", lambda: lib)
+    monkeypatch.setattr(build, "_demangle", lambda names: names)
+    assert build.resource_usage() == [
+        dict(kernel="_Z12flash_kernelIfLi128EEvv", stack_bytes=16,
+             spill_store_bytes=16, spill_load_bytes=16, registers=128),
+        dict(kernel="_Z11wkv6_kernelv", stack_bytes=0, spill_store_bytes=0,
+             spill_load_bytes=0, registers=40)]
