@@ -7,7 +7,10 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
 
   card       the card's name and power limit (nvidia-smi), torch / CUDA /
              nvcc versions, the kernels' build time (from the sources in
-             this checkout) and ptxas's registers and spills per kernel;
+             this checkout), ptxas's registers and spills per kernel and,
+             from `cuobjdump -sass`, its tensor-core (HGMMA/HMMA) and
+             asynchronous-copy (UTMALDG/LDGSTS) instructions; fails if a
+             bf16 flash_attention kernel has no tensor-core instruction;
   kernels    every CUDA kernel of the main path against its plain PyTorch
              version on the same inputs, in f32 (rtol = atol = 2e-5) and
              bf16 (2e-2), the tolerances of tests/test_kernels.py, with
@@ -27,14 +30,16 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              the same access windows, init params and minibatch draws:
              RoundRecords identical, final params within 1e-4.
   lm_kernels flash_attention and wkv6 against their plain versions at
-             hymba-1.5b's serving shapes and in every mask variant
-             (flash 3e-5 in f32; in bf16 rtol 8e-3 + atol 1e-3, about
-             one bf16 rounding step, since both sides round one f32
-             result; wkv6 2e-4), with device times, bounds and, for
+             hymba-1.5b's serving shapes (wkv6 also in the SSD heads'
+             broadcast layout) and in every mask variant on both flash
+             kernels (flash 3e-5 in f32; in bf16 rtol 8e-3 + atol 1e-3,
+             about one bf16 rounding step, since both sides round one
+             f32 result; wkv6 2e-4), with device times, bounds and, for
              flash, scaled_dot_product_attention as the yardstick;
   serve      full-width hymba-1.5b (bf16, random weights from a seed):
              one batch of `serve.serve_batch` plain (wall) and under
-             torch.profiler, then `repro_torch.launch.serve.main` with
+             torch.profiler (with every launch of the port's kernels by
+             kernel), then `repro_torch.launch.serve.main` with
              8 requests, batch 4, 2048-token prompts (past the 1024
              window: the ring cache rolls), 32 new tokens, launch
              counters zeroed just before and read just after;
@@ -137,12 +142,25 @@ def phase_card() -> dict:
     t0 = time.perf_counter()
     build.library()
     build_s = time.perf_counter() - t0
+    # ptxas's registers and spills, and from the machine code the count of
+    # tensor-core (HGMMA/HMMA) and asynchronous-copy (UTMALDG/LDGSTS)
+    # instructions, per kernel.
+    sass = {r["kernel"]: r for r in build.sass_counts()}
+    resources = [dict(row, **{k: v for k, v in sass.get(row["kernel"],
+                                                        {}).items()
+                              if k != "kernel"})
+                 for row in build.resource_usage()]
     info = dict(nvidia_smi=line, name=torch.cuda.get_device_name(0),
                 torch=torch.__version__, cuda=torch.version.cuda,
                 nvcc=nvcc_version, python=sys.version.split()[0],
-                kernel_build_s=build_s,
-                kernel_resources=build.resource_usage())
+                kernel_build_s=build_s, kernel_resources=resources)
     emit("card", **info)
+    bf16_flash = [r for r in resources
+                  if "flash_bf16_kernel" in r["kernel"]]
+    require(bool(bf16_flash) and all(r.get("tensor_core_ops", 0) > 0
+                                     for r in bf16_flash),
+            "a bf16 flash_attention kernel has no tensor-core instruction: "
+            f"{bf16_flash}")
     return info
 
 
@@ -370,10 +388,15 @@ def phase_where_time_goes(dev, setup: dict) -> dict:
     return out
 
 
+PORT_KERNEL_NAMES = ("prox_sgd_kernel", "fedagg_kernel", "flash_f32_kernel",
+                     "flash_bf16_kernel", "wkv6_")
+
+
 def _device_time(prof, wall_s: float) -> dict:
     """Device events of a `torch.profiler` run: their count, the busy
     time (union of their intervals), the idle share against `wall_s` (a
-    plain run's wall), and time by kernel name (top 12)."""
+    plain run's wall), time by kernel name (top 12) and the launches and
+    time of each of the port's own kernels."""
     from torch.autograd import DeviceType
 
     device_events = [e for e in prof.events()
@@ -391,7 +414,11 @@ def _device_time(prof, wall_s: float) -> dict:
         device_busy_s=busy_s if device_events else None,
         device_idle_share=(1.0 - busy_s / wall_s) if device_events else None,
         device_time_by_name=[dict(name=k[:100], count=n, total_s=us / 1e6)
-                             for k, (n, us) in top])
+                             for k, (n, us) in top],
+        # Every CUDA launch of the port's own kernels, by kernel.
+        port_kernels=[dict(name=k[:100], count=n, total_s=us / 1e6)
+                      for k, (n, us) in sorted(by_name.items())
+                      if any(s in k for s in PORT_KERNEL_NAMES)])
 
 
 # ----------------------------------------------------------- cpu vs card
@@ -506,13 +533,26 @@ def check_flash(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
 
 
 def check_wkv6(dev, case: str, B: int, H: int, T: int, K: int, V: int,
-               chunk: int = 64, strong_decay: bool = False) -> dict:
+               chunk: int = 64, strong_decay: bool = False,
+               ssd_views: bool = False) -> dict:
+    """With `ssd_views`, the inputs are laid out as the SSD heads pass them
+    (models/lm/ssm.py): k broadcast over heads, logw over the state dim
+    (stride 0), v a transposed (B, T, H, V) view."""
     g = torch.Generator(device=dev).manual_seed(B * H * T + K)
-    r, k = (torch.randn((B, H, T, K), generator=g, device=dev)
-            for _ in range(2))
-    v = torch.randn((B, H, T, V), generator=g, device=dev)
+    r = torch.randn((B, H, T, K), generator=g, device=dev)
+    if ssd_views:
+        k = torch.randn((B, 1, T, K), generator=g, device=dev).expand(
+            B, H, T, K)
+        v = torch.randn((B, T, H, V), generator=g, device=dev).transpose(1, 2)
+    else:
+        k = torch.randn((B, H, T, K), generator=g, device=dev)
+        v = torch.randn((B, H, T, V), generator=g, device=dev)
     if strong_decay:                     # near-total decay every step
         lw = torch.full((B, H, T, K), -5.0, device=dev)
+        s0 = torch.zeros((B, H, K, V), device=dev)
+    elif ssd_views:
+        lw = -0.3 * torch.randn((B, H, T, 1), generator=g,
+                                device=dev).abs().expand(B, H, T, K)
         s0 = torch.zeros((B, H, K, V), device=dev)
     else:
         lw = -0.3 * torch.randn((B, H, T, K), generator=g, device=dev).abs()
@@ -523,12 +563,16 @@ def check_wkv6(dev, case: str, B: int, H: int, T: int, K: int, V: int,
     torch.cuda.synchronize()
     err = max(_max_err(o, want_o, WKV6_TOL), _max_err(s_final, want_s,
                                                        WKV6_TOL))
-    n_bytes = (3 * B * H * T * K + 2 * B * H * T * V + 2 * B * H * K * V) * 4
+    # Each input read once (a broadcast input's distinct elements), each
+    # output written once.
+    n_in = sum(x.untyped_storage().nbytes() for x in args)
+    n_bytes = n_in + (B * H * T * V + B * H * K * V) * 4
     # The step-by-step recurrence: o = r.S (2KV), S = w S + k v^T (3KV).
     b_ms, b_by = bound_ms(n_bytes, 5 * B * H * T * K * V)
     return dict(
         name="wkv6", case=case, B=B, H=H, T=T, K=K, V=V, chunk=chunk,
-        strong_decay=strong_decay, max_abs_err=err, tol=WKV6_TOL,
+        strong_decay=strong_decay, ssd_views=ssd_views, max_abs_err=err,
+        tol=WKV6_TOL,
         ms=device_ms(lambda: ops.wkv6_op(*args, chunk=chunk)),
         plain_ms=device_ms(lambda: ref.wkv6_ref(*args, chunk=chunk)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
@@ -541,16 +585,18 @@ def phase_lm_kernels(dev) -> list[dict]:
         rows.append(check_flash(dev, "serve_swa", B, 25, 5, S, 64, dtype,
                                 window=1024))
         rows.append(check_flash(dev, "serve_full", B, 25, 5, S, 64, dtype))
-    # The mask cases of tests/test_kernels.py (its D = 32 GQA case at 64).
-    for b, h, kv, s, d, causal, window, softcap in (
-            (1, 2, 2, 128, 64, True, None, None),
-            (2, 4, 2, 128, 64, True, None, None),
-            (1, 4, 1, 256, 64, True, 64, None),
-            (1, 2, 2, 128, 64, False, None, None),
-            (1, 2, 2, 128, 64, True, None, 30.0),
-            (1, 2, 1, 64, 128, True, 16, None)):
-        rows.append(check_flash(dev, "mask_sweep", b, h, kv, s, d, "float32",
-                                causal, window, softcap))
+    # The mask cases of tests/test_kernels.py (its D = 32 GQA case at 64),
+    # on both kernels.
+    for dtype in ("float32", "bfloat16"):
+        for b, h, kv, s, d, causal, window, softcap in (
+                (1, 2, 2, 128, 64, True, None, None),
+                (2, 4, 2, 128, 64, True, None, None),
+                (1, 4, 1, 256, 64, True, 64, None),
+                (1, 2, 2, 128, 64, False, None, None),
+                (1, 2, 2, 128, 64, True, None, 30.0),
+                (1, 2, 1, 64, 128, True, 16, None)):
+            rows.append(check_flash(dev, "mask_sweep", b, h, kv, s, d, dtype,
+                                    causal, window, softcap))
     rows.append(check_flash(dev, "bf16", 1, 2, 2, 128, 64, "bfloat16"))
     rows.append(check_flash(dev, "ragged_S", B, 25, 5, 1000, 64, "bfloat16",
                             window=256))
@@ -558,6 +604,8 @@ def phase_lm_kernels(dev) -> list[dict]:
     rows.append(check_flash(dev, "gqa_d128", 1, 32, 8, 1024, 128,
                             "bfloat16", window=512))
     rows.append(check_wkv6(dev, "serve", B, 50, S, 16, 64))
+    rows.append(check_wkv6(dev, "serve_ssd_views", B, 50, S, 16, 64,
+                           ssd_views=True))
     rows.append(check_wkv6(dev, "k64_v64", B, 32, S, 64, 64))
     rows.append(check_wkv6(dev, "ragged_T", 2, 50, 1000, 16, 64))
     rows.append(check_wkv6(dev, "strong_decay", 1, 1, 256, 32, 32,

@@ -8,63 +8,93 @@
 // Replaces the Pallas TPU kernel `repro/kernels/flash_attention.py::
 // flash_attention` (`_flash_kernel`). The TPU kernel walks the KV axis as
 // the innermost sequential grid dimension with (m, l, acc) in VMEM
-// scratch; here one block owns 32 query rows of one (b, h) and loops over
-// the key tiles itself, keeping m, l and acc in registers (f32, as on the
-// TPU). Key tiles that no row of the block can reach (past the causal
-// diagonal, or before the window) are never loaded, which is the TPU
-// kernel's `pl.when(reachable)` at block granularity. Unlike the TPU
+// scratch; here one block owns a tile of query rows of one (b, h) and
+// loops over the key tiles itself, keeping m, l and acc in registers (f32,
+// as on the TPU). Key tiles that no row of the block can reach (past the
+// causal diagonal, or before the window) are never loaded, which is the
+// TPU kernel's `pl.when(reachable)` at block granularity. Unlike the TPU
 // kernel, S need not be a multiple of a tile: the tail tile is masked.
+// The denominator is clamped at 1e-30 as on the TPU.
 //
-// Layout: 8 warps, each owning 4 query rows; a key tile of 32 keys, one
-// per lane. A lane computes the scores of its key against the warp's 4
-// rows (f32 FMAs over D, float4 loads from shared memory: K rows padded to
-// D + 4 floats so a quarter-warp's 16-byte loads hit distinct banks, q
-// rows read as broadcasts), the warp reduces the tile's max per row with
-// shuffles, and then each lane accumulates P V for D / 32 columns of the
-// output (lane + 32 c), reading the tile's probabilities as one float4
-// broadcast per key. Nothing is held per thread as a whole row, so D = 256
-// fits: 32 accumulators a thread. The per-lane partial denominators are
-// rescaled with the row's max like acc and reduced once at the end; the
-// denominator is clamped at 1e-30 as on the TPU.
+// Two kernels, one per input type.
+//
+// bf16 (`flash_bf16_kernel`): tensor cores. One warpgroup (4 warps, 128
+// threads) owns 64 query rows. Q is staged once in shared memory; K and V
+// come in tiles of 64 keys through a ring of two shared-memory stages,
+// loaded with 16-byte `cp.async` copies (zero-filled past S) while the
+// products of the previous tile run. Every tile is stored as 64-column
+// blocks of 64 rows x 128 bytes in the 128-byte swizzle that the `wgmma`
+// descriptors name (16-byte chunk c of row r at chunk c ^ (r % 8)).
+// S = Q K^T is `wgmma` m64n64k16 from shared memory (bf16 in, f32
+// accumulate: exact products, as the f32 reference). Scale, softcap and
+// masks are applied on the accumulator fragment; mask arithmetic runs
+// only on tiles that straddle the diagonal, the window edge or S. A
+// thread holds two rows' fragments, and the row max and sum reduce over
+// the four lanes of a quad. O += P V is `wgmma` with P taken from
+// registers as bf16 (the S fragment is already the A operand's layout)
+// and V read from shared memory in its natural (key, d) layout, which is
+// the transposed (MN-major) B operand. The Pallas kernel multiplies P
+// by V in f32; one bf16 rounding of P (2^-9 relative) misses the bf16
+// tolerance on the serving shape, so P goes in as two bf16 products, its
+// rounding hi and the rounding of P - hi, which carry P to about 2^-17.
+// The denominator sums the unrounded f32 P. Blocks are ordered so that the heaviest causal
+// query tiles start first and the `rep` heads that read one KV head run
+// next to one another (grid x = head), sharing its K and V in L2.
+//
+// f32 (`flash_f32_kernel`): CUDA cores, f32 FMAs (TF32 would not hold the
+// f32 tolerance). 8 warps, each owning 4 query rows; a key tile of 32
+// keys, one per lane. A lane computes the scores of its key against the
+// warp's 4 rows (float4 loads from shared memory: K rows padded to D + 4
+// floats so a quarter-warp's 16-byte loads hit distinct banks, q rows read
+// as broadcasts), the warp reduces the tile's max per row with shuffles,
+// and then each lane accumulates P V for D / 32 columns of the output
+// (lane + 32 c), reading the tile's probabilities as one float4 broadcast
+// per key. The per-lane partial denominators are rescaled with the row's
+// max like acc and reduced once at the end.
 //
 // Bound on the H100: operations. At the serving shape (B=4, H=25, KV=5,
 // S=2048, D=64, window 1024, bf16) the 1.57e8 unmasked pairs need 4 * D
 // flops each (0.040 TFLOP in all), 0.041 ms at the bf16 tensor-core rate,
-// against 0.019 ms to move q, k, v and o. This first kernel computes on the CUDA
-// cores in f32 (no mma/wgmma yet), so it is bounded in practice by the
-// shared-memory loads that feed those FMAs; inputs of either type are
-// widened to f32 on their way into shared memory.
+// against 0.019 ms to move q, k, v and o. The bf16 kernel issues its
+// products on the tensor cores; the f32 kernel is bounded in practice by
+// the shared-memory loads that feed its FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
-constexpr int kWarps = 8;               // warps per block
-constexpr int kRows = 4;                // query rows per warp
-constexpr int kBQ = kWarps * kRows;     // query rows per block
-constexpr int kBK = 32;                 // keys per tile: one per lane
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;       // the TPU kernel's NEG_INF
 
 struct Strides3 {
   long long b, h, s;                    // in elements; the D axis is 1
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
+// Raise a kernel's dynamic shared-memory limit once per device, not on
+// every launch.
+template <typename Kernel>
+cudaError_t set_smem_once(Kernel kernel, int bytes, int device,
+                          std::atomic<unsigned>& done) {
+  const unsigned bit = 1u << (device & 31);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
+  return err;
 }
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+
+// ------------------------------------------------------------ f32 kernel
+namespace f32 {
+
+constexpr int kWarps = 8;               // warps per block
+constexpr int kRows = 4;                // query rows per warp
+constexpr int kBQ = kWarps * kRows;     // query rows per block
+constexpr int kBK = 32;                 // keys per tile: one per lane
+constexpr int kThreads = kWarps * 32;
 
 template <int D>
 constexpr int smem_floats() {
@@ -72,12 +102,12 @@ constexpr int smem_floats() {
   return kBQ * D + kBK * (D + 4) + kBK * D + kWarps * kBK * kRows;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, Strides3 sq,
-             Strides3 sk, Strides3 sv, Strides3 so, int rep, int S,
-             float scale, int causal, int window, float softcap) {
+flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so, int rep,
+                 int S, float scale, int causal, int window, float softcap) {
   constexpr int KS = D + 4;             // padded K row stride (floats)
   constexpr int NC = D / 32;            // output columns per lane
   extern __shared__ float4 smem4[];
@@ -88,13 +118,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + (h / rep) * sk.h;
-  const T* vb = v + b * sv.b + (h / rep) * sv.h;
+  const float* qb = q + b * sq.b + h * sq.h;
+  const float* kb = k + b * sk.b + (h / rep) * sk.h;
+  const float* vb = v + b * sv.b + (h / rep) * sv.h;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, qi = q0 + r;
-    qs[i] = qi < S ? to_f32(qb[qi * sq.s + d]) : 0.0f;
+    qs[i] = qi < S ? qb[qi * sq.s + d] : 0.0f;
   }
 
   // The keys any row of this block can reach: [k_begin, k_end).
@@ -119,8 +149,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int j = i / D, d = i % D, kj = k0 + j;
       const bool in = kj < S;
-      ks[j * KS + d] = in ? to_f32(kb[kj * sk.s + d]) : 0.0f;
-      vs[j * D + d] = in ? to_f32(vb[kj * sv.s + d]) : 0.0f;
+      ks[j * KS + d] = in ? kb[kj * sk.s + d] : 0.0f;
+      vs[j * D + d] = in ? vb[kj * sv.s + d] : 0.0f;
     }
     __syncthreads();
 
@@ -193,34 +223,372 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     lt = fmaxf(lt, 1e-30f);
     const int qi = row0 + r;
     if (qi < S) {
-      T* orow = o + b * so.b + h * so.h + qi * so.s + lane;
+      float* orow = o + b * so.b + h * so.h + qi * so.s + lane;
 #pragma unroll
-      for (int c = 0; c < NC; ++c) orow[32 * c] = from_f32<T>(acc[r][c] / lt);
+      for (int c = 0; c < NC; ++c) orow[32 * c] = acc[r][c] / lt;
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
-                     const int64_t* st, int B, int H, int KV, int S,
-                     float scale, int causal, int window, float softcap,
-                     cudaStream_t stream) {
-  static_assert(kRows == 4, "the P V loop reads 4 rows as one float4");
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}  // namespace f32
+
+// ----------------------------------------------------------- bf16 kernel
+namespace tc {
+
+constexpr int kBQ = 64;                 // query rows per block (wgmma M)
+constexpr int kBK = 64;                 // keys per tile
+constexpr int kThreads = 128;           // one warpgroup
+constexpr int kStages = 2;              // K/V ring in shared memory
+constexpr int kBlockBytes = 64 * 128;   // 64 rows x 64 bf16 columns
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Q, then kStages (K, V) pairs, each D / 64 column blocks; 1 KB of slack
+// to align the base to the 1 KB period of the 128-byte swizzle.
+template <int D>
+constexpr int smem_bytes() {
+  return (1 + 2 * kStages) * (D / 64) * kBlockBytes + 1024;
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c (elements 8c .. 8c + 7) of row r in a
+// 64-row tile: column block c / 8, then the 128-byte swizzle.
+__device__ __forceinline__ uint32_t swizzled(int r, int c) {
+  return (c >> 3) * kBlockBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand whose
+// 8-row groups lie 1024 bytes apart (the leading offset is unused).
+__device__ __forceinline__ uint64_t descriptor(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// Rows r0 .. r0 + 63 of a (S, D) bf16 matrix with row stride `ld` into a
+// swizzled tile with 16-byte `cp.async` copies (the caller commits and
+// waits); rows at or past S are zero. Every row must start on 16 bytes.
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst,
+                                          const __nv_bfloat16* src,
+                                          long long ld, int r0, int S,
+                                          int tid) {
+  constexpr int kChunks = kBQ * D / 8;   // a multiple of kThreads
+#pragma unroll
+  for (int n = 0; n < kChunks / kThreads; ++n) {
+    const int i = tid + n * kThreads, r = i / (D / 8), c = i % (D / 8);
+    const bool in = r0 + r < S;
+    const __nv_bfloat16* g = in ? src + (r0 + r) * ld + c * 8 : src;
+    const uint32_t s = dst + swizzled(r, c);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(g), "r"(in ? 16 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Make this thread's shared-memory writes visible to wgmma (async proxy).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// Keep the compiler from moving reads or writes of accumulator registers
+// across a wgmma fence or wait.
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+// d (64 x 64, f32) += A (64 x 16) B (16 x 64), A and B read from shared
+// memory through descriptors, both K-major (k contiguous).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) B (16 x 64),
+// B read from shared memory in its natural (key, column) layout, which is
+// MN-major for this product: hence the transpose flag.
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                  const __nv_bfloat16* __restrict__ k,
+                  const __nv_bfloat16* __restrict__ v,
+                  __nv_bfloat16* __restrict__ o, Strides3 sq, Strides3 sk,
+                  Strides3 sv, Strides3 so, int rep, int S, float scale,
+                  int causal, int window, float softcap) {
+  constexpr int NB = D / 64;            // 64-column blocks of D
+  constexpr int kTileBytes = NB * kBlockBytes;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t qs = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  // Stage st: K at qs + (1 + 2 st) * kTileBytes, V right after it.
+
+  // Grid: x = head (the rep heads of one KV head are neighbours), y =
+  // query tile from the last (heaviest under a causal mask), z = batch.
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const __nv_bfloat16* qb = q + b * sq.b + h * sq.h;
+  const __nv_bfloat16* kb = k + b * sk.b + (h / rep) * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + (h / rep) * sv.h;
+
+  // The keys any row of this block can reach: [k_begin, k_end).
+  const int q_last = min(q0 + kBQ, S) - 1;
+  const int k_end = causal ? q_last + 1 : S;
+  int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  k_begin -= k_begin % kBK;
+  const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
+
+  load_tile<D>(qs, qb, sq.s, q0, S, tid);
+  load_tile<D>(qs + kTileBytes, kb, sk.s, k_begin, S, tid);
+  load_tile<D>(qs + 2 * kTileBytes, vb, sv.s, k_begin, S, tid);
+  cp_async_commit();
+
+  // Accumulator fragment of m64nNk16: register 4 i + e of this thread is
+  // row 16 warp + lane / 4 + 8 (e / 2), column 8 i + 2 (lane % 4) + e % 2.
+  const int row = q0 + warp * 16 + (lane >> 2);
+  const int col = 2 * (lane & 3);
+  float acc[NB][32];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * kBK;
+    if (t + 1 < n_tiles) {              // prefetch the next tile
+      const uint32_t nxt = qs + (1 + 2 * ((t + 1) & 1)) * kTileBytes;
+      load_tile<D>(nxt, kb, sk.s, k0 + kBK, S, tid);
+      load_tile<D>(nxt + kTileBytes, vb, sv.s, k0 + kBK, S, tid);
+      cp_async_commit();
+      cp_async_wait<1>();               // this tile (and Q) has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+    const uint32_t ks = qs + (1 + 2 * (t & 1)) * kTileBytes;
+    const uint32_t vs = ks + kTileBytes;
+
+    // S = Q K^T over D in steps of 16: 32 bytes into a 128-byte row, the
+    // next column block every 4 steps.
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < D / 16; ++j) {
+      const uint32_t off = (j >> 2) * kBlockBytes + (j & 3) * 32;
+      wgmma_ss(s, descriptor(qs + off), descriptor(ks + off));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // Masks only where the tile meets the diagonal, the window edge or S.
+    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && q0 + kBQ - 1 - k0 >= window);
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * i + e] * scale;
+        if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
+        if (edge) {
+          const int qi = row + 8 * (e >> 1), kj = k0 + 8 * i + col + (e & 1);
+          const bool ok = kj < S && (!causal || kj <= qi) &&
+                          (window <= 0 || qi - kj < window);
+          if (!ok) x = -INFINITY;       // p = 0 whatever the row max
+        }
+        s[4 * i + e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    // Online softmax; a row lives on the four lanes of a quad.
+    float alpha[2], mb[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      alpha[r] = exp2f((m[r] - m_new) * kLog2e);
+      m[r] = m_new;
+      mb[r] = m_new * kLog2e;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float p = exp2f(fmaf(s[i], kLog2e, -mb[(i >> 1) & 1]));
+      s[i] = p;
+      l[(i >> 1) & 1] += p;
+    }
+    // P as the A operand of m64nNk16, key step kk: registers 8 kk .. 8 kk
+    // + 7 of the S fragment, packed to bf16 pairs, split into a high part
+    // and the bf16 rounding of what it leaves (P = hi + lo to ~2^-16).
+    uint32_t hi[16], lo[16];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const __nv_bfloat162 h2 = __floats2bfloat162_rn(s[2 * j], s[2 * j + 1]);
+      const float2 back = __bfloat1622float2(h2);
+      hi[j] = *reinterpret_cast<const uint32_t*>(&h2);
+      lo[j] = pack_bf16(s[2 * j] - back.x, s[2 * j + 1] - back.y);
+    }
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[c][i] *= alpha[(i >> 1) & 1];
+      fence_regs(acc[c]);
+    }
+
+    // O += P V as hi V + lo V: V's rows of 16 keys lie 2048 bytes apart.
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < NB; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t dv = descriptor(vs + c * kBlockBytes + kk * 2048);
+        wgmma_rs(acc[c], hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
+                 hi[4 * kk + 3], dv);
+        wgmma_rs(acc[c], lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
+                 lo[4 * kk + 3], dv);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
+    __syncthreads();                    // this stage is free for reuse
+  }
+
+  float den[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    den[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = row + 8 * r;
+    if (qi >= S) continue;
+    __nv_bfloat16* orow = o + b * so.b + h * so.h + qi * so.s + col;
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c + 8 * i) =
+            __floats2bfloat162_rn(acc[c][4 * i + 2 * r] / den[r],
+                                  acc[c][4 * i + 2 * r + 1] / den[r]);
+  }
+}
+
+}  // namespace tc
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
+                       const Strides3* st, int B, int H, int KV, int S,
+                       float scale, int causal, int window, float softcap,
+                       int device, cudaStream_t stream) {
+  static_assert(f32::kRows == 4, "the P V loop reads 4 rows as one float4");
+  static std::atomic<unsigned> configured{0};
+  const int bytes = f32::smem_floats<D>() * (int)sizeof(float);
+  const cudaError_t err = set_smem_once(f32::flash_f32_kernel<D>, bytes,
+                                        device, configured);
   if (err != cudaSuccess) return err;
-  const Strides3 sq{st[0], st[1], st[2]}, sk{st[3], st[4], st[5]},
-      sv{st[6], st[7], st[8]}, so{st[9], st[10], st[11]};
-  const dim3 grid((S + kBQ - 1) / kBQ, H, B);
-  flash_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, sv, so, H / KV,
-      S, scale, causal, window, softcap);
+  const dim3 grid((S + f32::kBQ - 1) / f32::kBQ, H, B);
+  f32::flash_f32_kernel<D><<<grid, f32::kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
+      st[2], st[3], H / KV, S, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
-template <typename T>
+// q, k and v must start every row on 16 bytes (the wrapper copies them
+// when they do not).
+template <int D>
+cudaError_t launch_bf16(const void* q, const void* k, const void* v,
+                        void* o, const Strides3* st, int B, int H, int KV,
+                        int S, float scale, int causal, int window,
+                        float softcap, int device, cudaStream_t stream) {
+  static std::atomic<unsigned> configured{0};
+  constexpr int bytes = tc::smem_bytes<D>();
+  const cudaError_t err = set_smem_once(tc::flash_bf16_kernel<D>,
+                                        bytes, device, configured);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(H, (S + tc::kBQ - 1) / tc::kBQ, B);
+  tc::flash_bf16_kernel<D><<<grid, tc::kThreads, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(o), st[0], st[1], st[2], st[3], H / KV, S,
+      scale, causal, window, softcap);
+  return cudaGetLastError();
+}
+
+template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, void* o,
            const int64_t* strides, int B, int H, int KV, int S, int D,
            float scale, int causal, int window, float softcap, int device,
@@ -232,18 +600,22 @@ int launch(const void* q, const void* k, const void* v, void* o,
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  Strides3 st[4];
+  for (int i = 0; i < 4; ++i)
+    st[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+  auto run = [&](auto launch_d) {
+    return launch_d(q, k, v, o, st, B, H, KV, S, scale, causal, window,
+                    softcap, device, s);
+  };
   switch (D) {
     case 64:
-      err = launch_d<T, 64>(q, k, v, o, strides, B, H, KV, S, scale, causal,
-                            window, softcap, s);
+      err = kBf16 ? run(launch_bf16<64>) : run(launch_f32<64>);
       break;
     case 128:
-      err = launch_d<T, 128>(q, k, v, o, strides, B, H, KV, S, scale, causal,
-                             window, softcap, s);
+      err = kBf16 ? run(launch_bf16<128>) : run(launch_f32<128>);
       break;
     case 256:
-      err = launch_d<T, 256>(q, k, v, o, strides, B, H, KV, S, scale, causal,
-                             window, softcap, s);
+      err = kBf16 ? run(launch_bf16<256>) : run(launch_f32<256>);
       break;
     default:
       err = cudaErrorInvalidValue;
@@ -263,7 +635,7 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
                                    int KV, int S, int D, float scale,
                                    int causal, int window, float softcap,
                                    int device, void* stream) {
-  return launch<float>(q, k, v, o, strides, B, H, KV, S, D, scale, causal,
+  return launch<false>(q, k, v, o, strides, B, H, KV, S, D, scale, causal,
                        window, softcap, device, stream);
 }
 
@@ -273,6 +645,6 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     int KV, int S, int D, float scale,
                                     int causal, int window, float softcap,
                                     int device, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, strides, B, H, KV, S, D, scale,
-                               causal, window, softcap, device, stream);
+  return launch<true>(q, k, v, o, strides, B, H, KV, S, D, scale, causal,
+                      window, softcap, device, stream);
 }

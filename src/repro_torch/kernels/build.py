@@ -7,7 +7,9 @@ The library's name carries a hash of the sources and flags, so an edited
 source rebuilds and an unchanged one loads the cached build. A failed
 build raises with `nvcc`'s stderr. `ptxas`'s resource report (registers,
 stack frame, spill stores and loads per kernel) is kept beside the
-library and read by `resource_usage()`. Nothing here runs at import time.
+library and read by `resource_usage()`; `sass_counts()` counts each
+kernel's tensor-core and asynchronous-copy instructions in the built
+machine code. Nothing here runs at import time.
 """
 from __future__ import annotations
 
@@ -50,9 +52,9 @@ _SIGNATURES = {
     "flash_attention_bf16": [_vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
                              _i32, _i32, _f32, _i32, _i32, _f32, _i32, _vp],
     # r, k, v, logw, s0, o, s_final, strides[7][4], B, H, T, K, V, chunk,
-    # device, stream
+    # states, flags, device, stream
     "wkv6_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
-                 _i32, _i32, _i32, _i32, _vp],
+                 _i32, _i32, _i32, _vp, _vp, _i32, _vp],
 }
 
 
@@ -166,6 +168,45 @@ def resource_usage() -> list[dict]:
                             spill_load_bytes=int(m.group(3)))
         elif rows and (m := _REGS.search(line)):
             rows[-1]["registers"] = int(m.group(1))
+    for row, name in zip(rows, _demangle([r["kernel"] for r in rows])):
+        row["kernel"] = name
+    return rows
+
+
+# SASS opcodes of the tensor cores and of asynchronous global-to-shared
+# copies (TMA and cp.async).
+TENSOR_CORE_OPS = ("HGMMA", "HMMA")
+ASYNC_COPY_OPS = ("UTMALDG", "LDGSTS")
+_FUNCTION = re.compile(r"Function : (\S+)")
+_INSTRUCTION = re.compile(
+    r"/\*[0-9a-f]+\*/\s+(?:@!?\w+\s+)?([A-Z][A-Z0-9_]*)")
+
+
+def parse_sass(text: str) -> list[dict]:
+    """Per kernel of a `cuobjdump -sass` listing: the count of
+    tensor-core instructions and of asynchronous copies (mangled names)."""
+    rows: list[dict] = []
+    for line in text.splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            rows.append(dict(kernel=m.group(1), tensor_core_ops=0,
+                             async_copy_ops=0))
+        elif rows and (m := _INSTRUCTION.search(line)):
+            if m.group(1) in TENSOR_CORE_OPS:
+                rows[-1]["tensor_core_ops"] += 1
+            elif m.group(1) in ASYNC_COPY_OPS:
+                rows[-1]["async_copy_ops"] += 1
+    return rows
+
+
+def sass_counts() -> list[dict]:
+    """`parse_sass` of the built library, read with `cuobjdump` beside
+    nvcc, with C++ names."""
+    dump = Path(find_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(dump), "-sass", str(build())],
+                         capture_output=True, text=True, timeout=300,
+                         check=True).stdout
+    rows = parse_sass(out)
     for row, name in zip(rows, _demangle([r["kernel"] for r in rows])):
         row["kernel"] = name
     return rows

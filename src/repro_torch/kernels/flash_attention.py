@@ -12,7 +12,8 @@ design and what bounds it on the H100.
 The kernel takes strides for the batch, head and sequence axes (the head
 dim must be contiguous), so the model's (B, S, H, D) tensors go in as
 transposed views, and the output keeps q's memory layout
-(`torch.empty_like`).
+(`torch.empty_like`). The bf16 kernel loads rows with 16-byte copies, so
+a bf16 input whose rows do not start on 16 bytes is copied first.
 """
 from __future__ import annotations
 
@@ -67,6 +68,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    if q.dtype == torch.bfloat16:
+        q, k, v = (t if _rows_aligned(t) else t.clone(
+            memory_format=torch.contiguous_format) for t in (q, k, v))
     strides = (ctypes.c_int64 * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
     fn = getattr(build.library(), _DTYPES[q.dtype])
@@ -76,3 +80,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    int(window or 0), float(softcap or 0.0), q.device.index,
                    stream), "flash_attention")
     return out
+
+
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Whether every (b, h, s) row of t starts on 16 bytes."""
+    return (t.data_ptr() % 16 == 0
+            and all(st % 8 == 0 for st in t.stride()[:3]))

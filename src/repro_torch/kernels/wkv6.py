@@ -7,7 +7,10 @@ to chunk, every decay an exp of a difference of cumulative logs that is
 kernel, T need not be a multiple of the chunk: the kernel zero-fills the
 tail of its last chunk (zero r/k/v with logw = 0 leave the state as it
 is), which is the reference's zero padding without a copy. The kernel is
-`repro_torch/csrc/wkv6.cu`; see its header for the design and its bound.
+`repro_torch/csrc/wkv6.cu`: one block per chunk, all in one launch, each
+block handing its chunk's end state to the next through a buffer and a
+flag that this wrapper allocates; see its header for the design and its
+bound.
 
 The kernel takes all four strides of every input, so broadcast views
 (stride 0, as the SSD heads pass k and logw) and transposed views are read
@@ -26,11 +29,20 @@ from repro_torch.kernels import build
 MAX_SMEM_BYTES = 232_448
 
 
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
 def smem_bytes(K: int, V: int, chunk: int) -> int:
-    """Shared memory of one block: the (K, V) state, four (L, K+1) tiles,
-    the (L, V) value tile and the (L, L+1) intra-chunk scores."""
-    L = chunk
-    return 4 * (K * V + 4 * L * (K + 1) + L * V + L * (L + 1))
+    """Shared memory of one block: three (K, LT) transposed tiles, two
+    that hold a (K, LT) tile and later a (K, V) state, the (L, K) staging
+    of r, k and logw (later the (L, L) scores), the (L, V) values, the (K)
+    total decay and its exp, plus the block's ticket; LT = L + 4 and V
+    rounded up to 16 bytes."""
+    L, VP, LT = chunk, _round4(V), _round4(chunk) + 4
+    raw = max(_round4(3 * L * K), _round4(L) ** 2)
+    return 4 * (3 * K * LT + 2 * K * max(LT, VP) + raw + L * VP
+                + 2 * _round4(K)) + 16
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -64,6 +76,13 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s_final = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
     if B * H == 0 or K * V == 0:
         return o, s_final
+    # Each chunk's end state, and the flags that publish them (zero on
+    # entry), then the kernel's ticket counter.
+    n_chunks = -(-T // chunk)
+    states = torch.empty((B * H * n_chunks * K * V,), dtype=torch.float32,
+                         device=r.device)
+    flags = torch.zeros((B * H * n_chunks + 1,), dtype=torch.int32,
+                        device=r.device)
     strides = (ctypes.c_int64 * 28)(*(
         s for t in (r, k, v, logw, s0, o, s_final) for s in t.stride()))
     fn = build.library().wkv6_f32
@@ -71,5 +90,6 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                    logw.data_ptr(), s0.data_ptr(), o.data_ptr(),
                    s_final.data_ptr(), strides, B, H, T, K, V, chunk,
-                   r.device.index, stream), "wkv6")
+                   states.data_ptr(), flags.data_ptr(), r.device.index,
+                   stream), "wkv6")
     return o, s_final

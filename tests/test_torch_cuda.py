@@ -238,6 +238,53 @@ def test_flash_attention_reads_the_model_layout_in_place(dev):
     assert torch.equal(got, want)
 
 
+# The bf16 kernel (tensor cores): every head dim on S below, at, past and
+# far past one 64-row tile, with windows smaller than, equal to and larger
+# than a tile. rep cycles with D so each head dim sees GQA.
+@pytest.mark.parametrize("d,rep", [(64, 5), (128, 8), (256, 1)])
+@pytest.mark.parametrize("s", [1, 63, 65, 1000, 2048])
+@pytest.mark.parametrize("window", [16, 64, 1024, None])
+def test_flash_attention_bf16_sweep_matches_plain(dev, d, rep, s, window):
+    q, k, v = _flash_inputs(dev, 1, 2 * rep, 2, s, d, torch.bfloat16)
+    got = ops.flash_attention_op(q, k, v, window=window)
+    torch.cuda.synchronize()
+    _close(got, ref.flash_attention_ref(q, k, v, window=window),
+           *FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("rep", [1, 5, 8])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, 30.0), (True, 100, 50.0), (False, None, 30.0),
+    (False, 64, None)])
+def test_flash_attention_bf16_masks_and_softcap_match_plain(
+        dev, rep, causal, window, softcap):
+    q, k, v = _flash_inputs(dev, 2, 2 * rep, 2, 300, 64, torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = ops.flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _close(got, ref.flash_attention_ref(q, k, v, **kw),
+           *FLASH_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_flash_attention_bf16_model_views_match_plain(dev, d):
+    """The model's (B, S, H, D) tensors as (B, H, S, D) views, and a view
+    whose rows do not start on 16 bytes (the wrapper copies it)."""
+    B, S, H, KV = 2, 333, 10, 2
+    g = torch.Generator(device=dev).manual_seed(d)
+    q = torch.randn((B, S, H, d), generator=g, device=dev).bfloat16()
+    kv = torch.randn((B, S, 2 * KV * d + 1), generator=g,
+                     device=dev).bfloat16()
+    k = kv[..., 1:1 + KV * d].unflatten(-1, (KV, d))
+    v = kv[..., 1 + KV * d:].unflatten(-1, (KV, d))
+    for kk, vv in ((k.contiguous(), v.contiguous()), (k, v)):
+        args = (q.transpose(1, 2), kk.transpose(1, 2), vv.transpose(1, 2))
+        got = ops.flash_attention_op(*args, window=128)
+        torch.cuda.synchronize()
+        _close(got, ref.flash_attention_ref(*args, window=128),
+               *FLASH_TOL[torch.bfloat16])
+
+
 def _wkv6_inputs(dev, B, H, T, K, V, decay=0.3):
     g = torch.Generator(device=dev).manual_seed(B * H * T + K)
     r = torch.randn((B, H, T, K), generator=g, device=dev)
@@ -296,6 +343,57 @@ def test_wkv6_kernel_reads_broadcast_views(dev):
                          s0)
     torch.cuda.synchronize()
     assert torch.equal(o, wo) and torch.equal(s, ws)
+
+
+# Chunk-parallel wkv6: T below, at and past one chunk and at the serving
+# length, one (b, h), K = V = 64 (chunk 128 at K = V = 32: (64, 64, 128)
+# needs more shared memory than a block has).
+@pytest.mark.parametrize("T", [1, 63, 64, 65, 2048])
+@pytest.mark.parametrize("chunk,K", [(16, 64), (64, 64), (128, 32)])
+def test_wkv6_kernel_sweep_matches_plain(dev, T, chunk, K):
+    args = _wkv6_inputs(dev, 1, 1, T, K, K)
+    o, s = ops.wkv6_op(*args, chunk=chunk)
+    torch.cuda.synchronize()
+    wo, ws = ref.wkv6_ref(*args, chunk=chunk)
+    _close(o, wo, 2e-4)
+    _close(s, ws, 2e-4)
+
+
+@pytest.mark.parametrize("T", [1, 65, 2048])
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_wkv6_kernel_broadcast_views_match_plain(dev, T, chunk):
+    """The SSD heads' layout (k stride 0 over heads, logw stride 0 over
+    the state dim, v transposed) against the plain version."""
+    B, H, N, hd = 2, 3, 16, 64
+    g = torch.Generator(device=dev).manual_seed(T + chunk)
+    r = torch.randn((B, H, T, N), generator=g, device=dev)
+    k = torch.randn((B, 1, T, N), generator=g, device=dev).expand(B, H, T, N)
+    lw = -torch.rand((B, H, T, 1), generator=g, device=dev).expand(
+        B, H, T, N)
+    v = torch.randn((B, T, H, hd), generator=g, device=dev).transpose(1, 2)
+    s0 = torch.randn((B, H, N, hd), generator=g, device=dev)
+    o, s = ops.wkv6_op(r, k, v, lw, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    wo, ws = ref.wkv6_ref(r, k, v, lw, s0, chunk=chunk)
+    _close(o, wo, 2e-4)
+    _close(s, ws, 2e-4)
+
+
+@pytest.mark.parametrize("chunk", [16, 64, 128])
+def test_wkv6_kernel_strong_decay_matches_plain_at_every_chunk(dev, chunk):
+    r, k, v, _, s0 = _wkv6_inputs(dev, 1, 2, 300, 32, 32)
+    lw = torch.full_like(r, -8.0)
+    o, s = ops.wkv6_op(r, k, v, lw, s0, chunk=chunk)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(s).all())
+    wo, ws = ref.wkv6_ref(r, k, v, lw, s0, chunk=chunk)
+    _close(o, wo, 2e-4)
+    _close(s, ws, 2e-4)
+
+
+def test_wkv6_wrapper_rejects_a_chunk_past_shared_memory(dev):
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.wkv6_op(*_wkv6_inputs(dev, 1, 1, 8, 64, 64), chunk=128)
 
 
 def test_cuda_tensors_never_take_the_plain_versions(dev, monkeypatch):

@@ -181,3 +181,24 @@ def test_resource_usage_reads_the_ptxas_report(monkeypatch, tmp_path):
              spill_store_bytes=16, spill_load_bytes=16, registers=128),
         dict(kernel="_Z11wkv6_kernelv", stack_bytes=0, spill_store_bytes=0,
              spill_load_bytes=0, registers=40)]
+
+
+_SASS = """\
+\t\tFunction : _Z17flash_bf16_kernelILi64EEvv
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0080*/              @!P0 LDGSTS.E.BYPASS.LTC128B.128 [R5], desc[UR6][R2.64] ;
+        /*0090*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;
+        /*00a0*/                   HGMMA.64x64x16.F32.BF16 R24, R88, gdesc[UR8], R24, gsb0 ;
+        /*00b0*/                   WARPGROUP.ARRIVE ;
+\t\tFunction : _Z11wkv6_kernelv
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0010*/                   UTMALDG.2D [UR8], [UR4] ;
+        /*0020*/                   FFMA R4, R8, R12, R4 ;
+"""
+
+
+def test_parse_sass_counts_tensor_core_and_async_copy_instructions():
+    assert build.parse_sass(_SASS) == [
+        dict(kernel="_Z17flash_bf16_kernelILi64EEvv", tensor_core_ops=2,
+             async_copy_ops=1),
+        dict(kernel="_Z11wkv6_kernelv", tensor_core_ops=1, async_copy_ops=1)]
