@@ -17,7 +17,13 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              device times (CUDA events, median over 100 launches queued
              behind a device sleep so host enqueue time is not counted),
              the byte/flop bound, and a one-call PyTorch yardstick where
-             one computes the same function;
+             one computes the same function; the floor of an empty launch
+             timed the same way (`floor_ms`) and, for the simulator's
+             kernels, the time with the L2 evicted before each launch
+             (`ms_cold`), the mean time of a launch among 100 run back
+             to back with no event between them (`ms_back_to_back`, and
+             `floor_back_to_back_ms` for the empty launch) and the host
+             time of one wrapper call (`host_us`);
   main_path  ConstellationSim.run() for all 8 Table-1 algorithms on the
              paper's largest cell (100 satellites, 13 stations), with the
              kernels' launch counters zeroed just before and read just
@@ -98,6 +104,9 @@ F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 TIMED_LAUNCHES = 100
 SLEEP_CYCLES = 100_000_000           # ~50 ms of device sleep at ~2 GHz
+COLD_LAUNCHES = 50
+FLUSH_BYTES = 256 << 20              # written before each cold launch: > L2
+HOST_CALLS = 1000
 P_MLP = 46_639                       # femnist_mlp parameters
 
 
@@ -183,6 +192,60 @@ def device_ms(fn) -> float:
                              for i in range(TIMED_LAUNCHES))
 
 
+def device_ms_back_to_back(fn) -> float:
+    """Mean device time of one call of `fn` over TIMED_LAUNCHES calls run
+    back to back between one pair of CUDA events (queued behind a device
+    sleep), as the main path launches them: no event between calls."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(SLEEP_CYCLES)
+    start.record()
+    for _ in range(TIMED_LAUNCHES):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / TIMED_LAUNCHES
+
+
+def device_ms_cold(fn, flush: torch.Tensor) -> float:
+    """Median device time of one call of `fn` with the L2 evicted first:
+    `flush` (FLUSH_BYTES) is written and then read before each of
+    COLD_LAUNCHES calls (read, so that the lines the call evicts are
+    clean and their write-back is not counted against it), and one pair
+    of CUDA events around each call leaves the flush untimed. The calls
+    queue behind a device sleep, as in `device_ms`."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(COLD_LAUNCHES)]
+    total = torch.empty((), device=flush.device)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    for i, (start, end) in enumerate(pairs):
+        flush.fill_(float(i))
+        torch.sum(flush, dim=0, out=total)
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs)
+
+
+def host_us(fn) -> float:
+    """Median host microseconds of one call of `fn` over HOST_CALLS calls,
+    started on an idle device (each call only enqueues its launch)."""
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(HOST_CALLS):
+        t0 = time.perf_counter_ns()
+        fn()
+        times.append(time.perf_counter_ns() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) / 1e3
+
+
 def _max_err(got, want, rtol: float, atol: float | None = None) -> float:
     """Max |got - want|; fails unless every element is within
     atol + rtol * |want| (atol = rtol unless given)."""
@@ -196,8 +259,8 @@ def _max_err(got, want, rtol: float, atol: float | None = None) -> float:
     return float(err.max())
 
 
-def check_fedagg(dev, K: int, P: int, dtype: str,
-                 delta: bool) -> dict:
+def check_fedagg(dev, K: int, P: int, dtype: str, delta: bool,
+                 flush: torch.Tensor) -> dict:
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(K * P)
     x = torch.randn((K, P), generator=g, device=dev).to(dt)
@@ -214,10 +277,13 @@ def check_fedagg(dev, K: int, P: int, dtype: str,
     n_flops = 3 * K * P + 2 * P if delta else 2 * K * P
     b_ms, b_by = bound_ms(n_bytes, n_flops)
     wl = w.to(dt)
+    kernel = lambda: ops.fedagg_op(x, w, base, scale)  # noqa: E731
     return dict(
         name="fedagg", form="delta" if delta else "plain", K=K, P=P,
         dtype=dtype, max_abs_err=err, tol=TOL[dtype],
-        ms=device_ms(lambda: ops.fedagg_op(x, w, base, scale)),
+        ms=device_ms(kernel), ms_cold=device_ms_cold(kernel, flush),
+        ms_back_to_back=device_ms_back_to_back(kernel),
+        host_us=host_us(kernel),
         plain_ms=device_ms(lambda: ref.fedagg_ref(x, w, base, scale)),
         # One PyTorch call computing the plain form (a yardstick only).
         library_ms=(None if delta else
@@ -225,17 +291,19 @@ def check_fedagg(dev, K: int, P: int, dtype: str,
         bound_ms=b_ms, bound_by=b_by)
 
 
-def check_prox_sgd(dev, C: int, P: int, dtype: str,
-                   mu: float, shared_anchor: bool) -> dict:
+def check_prox_sgd(dev, C: int, P: int, dtype: str, mu: float,
+                   shared_anchor: bool, flush: torch.Tensor,
+                   all_live: bool = False) -> dict:
+    """Partly masked (3 of every 10 clients past their step budget), or
+    with `all_live` every client live."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(C + P)
     w = torch.randn((C, P), generator=g, device=dev).to(dt)
     grad = torch.randn((C, P), generator=g, device=dev).to(dt)
     anchor = torch.randn((P,) if shared_anchor else (C, P), generator=g,
                          device=dev).to(dt)
-    # Partly masked: 3 of every 10 clients are past their step budget.
-    steps = torch.tensor([2 if c % 10 >= 7 else 8 for c in range(C)],
-                         dtype=torch.int32, device=dev)
+    steps = torch.tensor([2 if c % 10 >= 7 and not all_live else 8
+                          for c in range(C)], dtype=torch.int32, device=dev)
     step, lr = 3, 0.05
     got, want = w.clone(), w.clone()
     ops.prox_sgd_op(got, grad, anchor, steps, step, lr, mu)
@@ -250,30 +318,47 @@ def check_prox_sgd(dev, C: int, P: int, dtype: str,
     n_bytes = 3 * live * P * es + (P if shared_anchor else live * P) * es \
         + C * 4
     b_ms, b_by = bound_ms(n_bytes, 5 * live * P)
-    wk, wp = w.clone(), w.clone()
+    wk, wp, wl = w.clone(), w.clone(), w.clone()
+    kernel = lambda: ops.prox_sgd_op(  # noqa: E731
+        wk, grad, anchor, steps, step, lr, mu)
     return dict(
         name="prox_sgd", C=C, P=P, dtype=dtype, mu=mu,
         anchor="shared" if shared_anchor else "per_client", live=live,
         max_abs_err=err, tol=TOL[dtype],
-        ms=device_ms(lambda: ops.prox_sgd_op(
-            wk, grad, anchor, steps, step, lr, mu)),
+        ms=device_ms(kernel), ms_cold=device_ms_cold(kernel, flush),
+        ms_back_to_back=device_ms_back_to_back(kernel),
+        host_us=host_us(kernel),
         plain_ms=device_ms(lambda: ref.prox_sgd_masked_ref_(
             wp, grad, anchor, steps, step, lr, mu)),
-        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        # With every client live and mu = 0 the step is w - lr * g: one
+        # PyTorch call computes it there (a yardstick only).
+        library_ms=(device_ms(lambda: wl.add_(grad, alpha=-lr))
+                    if live == C and mu == 0.0 else None),
+        bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_kernels(dev) -> list[dict]:
+    """The simulator's kernels' rows; the phase's line also carries the
+    floor of an empty launch (`torch.cuda._sleep(0)`) timed as the kernels
+    are (`floor_ms`, and back to back: `floor_back_to_back_ms`)."""
+    flush = torch.empty((FLUSH_BYTES // 4,), device=dev)
     rows = []
     for dtype in ("float32", "bfloat16"):
         for K, P in ((10, P_MLP), (100, P_MLP), (7, 12345)):
             for delta in (False, True):
-                rows.append(check_fedagg(dev, K, P, dtype, delta))
+                rows.append(check_fedagg(dev, K, P, dtype, delta, flush))
         for C in (10, 100):
             for mu in (0.0, 0.1):
                 for shared in (True, False):
                     rows.append(check_prox_sgd(dev, C, P_MLP, dtype,
-                                               mu, shared))
-    emit("kernels", rows=rows)
+                                               mu, shared, flush))
+            rows.append(check_prox_sgd(dev, C, P_MLP, dtype, 0.0, True,
+                                       flush, all_live=True))
+    empty = lambda: torch.cuda._sleep(0)  # noqa: E731
+    floor = device_ms(empty)
+    del flush
+    emit("kernels", floor_ms=floor,
+         floor_back_to_back_ms=device_ms_back_to_back(empty), rows=rows)
     return rows
 
 
@@ -395,8 +480,8 @@ PORT_KERNEL_NAMES = ("prox_sgd_kernel", "fedagg_kernel", "flash_f32_kernel",
 def _device_time(prof, wall_s: float) -> dict:
     """Device events of a `torch.profiler` run: their count, the busy
     time (union of their intervals), the idle share against `wall_s` (a
-    plain run's wall), time by kernel name (top 12) and the launches and
-    time of each of the port's own kernels."""
+    plain run's wall), time by kernel name (top 12) and the launches,
+    time and mean time a launch of each of the port's own kernels."""
     from torch.autograd import DeviceType
 
     device_events = [e for e in prof.events()
@@ -416,7 +501,8 @@ def _device_time(prof, wall_s: float) -> dict:
         device_time_by_name=[dict(name=k[:100], count=n, total_s=us / 1e6)
                              for k, (n, us) in top],
         # Every CUDA launch of the port's own kernels, by kernel.
-        port_kernels=[dict(name=k[:100], count=n, total_s=us / 1e6)
+        port_kernels=[dict(name=k[:100], count=n, total_s=us / 1e6,
+                           mean_us=us / n)
                       for k, (n, us) in sorted(by_name.items())
                       if any(s in k for s in PORT_KERNEL_NAMES)])
 

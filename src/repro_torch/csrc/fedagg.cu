@@ -15,11 +15,45 @@
 //
 // Bound on the H100: bytes. K*P reads (+ P for base) and P writes for 2*K*P
 // flops. At the simulator's shape (K = 10, P = 46,639, f32) that is
-// 2.05 MB, or 0.61 us at 3.35 TB/s: a launch is dominated by its fixed
-// cost. Neighbouring threads read neighbouring p for each k, so every load
-// of x is coalesced; the K weights are read through the read-only cache.
+// 2.05 MB, or 0.61 us at 3.35 TB/s; the stack was just written and sits
+// in the 50 MB L2. So a launch is its fixed cost (an empty launch costs
+// 1.7-1.9 us back to back, 4.5-5.0 us with a CUDA event on each side) plus
+// the few memory round trips of each thread. At K = 100 it is 18.8 MB,
+// 5.6 us.
+//
+// Design: neighbouring threads read neighbouring p for each k, so every
+// load of x is coalesced whatever P's alignment (femnist_mlp's rows of
+// 46,639 f32 start off 16 bytes), and P = 46,639 outputs make ~11 warps
+// an SM; the compiler unrolls the k loop into rounds of 4 rows in flight.
+// The K weights are read through the read-only cache. Warm at K = 100
+// this loop already streams the stack out of L2 at ~4.7 TB/s (18.8 MB in
+// ~4 us past the 1.7-1.9-us floor of a launch run back to back).
+//
+// Redesigns measured against this loop, each in the same process on an
+// H100 80GB HBM3 at 700 W (f32, P = 46,639, CUDA events around each
+// launch, an empty launch 4.5-5.0 us so timed); none was faster at both
+// K = 10 (the simulator's) and K = 100, so the loop stays:
+// - the rows of a group of 16 clients all in flight before the sum: at
+//   K = 10 warm 5.54-5.98 us against 5.79-6.21 with one timer and
+//   6.21-6.40 against 6.24 with another; cold 6.14-6.98 against
+//   7.01-7.49; at K = 100 warm 9.4-20.3 against 8.7-9.2 (4-130 %
+//   slower);
+// - each output split among 2-8 client lanes whose separately rounded
+//   products the first lane sums from shared memory in k order (~12 rows
+//   in flight a thread at K = 100): cold at K = 100 14.3-14.6 against
+//   14.9-15.0, warm 12.9-13.0 against 9.1-9.2, as one warp in eight does
+//   each block's serial sum;
+// - 2 or 4 consecutive outputs a thread (fewer warps to hide the
+//   latency), (K, tile) slabs staged through a ring of shared-memory
+//   stages with `cp.async` (instruction-bound), loads that skip L1 (the
+//   rows' unaligned edges are shared by neighbouring warps through L1), a
+//   grid sized to the card (the same 183 blocks at this P): none faster
+//   at K = 10 warm.
+// TMA fits no odd-width stack at all: a bulk copy needs a 16-byte aligned
+// source and size, a tensor map a row stride that is a multiple of 16
+// bytes, and a row of 46,639 f32 is 186,556 bytes.
 // The sum runs over k in order with explicitly rounded operations (no FMA
-// contraction).
+// contraction), so f32 results are bitwise those of the same torch ops.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -14,6 +14,7 @@ machine code. Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -134,6 +135,13 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+@functools.cache
+def entry(name: str):
+    """The C entry point `name` of the loaded library, looked up once: the
+    wrappers call it on every launch."""
+    return getattr(library(), name)
 
 
 _ENTRY = re.compile(r"Compiling entry function '(\S+)'")

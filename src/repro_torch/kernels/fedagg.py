@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.stream import current_stream
 
 _DTYPES = {torch.float32: "fedagg_f32", torch.bfloat16: "fedagg_bf16"}
 
@@ -23,10 +24,11 @@ def fedagg(x: torch.Tensor, w: torch.Tensor,
     """Launch the kernel on CUDA tensors. x: (K, P) contiguous f32 or
     bf16; w: (K,) f32; base: optional (P,) in x's dtype. Returns (P,) in
     x's dtype, accumulated in f32."""
+    index = x.get_device()
     named = [("x", x), ("w", w)] + ([("base", base)] if base is not None
                                     else [])
     for name, t in named:
-        if t.device.type != "cuda" or t.device != x.device:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"fedagg: {name} must be a CUDA tensor on "
                              f"{x.device}, got {t.device}")
         if not t.is_contiguous():
@@ -47,9 +49,8 @@ def fedagg(x: torch.Tensor, w: torch.Tensor,
     out = torch.empty((P,), dtype=x.dtype, device=x.device)
     if P == 0:
         return out
-    fn = getattr(build.library(), _DTYPES[x.dtype])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    build.check(fn(x.data_ptr(), w.data_ptr(),
-                   None if base is None else base.data_ptr(), float(scale),
-                   out.data_ptr(), K, P, x.device.index, stream), "fedagg")
+    build.check(build.entry(_DTYPES[x.dtype])(
+        x.data_ptr(), w.data_ptr(), None if base is None else base.data_ptr(),
+        float(scale), out.data_ptr(), K, P, index,
+        current_stream(index)), "fedagg")
     return out

@@ -22,6 +22,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.stream import current_stream
 
 _DTYPES = {torch.float32: "flash_attention_f32",
            torch.bfloat16: "flash_attention_bf16"}
@@ -73,12 +74,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             memory_format=torch.contiguous_format) for t in (q, k, v))
     strides = (ctypes.c_int64 * 12)(*(
         s for t in (q, k, v, out) for s in t.stride()[:3]))
-    fn = getattr(build.library(), _DTYPES[q.dtype])
-    stream = torch.cuda.current_stream(q.device).cuda_stream
+    fn = build.entry(_DTYPES[q.dtype])
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    strides, B, H, KV, S, D, float(D ** -0.5), int(causal),
                    int(window or 0), float(softcap or 0.0), q.device.index,
-                   stream), "flash_attention")
+                   current_stream(q.device.index)), "flash_attention")
     return out
 
 

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.stream import current_stream
 
 _DTYPES = {torch.float32: "prox_sgd_f32", torch.bfloat16: "prox_sgd_bf16"}
 
@@ -27,8 +28,9 @@ def prox_sgd(w: torch.Tensor, g: torch.Tensor, w0: torch.Tensor,
     one (P,) anchor broadcast to every client, same dtype; steps: (C,)
     int32 step budgets; `step` the local step index.
     """
+    index = w.get_device()
     for name, t in (("w", w), ("g", g), ("w0", w0), ("steps", steps)):
-        if t.device.type != "cuda" or t.device != w.device:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"prox_sgd: {name} must be a CUDA tensor on "
                              f"{w.device}, got {t.device}")
         if not t.is_contiguous():
@@ -56,9 +58,8 @@ def prox_sgd(w: torch.Tensor, g: torch.Tensor, w0: torch.Tensor,
                          f"{tuple(steps.shape)}")
     if C == 0 or P == 0:
         return w
-    fn = getattr(build.library(), _DTYPES[w.dtype])
-    stream = torch.cuda.current_stream(w.device).cuda_stream
-    build.check(fn(w.data_ptr(), g.data_ptr(), w0.data_ptr(), w0_stride,
-                   steps.data_ptr(), int(step), C, P, float(lr), float(mu),
-                   w.device.index, stream), "prox_sgd")
+    build.check(build.entry(_DTYPES[w.dtype])(
+        w.data_ptr(), g.data_ptr(), w0.data_ptr(), w0_stride,
+        steps.data_ptr(), int(step), C, P, float(lr), float(mu), index,
+        current_stream(index)), "prox_sgd")
     return w

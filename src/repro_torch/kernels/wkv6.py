@@ -24,6 +24,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.stream import current_stream
 
 # Shared memory a block may use on the H100 (227 KB).
 MAX_SMEM_BYTES = 232_448
@@ -85,11 +86,10 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         device=r.device)
     strides = (ctypes.c_int64 * 28)(*(
         s for t in (r, k, v, logw, s0, o, s_final) for s in t.stride()))
-    fn = build.library().wkv6_f32
-    stream = torch.cuda.current_stream(r.device).cuda_stream
+    fn = build.entry("wkv6_f32")
     build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                    logw.data_ptr(), s0.data_ptr(), o.data_ptr(),
                    s_final.data_ptr(), strides, B, H, T, K, V, chunk,
                    states.data_ptr(), flags.data_ptr(), r.device.index,
-                   stream), "wkv6")
+                   current_stream(r.device.index)), "wkv6")
     return o, s_final

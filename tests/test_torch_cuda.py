@@ -14,6 +14,8 @@ installed.
 """
 from __future__ import annotations
 
+import math
+
 import pytest
 import torch
 
@@ -53,31 +55,69 @@ def _close(got: torch.Tensor, want: torch.Tensor, rtol: float,
                                atol=rtol if atol is None else atol)
 
 
+def _ordered_fedagg(x, w, base=None, scale=1.0) -> torch.Tensor:
+    """The kernel's f32 arithmetic as separate torch ops, each rounded
+    once: acc = acc + w[k] * x[k] (or w[k] * (x[k] - base)) over k in
+    order, then base + scale * acc."""
+    xf = x.float()
+    b = None if base is None else base.float()
+    acc = torch.zeros(x.shape[1], device=x.device)
+    for k in range(x.shape[0]):
+        acc = acc + w[k] * (xf[k] if b is None else xf[k] - b)
+    return acc if b is None else b + scale * acc
+
+
+def _misaligned(dev, shape, dtype, shift, g) -> torch.Tensor:
+    """A contiguous tensor of `shape` whose base pointer lies `shift`
+    elements past a 16-byte boundary."""
+    n = math.prod(shape)
+    buf = torch.randn((n + shift,), generator=g, device=dev).to(dtype)
+    return buf[shift:].view(shape)
+
+
+# Odd row counts at femnist_mlp's odd width, one client, a width of 3
+# (below a 16-byte vector) and 4099 (rows off 16 bytes).
+SIM_SHAPES = [(10, P_MLP), (100, P_MLP), (1, P_MLP), (7, P_MLP),
+              (13, P_MLP), (3, 4099), (2, 3)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("k,p", [(10, P_MLP), (100, P_MLP), (7, 12345),
-                                 (1, 1)])
+# Client counts on either side of the k loop's unrolled rounds and of
+# powers of two, up to more clients than outputs.
+@pytest.mark.parametrize("k,p", SIM_SHAPES + [
+    (7, 12345), (1, 1), (16, 4099), (17, 4099), (33, 1000), (64, 777),
+    (65, 4099), (128, 33), (129, 4099), (300, 777)])
 @pytest.mark.parametrize("delta", [False, True])
 def test_fedagg_kernel_matches_plain(dev, k, p, dtype, delta):
+    """f32: bitwise the ordered sum; bf16: within 2e-2 of the plain
+    version."""
     g = torch.Generator(device=dev).manual_seed(k * p)
     x = torch.randn((k, p), generator=g, device=dev).to(dtype)
     w = torch.rand((k,), generator=g, device=dev)
     base = torch.randn((p,), generator=g, device=dev).to(dtype) \
         if delta else None
+    scale = 0.5 if delta else 1.0
     before = ops.LAUNCHES["fedagg"]
-    got = ops.fedagg_op(x, w, base, 0.5 if delta else 1.0)
+    got = ops.fedagg_op(x, w, base, scale)
     torch.cuda.synchronize()
     assert ops.LAUNCHES["fedagg"] == before + 1
     assert got.dtype == dtype and got.shape == (p,)
-    _close(got, ref.fedagg_ref(x, w, base, 0.5 if delta else 1.0), TOL[dtype])
+    _close(got, ref.fedagg_ref(x, w, base, scale), TOL[dtype])
+    if dtype == torch.float32:
+        assert torch.equal(got, _ordered_fedagg(x, w, base, scale))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-# P = 46,639 is odd, so the main path takes the scalar loop; (4, 4096)
-# takes the 16-byte vector loop.
-@pytest.mark.parametrize("c,p", [(10, P_MLP), (4, 4096), (3, 4099), (2, 3)])
+# Every odd width puts rows off 16 bytes: the kernel reads the flat stack
+# in 16-byte vectors, and a vector may straddle a live and a masked row
+# (the mask below alternates); (4, 4096) has aligned rows, (2, 3) is
+# narrower than a vector and goes element by element.
+@pytest.mark.parametrize("c,p", SIM_SHAPES + [(4, 4096), (11, P_MLP)])
 @pytest.mark.parametrize("mu", [0.0, 0.1])
 @pytest.mark.parametrize("shared_anchor", [True, False])
 def test_prox_sgd_kernel_matches_plain(dev, c, p, dtype, mu, shared_anchor):
+    """f32: bitwise the plain version (the same rounded ops in the same
+    order); bf16: within 2e-2; masked rows bitwise untouched."""
     g = torch.Generator(device=dev).manual_seed(c + p)
     w = torch.randn((c, p), generator=g, device=dev).to(dtype)
     grad = torch.randn((c, p), generator=g, device=dev).to(dtype)
@@ -92,8 +132,39 @@ def test_prox_sgd_kernel_matches_plain(dev, c, p, dtype, mu, shared_anchor):
     torch.cuda.synchronize()
     assert ops.LAUNCHES["prox_sgd"] == before + 1
     _close(got, want, TOL[dtype])
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
     masked = steps <= 4
     assert torch.equal(got[masked], w[masked])         # bitwise no-op
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [1, 2, 3])
+@pytest.mark.parametrize("c,p", [(3, 4099), (10, P_MLP)])
+def test_sim_kernels_take_inputs_off_16_bytes(dev, c, p, dtype, shift):
+    """Every input a view whose base pointer is not on 16 bytes (prox_sgd
+    goes element by element): f32 bitwise the plain ops, bf16 within
+    2e-2, masked rows untouched."""
+    g = torch.Generator(device=dev).manual_seed(shift + c)
+    w, grad, x = (_misaligned(dev, (c, p), dtype, shift, g)
+                  for _ in range(3))
+    anchor, base = (_misaligned(dev, (p,), dtype, shift, g)
+                    for _ in range(2))
+    steps = torch.tensor([5 if i % 3 else 2 for i in range(c)],
+                         dtype=torch.int32, device=dev)
+    before, want = w.clone(), w.clone()
+    ops.prox_sgd_op(w, grad, anchor, steps, 4, 0.05, 0.1)
+    ref.prox_sgd_masked_ref_(want, grad, anchor, steps, 4, 0.05, 0.1)
+    wk = torch.rand((c,), generator=g, device=dev)
+    agg = ops.fedagg_op(x, wk, base, 0.5)
+    torch.cuda.synchronize()
+    masked = steps <= 4
+    assert torch.equal(w[masked], before[masked])
+    _close(w, want, TOL[dtype])
+    _close(agg, ref.fedagg_ref(x, wk, base, 0.5), TOL[dtype])
+    if dtype == torch.float32:
+        assert torch.equal(w, want)
+        assert torch.equal(agg, _ordered_fedagg(x, wk, base, 0.5))
 
 
 def test_prox_sgd_unaligned_rows_take_the_scalar_path(dev):
