@@ -35,6 +35,33 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
   cpu_vs_card  fedprox on a small cell on the card and on the CPU with
              the same access windows, init params and minibatch draws:
              RoundRecords identical, final params within 1e-4.
+  comms_path ConstellationSim.run() on the main-path cell for the ISL
+             algorithms (fedavg_intracc_isl, fedprox_intracc_isl; ISL
+             windows computed on the card), the connectivity-aware ones
+             (fedspace, ground_assisted, fedprox_sparse), fedprox with each
+             lossy uplink codec (quant_int8, quant_fp8, topk_sparse) and
+             fedprox_intracc_isl priced by a LinkBudget; launch counters
+             zeroed before and read after each run; each run needs both
+             kernels launched, finite params, >= 10 rounds, and each ISL
+             run at least one relayed return;
+  path_shapes  prox_sgd and fedagg against their plain versions (same
+             tolerances) at every distinct shape the main path and the
+             comms path launched them with (recorded while those ran:
+             partial-visit and buffered flushes, sparse rounds);
+  comms_scale the 1,024-satellite plan of benchmarks/bench_scale.py
+             (Walker-Star 32 x 32, cross-plane grid with 2 seam
+             candidates, 13 stations, 1 day): access and ISL windows on
+             the card, the contact plan with its geometry cache, its
+             LinkBudget re-rating, and every satellite routed at t = 0
+             (3 hops) under both pricings, with each stage's wall; the
+             card's ISL grid against the CPU's, where every differing
+             sample must be a threshold tie;
+  comms_cpu_vs_card  fedprox_intracc_isl and fedprox with the int8 codec
+             on a dense 10-satellite plane on the card and on the CPU
+             with the same windows, init params, minibatch draws and
+             codec uniforms: RoundRecords identical, ISL params within
+             1e-4, int8 params within the bounds of
+             tests/test_torch_engine.py's codec parity test.
   lm_kernels flash_attention and wkv6 against their plain versions at
              hymba-1.5b's serving shapes (wkv6 also in the SSD heads'
              broadcast layout) and in every mask variant on both flash
@@ -73,8 +100,22 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch import obs  # noqa: E402
+from repro_torch.comms import (  # noqa: E402
+    ConstantRate,
+    LinkBudget,
+    build_contact_plan,
+    compute_isl_windows,
+)
+from repro_torch.comms import isl  # noqa: E402
+from repro_torch.comms.routing import batch_earliest_arrival  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import ALGORITHMS, TABLE1_NAMES  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    ALGORITHMS,
+    TABLE1_NAMES,
+    FedProxSat,
+    spaceify,
+)
+from repro_torch.core.timing import HardwareModel  # noqa: E402
 from repro_torch.data import synth_femnist  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
@@ -260,7 +301,9 @@ def _max_err(got, want, rtol: float, atol: float | None = None) -> float:
 
 
 def check_fedagg(dev, K: int, P: int, dtype: str, delta: bool,
-                 flush: torch.Tensor) -> dict:
+                 flush: torch.Tensor | None) -> dict:
+    """The kernel against its plain version, then timed; with no `flush`
+    buffer only the comparison is made."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(K * P)
     x = torch.randn((K, P), generator=g, device=dev).to(dt)
@@ -272,6 +315,9 @@ def check_fedagg(dev, K: int, P: int, dtype: str, delta: bool,
     want = ref.fedagg_ref(x, w, base, scale)
     torch.cuda.synchronize()
     err = _max_err(got, want, TOL[dtype])
+    if flush is None:
+        return dict(name="fedagg", form="delta" if delta else "plain", K=K,
+                    P=P, dtype=dtype, max_abs_err=err, tol=TOL[dtype])
     es = x.element_size()
     n_bytes = K * P * es + K * 4 + P * es + (P * es if delta else 0)
     n_flops = 3 * K * P + 2 * P if delta else 2 * K * P
@@ -292,10 +338,11 @@ def check_fedagg(dev, K: int, P: int, dtype: str, delta: bool,
 
 
 def check_prox_sgd(dev, C: int, P: int, dtype: str, mu: float,
-                   shared_anchor: bool, flush: torch.Tensor,
+                   shared_anchor: bool, flush: torch.Tensor | None,
                    all_live: bool = False) -> dict:
     """Partly masked (3 of every 10 clients past their step budget), or
-    with `all_live` every client live."""
+    with `all_live` every client live. Checked against the plain version,
+    then timed; with no `flush` buffer only the comparison is made."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(C + P)
     w = torch.randn((C, P), generator=g, device=dev).to(dt)
@@ -314,6 +361,10 @@ def check_prox_sgd(dev, C: int, P: int, dtype: str, mu: float,
     require(bool(torch.equal(got[masked], w[masked])),
             "prox_sgd wrote a masked row")
     live = int((~masked).sum())
+    if flush is None:
+        return dict(name="prox_sgd", C=C, P=P, dtype=dtype, mu=mu,
+                    anchor="shared" if shared_anchor else "per_client",
+                    live=live, max_abs_err=err, tol=TOL[dtype])
     es = w.element_size()
     n_bytes = 3 * live * P * es + (P if shared_anchor else live * P) * es \
         + C * 4
@@ -360,6 +411,63 @@ def phase_kernels(dev) -> list[dict]:
     emit("kernels", floor_ms=floor,
          floor_back_to_back_ms=device_ms_back_to_back(empty), rows=rows)
     return rows
+
+
+class LaunchShapes:
+    """Records the distinct shapes of the simulator kernels' launches
+    while it is entered, by wrapping the launchers that `ops`' counted
+    wrappers call (the launch counts are untouched), so that
+    `phase_path_shapes` can hold the kernels to their plain versions at
+    exactly the shapes a path gave them."""
+
+    def __init__(self):
+        self.fedagg: set[tuple] = set()
+        self.prox_sgd: set[tuple] = set()
+
+    def __enter__(self) -> "LaunchShapes":
+        self._launchers = fedagg, prox_sgd = ops.fedagg, ops.prox_sgd
+
+        def record_fedagg(x, w, base, scale):
+            self.fedagg.add((x.shape[0], x.shape[1],
+                             str(x.dtype).removeprefix("torch."),
+                             base is not None))
+            return fedagg(x, w, base, scale)
+
+        def record_prox_sgd(w, g, w0, steps, step, lr, mu):
+            self.prox_sgd.add((w.shape[0], w.shape[1],
+                               str(w.dtype).removeprefix("torch."),
+                               float(mu), w0.dim() == 1))
+            return prox_sgd(w, g, w0, steps, step, lr, mu)
+
+        ops.fedagg, ops.prox_sgd = record_fedagg, record_prox_sgd
+        return self
+
+    def __exit__(self, *exc) -> None:
+        ops.fedagg, ops.prox_sgd = self._launchers
+
+
+def phase_path_shapes(dev, shapes: dict[str, LaunchShapes]) -> dict:
+    """`fedagg` and `prox_sgd` against their plain versions at every
+    distinct shape the main path and the comms path launched them with
+    (partial-visit and buffered flushes, sparse rounds), on fresh random
+    inputs: no timing, the `kernels` phase times the main-path shapes."""
+    out = {}
+    for path, rec in shapes.items():
+        require(rec.fedagg and rec.prox_sgd,
+                f"{path}: no kernel launch was recorded")
+        rows = [check_fedagg(dev, K, P, dtype, delta, None)
+                for K, P, dtype, delta in sorted(rec.fedagg)]
+        rows += [check_prox_sgd(dev, C, P, dtype, mu, shared, None)
+                 for C, P, dtype, mu, shared in sorted(rec.prox_sgd)]
+        out[path] = dict(
+            fedagg=[f"{r['form']} K={r['K']} P={r['P']} {r['dtype']}"
+                    for r in rows if r["name"] == "fedagg"],
+            prox_sgd=[f"C={r['C']} P={r['P']} {r['dtype']} mu={r['mu']} "
+                      f"{r['anchor']}" for r in rows
+                      if r["name"] == "prox_sgd"],
+            max_abs_err=max(r["max_abs_err"] for r in rows))
+    emit("path_shapes", **out)
+    return out
 
 
 # ------------------------------------------------------------- main path
@@ -522,6 +630,9 @@ class _OnDevice:
         return self.inner.minibatches(n_valid, bound,
                                       batch_size).to(self.device)
 
+    def codec_uniforms(self, n_clients, layout):
+        return self.inner.codec_uniforms(n_clients, layout).to(self.device)
+
 
 def phase_cpu_vs_card(dev) -> dict:
     cst, st = WalkerStar(2, 2), station_subnetwork(1)
@@ -557,6 +668,252 @@ def phase_cpu_vs_card(dev) -> dict:
                accuracy_cpu=[a for _, _, a in runs["cpu"].accuracy_curve])
     emit("cpu_vs_card", **out)
     require(gap <= 1e-4, f"final params differ by {gap} > 1e-4")
+    return out
+
+
+# ------------------------------------------------------------ comms path
+COMMS_ROUNDS = 12
+ISL_NAMES = ("fedavg_intracc_isl", "fedprox_intracc_isl")
+CONNECTIVITY_NAMES = ("fedspace", "ground_assisted", "fedprox_sparse")
+LOSSY_CODECS = ("quant_int8", "quant_fp8", "topk_sparse")
+
+
+def _check_final_params(label: str, res) -> None:
+    require(res.final_params is not None, f"{label}: no final params")
+    leaves = [v for layer in res.final_params.values()
+              for v in layer.values()]
+    require(sum(v.size for v in leaves) == P_MLP
+            and all(bool(np.isfinite(v).all()) for v in leaves),
+            f"{label}: bad final params")
+
+
+def phase_comms_path(dev, setup: dict) -> dict:
+    """The ISL, connectivity-aware and codec algorithms on the main-path
+    cell, each run traced (`repro_torch.obs`: the comms counters, and each
+    span ends in a device sync) with the launch counters zeroed just
+    before it and read just after."""
+    cst, st, data, aw = (setup[k] for k in ("cst", "st", "data", "aw"))
+    cfg = SimConfig(max_rounds=COMMS_ROUNDS, horizon_s=MAIN_HORIZON_S,
+                    eval_every=5)
+    runs = [(name, ALGORITHMS[name], {}) for name in ISL_NAMES
+            + CONNECTIVITY_NAMES]
+    runs += [(f"fedprox_{c}", spaceify(FedProxSat(), codec=c), {})
+             for c in LOSSY_CODECS]
+    runs.append(("fedprox_intracc_isl+LinkBudget",
+                 ALGORITHMS["fedprox_intracc_isl"],
+                 dict(link_model=LinkBudget())))
+    out_runs = []
+    totals = {"prox_sgd": 0, "fedagg": 0}
+    for label, alg, kw in runs:
+        ops.reset_launches()          # this run's counts start here
+        t0 = time.perf_counter()
+        with obs.tracing():
+            sim = ConstellationSim(cst, st, alg, data=data, cfg=cfg,
+                                   access=aw, device=dev, **kw)
+            res = sim.run()
+            torch.cuda.synchronize()
+            counters = obs.metrics_summary()["counters"]
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        for k in totals:
+            totals[k] += launches[k]
+        relays = sum(1 for r in res.rounds for x in r.relays if x >= 0)
+        row = dict(
+            run=label, algorithm=res.algorithm, rounds=res.n_rounds,
+            wall_s=wall, launches=launches,
+            accuracy=[a for _, _, a in res.accuracy_curve],
+            relays=relays,
+            relay_hops=sum(h for r in res.rounds for h in r.relay_hops),
+            comms_bytes=sum(r.total_comms_bytes for r in res.rounds),
+            wire_bytes_saved=sum(r.wire_bytes_saved for r in res.rounds),
+            codec_error=counters.get("comms.codec_error"),
+            encoded_bytes=counters.get("comms.encoded_bytes"),
+            plan=None if sim.plan is None else dict(
+                isl_edges=len(sim.plan.isl),
+                isl_windows=sum(len(e) for e in sim.plan.isl.values())))
+        out_runs.append(row)
+        print(json.dumps({"phase": "comms_path_run", **row}), flush=True)
+        require(res.n_rounds >= 10,
+                f"{label}: {res.n_rounds} rounds (< 10) in 2 days")
+        require(launches["prox_sgd"] > 0 and launches["fedagg"] > 0,
+                f"{label}: a kernel was never launched: {launches}")
+        require(sim.device.type == "cuda", f"{label}: not on the card")
+        _check_final_params(label, res)
+        require(all(math.isfinite(a) for a in row["accuracy"]),
+                f"{label}: accuracy not finite")
+        if alg.isl:
+            require(relays >= 1, f"{label}: no relayed return")
+        if alg.codec != "identity":
+            require(row["wire_bytes_saved"] > 0
+                    and row["codec_error"] is not None
+                    and row["codec_error"] > 0,
+                    f"{label}: the codec saved no bytes or changed nothing")
+    out = dict(cell=MAIN_CELL, horizon_days=MAIN_HORIZON_S / 86400.0,
+               max_rounds=COMMS_ROUNDS, runs=out_runs, launches=totals)
+    emit("comms_path", **{k: v for k, v in out.items() if k != "runs"},
+         walls_s={r["run"]: r["wall_s"] for r in out_runs})
+    return out
+
+
+SCALE_PLANES, SCALE_SATS = 32, 32   # 1,024 satellites (bench_scale.py)
+SCALE_HORIZON_S = 86400.0
+SCALE_MAX_HOPS = 3
+# Threshold-tie band of the ISL distance tests (tests/test_torch_comms.py).
+ISL_TIE_M = 50.0
+
+
+def _route_stats(plan, n_sats: int, n_bytes: float) -> dict:
+    t0 = time.perf_counter()
+    routes = batch_earliest_arrival(plan, list(range(n_sats)), 0.0,
+                                    n_bytes, max_hops=SCALE_MAX_HOPS)
+    wall = time.perf_counter() - t0
+    reached = [r for r in routes if r is not None]
+    hops = np.array([r.isl_hops for r in reached])
+    arrivals = np.array([r.arrival_s for r in reached])
+    return dict(route_s=wall, reach_frac=len(reached) / n_sats,
+                relay_frac=float((hops > 0).mean()) if reached else None,
+                mean_hops=float(hops.mean()) if reached else None,
+                mean_arrival_h=float(arrivals.mean()) / 3600
+                if reached else None)
+
+
+def phase_comms_scale(dev) -> dict:
+    """`benchmarks/bench_scale.py`'s 1,024-satellite plan through the
+    port: windows on the card, plan, re-rating and batch routing on the
+    host (numpy), each stage's wall; then the card's ISL visibility grid
+    against the CPU's, sample by sample."""
+    cst, st = WalkerStar(SCALE_PLANES, SCALE_SATS), station_subnetwork(13)
+    walls = {}
+    t0 = time.perf_counter()
+    aw = compute_access_windows(cst, st, horizon_s=SCALE_HORIZON_S,
+                                device=dev)
+    walls["access_windows"] = time.perf_counter() - t0
+    topo = isl.ISLTopology.walker_grid(cst, cross_plane=True, seam_k=2)
+    t0 = time.perf_counter()
+    iw = compute_isl_windows(cst, topo, horizon_s=SCALE_HORIZON_S,
+                             device=dev)
+    walls["isl_windows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = build_contact_plan(aw, iw, ConstantRate(), constellation=cst,
+                              stations=st, cache_geometry=True)
+    walls["contact_plan"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan_b = plan.rerate(LinkBudget())
+    walls["rerate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan.tables()
+    plan_b.tables()
+    walls["window_tables"] = time.perf_counter() - t0
+    n_bytes = HardwareModel().model_bytes
+    routes = {"const": _route_stats(plan, cst.n_sats, n_bytes),
+              "budget": _route_stats(plan_b, cst.n_sats, n_bytes)}
+
+    # The card's ISL grid against the CPU's over the whole day.
+    el = cst.elements()
+    ei = torch.tensor([i for i, _ in topo.edges])
+    ej = torch.tensor([j for _, j in topo.edges])
+    n_steps = int(np.ceil(SCALE_HORIZON_S / iw.dt_s)) + 1
+    t = torch.as_tensor(np.arange(n_steps) * iw.dt_s, dtype=torch.float32)
+    reach = isl.DEFAULT_ISL_MAX_RANGE_KM * 1e3
+    t0 = time.perf_counter()
+    card = isl.isl_visibility_grid(el, ei.to(dev), ej.to(dev), t.to(dev),
+                                   reach).cpu()
+    torch.cuda.synchronize()
+    walls["isl_grid_card"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu = isl.isl_visibility_grid(el, ei, ej, t, reach)
+    walls["isl_grid_cpu"] = time.perf_counter() - t0
+    min_r, rng = isl.isl_margins(el, ei, ej, t)
+    diff = cpu != card
+    tie = (((min_r - (isl.R_EARTH + isl.ATMOSPHERE_PAD_M)).abs()
+            <= ISL_TIE_M) | ((rng - reach).abs() <= ISL_TIE_M))
+    not_ties = int((diff & ~tie).sum())
+    out = dict(
+        sats=cst.n_sats, stations=len(st), horizon_days=1.0,
+        isl_edges=topo.n_edges,
+        isl_windows=sum(len(s) for s, _ in iw.per_edge),
+        ground_windows=sum(len(s) for s, _ in aw.per_sat),
+        plan_isl_edges=len(plan.isl), walls_s=walls, routes=routes,
+        isl_grid_samples=int(diff.numel()),
+        isl_grid_visible_share=float(cpu.float().mean()),
+        isl_grid_differing_samples=int(diff.sum()),
+        isl_grid_differing_not_ties=not_ties, tie_m=ISL_TIE_M)
+    emit("comms_scale", **out)
+    require(not_ties == 0, f"{not_ties} ISL samples differ between the "
+            "card and the CPU away from a threshold tie")
+    require(routes["const"]["reach_frac"] > 0.9
+            and routes["const"]["relay_frac"] > 0,
+            f"routing reached too little: {routes}")
+    return out
+
+
+def phase_comms_cpu_vs_card(dev) -> dict:
+    """fedprox_intracc_isl and fedprox with the int8 codec on c1s10/g1
+    over 2 days (a dense plane whose ISL ring relays), 4 clients a round,
+    on the card and on the CPU: one set of access and ISL windows (one
+    contact plan), init params, minibatch draws and codec uniforms."""
+    cst, st = WalkerStar(1, 10), station_subnetwork(1)
+    horizon = 2 * 86400.0
+    aw = compute_access_windows(cst, st, horizon_s=horizon, device="cpu")
+    iw = compute_isl_windows(cst, horizon_s=horizon, device="cpu")
+    plan = build_contact_plan(aw, iw)
+    data = synth_femnist(cst.n_sats, seed=0)
+    init = params_to_numpy(femnist_mlp_init(
+        torch.Generator().manual_seed(0), "cpu"))
+    cfg = SimConfig(max_rounds=3, horizon_s=horizon, eval_every=1,
+                    max_steps=16, clients_per_round=4)
+    fields = ("idx", "t_start", "t_end", "participants", "epochs",
+              "idle_s", "compute_s", "comm_s", "relays", "staleness",
+              "relay_hops", "comms_bytes", "wire_bytes_saved")
+    out = {}
+    for label, alg in (("fedprox_intracc_isl",
+                        ALGORITHMS["fedprox_intracc_isl"]),
+                       ("fedprox_quant_int8",
+                        spaceify(FedProxSat(), codec="quant_int8"))):
+        runs = {}
+        for where, device, sampler in (
+                ("cpu", "cpu", TorchSampler(0, "cpu")),
+                ("card", dev, _OnDevice(TorchSampler(0, "cpu"), dev))):
+            runs[where] = ConstellationSim(
+                cst, st, alg, data=data, cfg=cfg, access=aw,
+                contact_plan=plan if alg.isl else None, device=device,
+                sampler=sampler, init_params=init).run()
+        recs = {k: [[getattr(r, f) for f in fields] for r in v.rounds]
+                for k, v in runs.items()}
+        flat = {k: np.concatenate([v.final_params[l][m].reshape(-1)
+                                   for l in ("fc1", "fc2")
+                                   for m in ("b", "w")])
+                for k, v in runs.items()}
+        gap = np.abs(flat["card"] - flat["cpu"])
+        accs = {k: [a for _, _, a in v.accuracy_curve]
+                for k, v in runs.items()}
+        row = dict(
+            rounds=len(recs["card"]),
+            records_identical=recs["card"] == recs["cpu"],
+            relays=sum(1 for r in runs["card"].rounds
+                       for x in r.relays if x >= 0),
+            final_params_max_abs_gap=float(gap.max()),
+            params_over_1e5=int((gap > 1e-5).sum()),
+            relative_l2=float(np.linalg.norm(flat["card"] - flat["cpu"])
+                              / np.linalg.norm(flat["cpu"])),
+            accuracy_card=accs["card"], accuracy_cpu=accs["cpu"])
+        out[label] = row
+        require(row["rounds"] == 3 and row["records_identical"],
+                f"{label}: RoundRecords differ between the card and the CPU")
+        if alg.isl:
+            require(row["relays"] >= 1, f"{label}: no relayed return")
+            require(row["final_params_max_abs_gap"] <= 1e-4,
+                    f"{label}: final params differ by "
+                    f"{row['final_params_max_abs_gap']} > 1e-4")
+        else:
+            # tests/test_torch_engine.py::
+            # test_quant_int8_training_within_codec_bounds
+            require(row["params_over_1e5"] <= 100
+                    and row["relative_l2"] <= 1e-4
+                    and all(abs(a - b) <= 2 / 256 for a, b in
+                            zip(accs["card"], accs["cpu"])),
+                    f"{label}: card and CPU outside the codec bounds: {row}")
+    emit("comms_cpu_vs_card", cell="c1s10/g1", **out)
     return out
 
 
@@ -840,9 +1197,16 @@ def main() -> int:
     timed("card", phase_card)
     rows = timed("kernels", phase_kernels, dev)
     setup = timed("main_path_setup", main_path_setup, dev)
-    main_path = timed("main_path", phase_main_path, dev, setup)
+    shapes = {"main_path": LaunchShapes(), "comms_path": LaunchShapes()}
+    with shapes["main_path"]:
+        main_path = timed("main_path", phase_main_path, dev, setup)
     timed("where_time_goes", phase_where_time_goes, dev, setup)
     timed("cpu_vs_card", phase_cpu_vs_card, dev)
+    with shapes["comms_path"]:
+        comms = timed("comms_path", phase_comms_path, dev, setup)
+    timed("path_shapes", phase_path_shapes, dev, shapes)
+    timed("comms_scale", phase_comms_scale, dev)
+    timed("comms_cpu_vs_card", phase_comms_cpu_vs_card, dev)
     lm_rows = timed("lm_kernels", phase_lm_kernels, dev)
     served = timed("serve", phase_serve, dev)
     timed("serve_cpu_vs_card", phase_serve_cpu_vs_card, dev)
@@ -870,7 +1234,10 @@ def main() -> int:
             replaces=replaces, launches=launches[row["name"]],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
-            bound_by=row["bound_by"], library_ms=row["library_ms"]))
+            bound_by=row["bound_by"], library_ms=row["library_ms"],
+            # The comms path's runs, each counted from 0 (not the main
+            # path's count above).
+            comms_path_launches=comms["launches"].get(row["name"], 0)))
     emit("done", wall_s=time.perf_counter() - t_start, phases_s=phases_s)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,10 +1,11 @@
 """The space-ification framework (port of `repro.core`).
 
 `repro_torch.core` turns a terrestrial FL strategy into an orbital one by
-composing a `Strategy` (aggregation math, client regime, scheduling
-hooks), a `Selector` (orbital client selection over access windows) and
-the round-completion semantics the engine's event loop dispatches through
-the strategy's hooks.
+composing a `Strategy` (FedAvgSat / FedProxSat / FedBuffSat / the
+connectivity-aware extensions: aggregation math, client regime,
+scheduling hooks), a `Selector` (orbital client selection over access
+windows or a `ContactPlan`) and the round-completion semantics the
+engine's event loop dispatches through the strategy's hooks.
 """
 from repro_torch.core.strategies.base import (
     BufferState,
@@ -15,6 +16,9 @@ from repro_torch.core.strategies.base import (
 from repro_torch.core.strategies.fedavg import FedAvgSat
 from repro_torch.core.strategies.fedprox import FedProxSat
 from repro_torch.core.strategies.fedbuff import FedBuffSat
+from repro_torch.core.strategies.fedspace import FedSpaceSat
+from repro_torch.core.strategies.ground_assisted import GroundAssistedSat
+from repro_torch.core.strategies.sparse import sparse_variant
 from repro_torch.core.selection import (
     BaseSelector,
     ScheduleSelector,
@@ -46,6 +50,9 @@ __all__ = [
     "FedAvgSat",
     "FedProxSat",
     "FedBuffSat",
+    "FedSpaceSat",
+    "GroundAssistedSat",
+    "sparse_variant",
     "BaseSelector",
     "ScheduleSelector",
     "IntraCCSelector",

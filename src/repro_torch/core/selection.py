@@ -1,11 +1,9 @@
 """Orbital client selection (paper section 3 stage 1 + section 4 augmentations).
 
-Port of `repro.core.selection` for planning over `AccessWindows` (the
-seed's free-relay behaviour). Planning against a `ContactPlan` — routed
-ISL relays, rate-priced windows — comes with the comms slice (ROADMAP).
-
-Three selectors, all producing `ClientPlan`s — a fully-timed itinerary for
-one satellite's participation in one FL round:
+Port of `repro.core.selection` (host-side planning in plain Python,
+bitwise the reference's). Three selectors, all producing `ClientPlan`s —
+a fully-timed itinerary for one satellite's participation in one FL
+round:
 
   * `BaseSelector`      — Algorithm 1/2 selection: the first `c = min(C,K)`
                           idle satellites to contact any ground station.
@@ -15,25 +13,31 @@ one satellite's participation in one FL round:
                           return its update through any same-cluster peer
                           that can reach a ground station (the original
                           satellite keeps priority on ties).
+
+When a `repro_torch.comms.ContactPlan` is supplied, itineraries are
+planned against it instead: transfer times follow each window's
+achievable rate, and — for relay-enabled selectors — the parameter return
+is routed store-and-forward over the ISL contact graph
+(`repro_torch.comms.routing`), so a relayed upload pays real ISL transfer
+time + wait and multi-hop relays become possible. Without a plan the
+seed's free-relay behaviour is reproduced exactly.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Sequence
 
+from repro_torch.comms.contact_plan import ContactPlan
+from repro_torch.comms.routing import Route, batch_earliest_arrival
 from repro_torch.core.strategies.base import ClientWorkMode, Strategy
 from repro_torch.core.timing import HardwareModel
 from repro_torch.orbits.access import AccessWindows
 
 # Bounded retry for the download-fit check: a candidate slides to at most
 # this many later passes looking for one long enough to hold the download
-# before being dropped from the round.
+# before being dropped from the round. Under LinkBudget fading consecutive
+# short passes are common; unbounded sliding could walk the whole horizon.
 MAX_PASS_SLIDES = 8
-
-
-def _no_plan(plan) -> None:
-    if plan is not None:
-        raise NotImplementedError("ContactPlan planning: ROADMAP comms slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,36 +70,62 @@ def _plan_prefix(
     hw: HardwareModel,
     local_epochs: int,
     min_epochs: int,
-    plan=None,
+    plan: ContactPlan | None = None,
 ) -> tuple | None:
-    """Download pass + training timing for one candidate. Returns
+    """Download pass + training timing for one candidate — everything an
+    itinerary needs *before* the return path is routed. Returns
     (rx_start, rx_end, train_start, train_end, epochs, earliest_return),
     with train_end None for UNTIL_CONTACT (resolved once the departure is
-    known), or None when no download pass exists."""
-    _no_plan(plan)
+    known), or None when no download pass exists. Split out of
+    `_plan_for` so selectors can compute every candidate's
+    `earliest_return` first and route the whole round in ONE
+    `batch_earliest_arrival` call.
+    """
     # --- download pass ---------------------------------------------------
-    # A pass too short for the download slides the candidate to the next
-    # pass, which must pass the same check; the retry is bounded
-    # (MAX_PASS_SLIDES) and exhaustion drops the candidate.
-    w = aw.next_window(k, t)
-    if w is None:
-        return None
-    rx_start = w[0]
-    rx_end = rx_start + hw.tx_time_s
-    slides = 0
-    while rx_end > w[1]:  # download does not fit: slide to next pass
-        if slides >= MAX_PASS_SLIDES:
+    # The fit check loops: a pass too short for the download (rate-priced
+    # under a ContactPlan, flat-rate otherwise) slides the candidate to the
+    # next pass, and the NEXT pass must pass the same check — under
+    # LinkBudget fading consecutive passes can all be too short, so the
+    # retry is bounded (MAX_PASS_SLIDES) and exhaustion drops the candidate.
+    if plan is not None:
+        w0 = plan.next_window(("gs", k), t)
+        if w0 is None:
             return None
-        slides += 1
-        w2 = aw.next_window(k, w[1] + 1.0)
-        if w2 is None:
+        rx_start = w0.start
+        rx_end = rx_start + hw.tx_time_for(rate_bps=w0.rate_bps)
+        slides = 0
+        while rx_end > w0.end:  # download does not fit: slide to next pass
+            if slides >= MAX_PASS_SLIDES:
+                return None
+            slides += 1
+            w0 = plan.next_window(("gs", k), w0.end + 1.0)
+            if w0 is None:
+                return None
+            rx_start = w0.start
+            rx_end = rx_start + hw.tx_time_for(rate_bps=w0.rate_bps)
+        pass_end = w0.end
+    else:
+        w = aw.next_window(k, t)
+        if w is None:
             return None
-        w = w2
-        rx_start, rx_end = w2[0], w2[0] + hw.tx_time_s
-    pass_end = w[1]
+        rx_start = w[0]
+        rx_end = rx_start + hw.tx_time_s
+        slides = 0
+        while rx_end > w[1]:  # download does not fit: slide to next pass
+            if slides >= MAX_PASS_SLIDES:
+                return None
+            slides += 1
+            w2 = aw.next_window(k, w[1] + 1.0)
+            if w2 is None:
+                return None
+            w = w2
+            rx_start, rx_end = w2[0], w2[0] + hw.tx_time_s
+        pass_end = w[1]
     train_start = rx_end
     # Training happens *between* passes; parameters return at a subsequent
-    # pass — never the download pass itself.
+    # pass ("Wait until reach nearest station in G, then return w" /
+    # "while no access to ground station do train") — never the download
+    # pass itself.
     after_pass = pass_end + 1.0
 
     if strategy.work_mode is ClientWorkMode.FIXED_EPOCHS:
@@ -121,43 +151,63 @@ def _plan_for(
     local_epochs: int,
     min_epochs: int,
     use_relay: bool,
-    plan=None,
-    max_hops: int = 3,
+    plan: ContactPlan | None = None,
+    route: Route | None = None,
 ) -> ClientPlan | None:
-    """Build the itinerary for one candidate satellite starting at time t."""
-    _no_plan(plan)
-    prefix = _plan_prefix(k, t, aw, strategy, hw, local_epochs, min_epochs)
+    """Build the itinerary for one candidate satellite starting at time t.
+
+    With a `plan`, `route` is the candidate's return route from
+    `batch_earliest_arrival` (None: no route, so no itinerary).
+    """
+    prefix = _plan_prefix(k, t, aw, strategy, hw, local_epochs,
+                          min_epochs, plan=plan)
     if prefix is None:
         return None
     rx_start, rx_end, train_start, train_end, epochs, earliest_return = prefix
 
     # --- choose the return path -----------------------------------------
+    # The default up+down cost is the ONE shared round-trip expression
+    # (full-precision download + codec-priced uplink); routed returns
+    # replace the uplink term with the route's per-leg wire bytes.
     relay = -1
     relay_path: tuple[int, ...] = ()
     isl_hops = 0
     comm_bytes = hw.round_trip_bytes
-    ret = aw.next_window(k, earliest_return)
-    if use_relay:
-        # Seed free-relay: any same-cluster peer with line-of-sight along
-        # the orbital plane may relay the update instantaneously; the
-        # original satellite has priority on ties.
-        cl = int(aw.cluster[k])
-        best = aw.cluster_next_window(cl, earliest_return)
-        if best is not None and (ret is None or best[1] < ret[0]):
-            peer, s, e = best
-            if peer != k:
-                relay = peer
-                relay_path = (k, peer)
-            ret = (s, e)
-    if ret is None:
-        return None
-    tx_start = ret[0]
-    tx_end = tx_start + hw.ul_time_s
-    departure = tx_start
+    if plan is not None:
+        # Contact-graph routing: relayed uploads pay ISL transfer + wait,
+        # each leg carrying the codec-encoded return.
+        if route is None:
+            return None
+        tx_start, tx_end = route.tx_start, route.arrival_s
+        departure = route.departure_s
+        relay, relay_path, isl_hops = route.relay, route.path, route.isl_hops
+        comm_bytes = hw.model_bytes + route.bytes_on_wire
+    else:
+        ret = aw.next_window(k, earliest_return)
+        if use_relay:
+            # Seed free-relay: any same-cluster peer with line-of-sight along
+            # the orbital plane may relay the update instantaneously; the
+            # original satellite has priority on ties.
+            cl = int(aw.cluster[k])
+            best = aw.cluster_next_window(cl, earliest_return)
+            if best is not None and (ret is None or best[1] < ret[0]):
+                peer, s, e = best
+                if peer != k:
+                    relay = peer
+                    relay_path = (k, peer)
+                ret = (s, e)
+        if ret is None:
+            return None
+        tx_start = ret[0]
+        tx_end = tx_start + hw.ul_time_s    # return leg: codec-priced
+        departure = tx_start
     if strategy.work_mode is ClientWorkMode.UNTIL_CONTACT:
-        # The number of gradient epochs is capped by the onboard duty
-        # cycle; the satellite keeps training right up to its return
-        # transmission, so its compute span is the whole inter-pass gap.
+        # SGD realism: the *number of gradient epochs* is capped by the
+        # onboard duty cycle; but per Algorithms 2-3 the satellite keeps
+        # training right up to its first return transmission (the return
+        # pass in the direct case, the first ISL leg when routed), so its
+        # compute span is the whole inter-pass gap (this is what makes
+        # FedProx/FedBuff idle times collapse in Figures 9b-c).
         epochs = hw.epochs_between(train_start, departure)
         epochs = max(epochs, min(min_epochs, hw.max_local_epochs)) or 1
         train_end = departure
@@ -175,7 +225,7 @@ class BaseSelector:
 
     use_relay: bool = False
     schedule: bool = False
-    max_hops: int = 3        # ISL hop bound (used by ContactPlan routing)
+    max_hops: int = 3        # ISL hop bound when routing over a ContactPlan
 
     def select(
         self,
@@ -187,18 +237,42 @@ class BaseSelector:
         hw: HardwareModel,
         local_epochs: int = 5,
         min_epochs: int = 0,
-        plan=None,
+        plan: ContactPlan | None = None,
     ) -> list[ClientPlan]:
-        _no_plan(plan)
-        # Sparse-participation strategies shrink the nominal budget here.
+        # Sparse-participation strategies shrink the nominal selection
+        # budget here, so every consumer (round loop, eval-stage
+        # selection, batched lockstep planner) agrees on the round size.
         c = strategy.round_size(c)
         plans = []
-        for k in idle:
-            p = _plan_for(int(k), t, aw, strategy, hw, local_epochs,
-                          min_epochs, self.use_relay,
-                          max_hops=self.max_hops)
-            if p is not None:
-                plans.append(p)
+        if plan is not None:
+            # One batched routing call for the whole round instead of one
+            # Dijkstra per candidate: compute every candidate's
+            # earliest-return instant first, then relax all sources over
+            # the contact graph in a handful of array sweeps.
+            prefixes = {}
+            for k in (int(k) for k in idle):
+                px = _plan_prefix(k, t, aw, strategy, hw, local_epochs,
+                                  min_epochs, plan=plan)
+                if px is not None:
+                    prefixes[k] = px
+            cands = list(prefixes)
+            if cands:
+                routes = batch_earliest_arrival(
+                    plan, cands, [prefixes[k][5] for k in cands],
+                    hw.uplink_bytes,
+                    max_hops=self.max_hops if self.use_relay else 0)
+                for k, route in zip(cands, routes):
+                    p = _plan_for(k, t, aw, strategy, hw, local_epochs,
+                                  min_epochs, self.use_relay, plan=plan,
+                                  route=route)
+                    if p is not None:
+                        plans.append(p)
+        else:
+            for k in idle:
+                p = _plan_for(int(k), t, aw, strategy, hw, local_epochs,
+                              min_epochs, self.use_relay)
+                if p is not None:
+                    plans.append(p)
         # Base rule: order by *initial contact* (first to reach a station).
         # Schedule rule: order by projected parameter-return time.
         key = (lambda p: (p.tx_end, p.rx_start)) if self.schedule \

@@ -6,17 +6,22 @@ Port of `repro.core.spaceify`. A `SpaceifiedAlgorithm` bundles
   knobs     (local epochs E, min-epoch floor, buffer size D)
 and is what `repro_torch.sim.engine.ConstellationSim` executes.
 
-`ALGORITHMS` is an open registry whose built-in suite is the paper's
-Table-1 variants (8). The reference's ISL extensions (`*_isl`), the
+`ALGORITHMS` is an open registry. The built-in suite — the paper's
+Table-1 variants (8), the ISL-enabled extensions (`*_isl`) and the
 connectivity-aware strategies (`fedspace`, `ground_assisted`,
-`fedprox_sparse`) and lossy uplink codecs come with the comms slice
-(ROADMAP): asking for them raises NotImplementedError.
+`fedprox_sparse`) — is the reference's, built on first lookup.
+
+`isl=True` marks an algorithm as planning against a
+`repro_torch.comms.ContactPlan`, so relayed parameter returns are routed
+store-and-forward over inter-satellite links; `codec=` names the uplink
+transfer codec (`repro_torch.comms.codec`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Iterator, Mapping
 
+from repro_torch.comms.codec import get_codec
 from repro_torch.core.selection import (
     BaseSelector,
     IntraCCSelector,
@@ -26,10 +31,9 @@ from repro_torch.core.strategies.base import Strategy
 from repro_torch.core.strategies.fedavg import FedAvgSat
 from repro_torch.core.strategies.fedbuff import FedBuffSat
 from repro_torch.core.strategies.fedprox import FedProxSat
-
-# Reference registry entries that need the comms slice.
-_COMMS_SLICE_NAMES = ("fedavg_intracc_isl", "fedprox_intracc_isl",
-                      "fedspace", "ground_assisted", "fedprox_sparse")
+from repro_torch.core.strategies.fedspace import FedSpaceSat
+from repro_torch.core.strategies.ground_assisted import GroundAssistedSat
+from repro_torch.core.strategies.sparse import sparse_variant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,18 +45,16 @@ class SpaceifiedAlgorithm:
     min_epochs: int = 0        # SchedV2 floor (UNTIL_CONTACT regime)
     buffer_frac: float = 1.0   # FedBuff: D = max(1, round(buffer_frac * c))
     isl: bool = False          # plan against an ISL-aware ContactPlan
-    codec: str = "identity"    # uplink transfer codec
+    # Uplink transfer codec (`repro_torch.comms.codec` registry name):
+    # "identity" keeps the full-precision symmetric pricing bitwise;
+    # lossy codecs compress the client's return on the wire AND on the
+    # training path (the engine applies the lossy delta).
+    codec: str = "identity"
 
     def __post_init__(self):
         # Knob validation at construction: a bad knob otherwise surfaces
         # rounds deep in a sweep as a shape error or an empty buffer.
-        if self.codec != "identity":
-            raise NotImplementedError(
-                f"algorithm {self.name!r}: uplink codec {self.codec!r}: "
-                "ROADMAP comms slice")
-        if self.isl:
-            raise NotImplementedError(
-                f"algorithm {self.name!r}: ISL relays: ROADMAP comms slice")
+        get_codec(self.codec)   # unknown codec: KeyError w/ vocabulary
         if not 0.0 < self.buffer_frac <= 1.0:
             raise ValueError(
                 f"algorithm {self.name!r}: buffer_frac must be in (0, 1], "
@@ -82,7 +84,16 @@ def spaceify(strategy: Strategy, *, schedule: bool = False,
              buffer_frac: float = 1.0,
              max_hops: int = 3,
              codec: str = "identity") -> SpaceifiedAlgorithm:
-    """Adapt any terrestrial `Strategy` for orbital deployment."""
+    """Adapt any terrestrial `Strategy` for orbital deployment.
+
+    `isl=True` makes the simulator compile a `ContactPlan` (ground passes
+    + ISL contact windows) and plan itineraries against it: transfer
+    times follow per-window achievable rates and relays become real
+    (bounded at `max_hops` store-and-forward legs). `codec` names a
+    `repro_torch.comms.codec` registry entry pricing (and, for lossy
+    codecs, transforming) the client's uplink; non-identity codecs suffix
+    the derived name (`fedavg_quant_int8`).
+    """
     if intracc:
         selector = IntraCCSelector(schedule=schedule, max_hops=max_hops)
     elif schedule:
@@ -108,15 +119,16 @@ def spaceify(strategy: Strategy, *, schedule: bool = False,
     )
 
 
-# The paper-exact Table-1 names, pinned explicitly so growing the registry
-# never leaks into the paper-reproduction subset.
+# The paper-exact Table-1 names (no ISL extensions, no related-work
+# strategies), pinned explicitly so growing the registry never leaks into
+# the paper-reproduction subset.
 TABLE1_NAMES = ("fedavg", "fedavg_sched", "fedavg_intracc",
                 "fedprox", "fedprox_sched", "fedprox_sched_v2",
                 "fedprox_intracc", "fedbuff")
 
 
 def _builtin_suite() -> list[SpaceifiedAlgorithm]:
-    """The Table-1 suite."""
+    """Table-1 suite + ISL extensions + connectivity-aware strategies."""
     fedavg, fedprox, fedbuff = FedAvgSat(), FedProxSat(), FedBuffSat()
     return [
         spaceify(fedavg),
@@ -127,6 +139,14 @@ def _builtin_suite() -> list[SpaceifiedAlgorithm]:
         spaceify(fedprox, schedule=True, min_epochs=5),   # FedProxSchedV2
         spaceify(fedprox, intracc=True),
         spaceify(fedbuff),
+        # ISL extensions: the relay hand-off priced by the comms layer.
+        spaceify(fedavg, intracc=True, isl=True),
+        spaceify(fedprox, intracc=True, isl=True),
+        # Connectivity-aware strategies: schedule-aware flush timing,
+        # per-visit ground aggregation, and a half-participation variant.
+        spaceify(FedSpaceSat(), buffer_frac=0.5),
+        spaceify(GroundAssistedSat()),
+        spaceify(sparse_variant(FedProxSat(), 0.5)),
     ]
 
 
@@ -134,8 +154,7 @@ class AlgorithmRegistry(Mapping):
     """Open, lazily-built name -> `SpaceifiedAlgorithm` registry.
 
     Reads like a plain dict; lookups of unknown names raise a KeyError
-    that lists the sorted registered keys, and lookups of reference
-    entries that need the comms slice raise NotImplementedError.
+    that lists the sorted registered keys.
     """
 
     def __init__(self, factory):
@@ -163,9 +182,6 @@ class AlgorithmRegistry(Mapping):
         algs = self._ensure()
         if name in algs:
             return algs[name]
-        if name in _COMMS_SLICE_NAMES:
-            raise NotImplementedError(
-                f"algorithm {name!r}: ROADMAP comms slice")
         raise KeyError(
             f"unknown algorithm {name!r}; registered algorithms: "
             f"{sorted(algs)}")

@@ -134,9 +134,8 @@ class Strategy:
 
         Called after each admitted arrival with the post-admission
         `state` and the contact `outlook`
-        (`repro.comms.contact_plan.ContactOutlook` in the reference; not
-        ported yet). The default is the
-        size barrier both stock loops used: flush exactly when the
+        (`repro_torch.comms.contact_plan.ContactOutlook`). The default is
+        the size barrier both stock loops used: flush exactly when the
         buffer reaches its nominal size (the sync round's full
         selection, FedBuff's D).
         """

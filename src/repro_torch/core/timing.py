@@ -1,21 +1,17 @@
 """Satellite hardware/cost model (paper section 5 numbers as defaults).
 
-Port of `repro.core.timing` without the uplink codec: every transfer is
-full precision, which is the reference's `codec=None` pricing bit for bit.
-The paper assumes a SpaceCloud iX5-106 class onboard computer
-(40 GFLOP/s), a 47k-parameter (186 KB) model, 98 MFLOP per local epoch,
-and Planet-Dove class telemetry at 580 Mbps.
+Port of `repro.core.timing`, bitwise the reference's pricing with and
+without an uplink codec. The paper assumes a SpaceCloud iX5-106 class
+onboard computer (40 GFLOP/s), a 47k-parameter (186 KB) model, 98 MFLOP
+per local epoch, and Planet-Dove class telemetry at 580 Mbps.
 """
 from __future__ import annotations
 
 import dataclasses
 
+from repro_torch.comms.codec import get_codec, round_trip_bytes
+from repro_torch.comms.links import MIN_RATE_BPS
 from repro_torch.orbits import constants as C
-
-# Private copy of `repro.comms.links.MIN_RATE_BPS`, the deep-fade floor of
-# every transfer-time division. The comms slice ports `links.py` and
-# replaces this copy (ROADMAP).
-MIN_RATE_BPS = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,8 +22,14 @@ class HardwareModel:
     model_bytes: int = C.MODEL_BYTES         # parameters on the wire
     # Energy/duty-cycle cap on continuous training (UNTIL_CONTACT regime).
     max_local_epochs: int = 100
-    # Full-precision wire width, bytes/parameter.
+    # Full-precision wire width, bytes/parameter (only the codec's wire
+    # pricing reads it: `model_bytes` already bakes the width in).
     bytes_per_param: int = C.BYTES_PER_PARAM
+    # Uplink transfer codec (`repro_torch.comms.codec.TransferCodec`):
+    # prices the client's *return* transfer (the model download always
+    # ships full precision). None keeps the seed's symmetric pricing,
+    # bitwise identical to the identity codec.
+    codec: object | None = None
 
     @property
     def epoch_time_s(self) -> float:
@@ -35,29 +37,38 @@ class HardwareModel:
 
     @property
     def tx_time_s(self) -> float:
-        """One full-precision model transfer over the telemetry link."""
+        """One full-precision model transfer (the download direction)
+        over the telemetry link."""
         return (self.model_bytes * 8) / (self.link_mbps * 1e6)
 
     @property
     def uplink_bytes(self) -> float:
-        """Bytes one client return puts on the wire (no codec)."""
-        return float(self.model_bytes)
+        """Bytes one client return (uplink) puts on the wire, after the
+        codec: == `model_bytes` with no codec."""
+        if self.codec is None:
+            return float(self.model_bytes)
+        return self.codec.wire_bytes(self.model_bytes, self.bytes_per_param)
 
     @property
     def ul_time_s(self) -> float:
-        """One uplink at the constant telemetry rate (== `tx_time_s`)."""
-        return self.tx_time_s
+        """One codec-priced uplink at the constant telemetry rate —
+        == `tx_time_s` bit for bit with no codec."""
+        if self.codec is None:
+            return self.tx_time_s
+        return self.tx_time_for(n_bytes=self.uplink_bytes)
 
     def ul_time_for(self, rate_bps: float | None = None) -> float:
-        """Uplink time at a window's achievable rate."""
-        return self.tx_time_for(rate_bps=rate_bps)
+        """Codec-priced uplink time at a window's achievable rate."""
+        return self.tx_time_for(
+            n_bytes=None if self.codec is None else self.uplink_bytes,
+            rate_bps=rate_bps)
 
     @property
     def round_trip_bytes(self) -> float:
-        """Direct round-trip wire cost: download + uplink. Private copy of
-        `repro.comms.codec.round_trip_bytes` for `codec=None`; the codec
-        slice replaces it (ROADMAP)."""
-        return 2.0 * self.model_bytes
+        """Direct (no-relay) round-trip wire cost: full-precision
+        download + codec-priced uplink
+        (`repro_torch.comms.codec.round_trip_bytes`)."""
+        return round_trip_bytes(self.codec, self)
 
     def tx_time_for(self, n_bytes: float | None = None,
                     rate_bps: float | None = None) -> float:
@@ -78,9 +89,11 @@ class HardwareModel:
     @classmethod
     def for_workload(cls, workload, *, gflops: float | None = None,
                      link_mbps: float | None = None,
-                     max_local_epochs: int | None = None) -> "HardwareModel":
+                     max_local_epochs: int | None = None,
+                     codec=None) -> "HardwareModel":
         """Price a `repro_torch.core.workload.Workload` on the paper's
-        satellite. For `femnist_mlp` — whose cost is pinned to the paper
+        satellite, with `codec` (a registry name or codec) pricing the
+        uplink. For `femnist_mlp` — whose cost is pinned to the paper
         constants — this returns exactly `HardwareModel()`."""
         from repro_torch.core.workload import get_workload
         wl = get_workload(workload)
@@ -97,4 +110,6 @@ class HardwareModel:
             kwargs["link_mbps"] = link_mbps
         if max_local_epochs is not None:
             kwargs["max_local_epochs"] = max_local_epochs
+        if codec is not None:
+            kwargs["codec"] = get_codec(codec)
         return cls(**kwargs)

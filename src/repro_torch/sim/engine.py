@@ -1,11 +1,14 @@
 """ConstellationSim — event-driven execution of a space-ified FL algorithm.
 
 Port of `repro.sim.engine` with host execution. It couples orbital
-geometry (`repro_torch.orbits`: who can talk to whom, when), the FL
-algorithm (`repro_torch.core`: selection + client regime + aggregation)
-and the workload (`repro_torch.core.workload`: what the satellites
-train), and produces the paper's three metrics per round: accuracy, round
-duration, and per-satellite idle time.
+geometry (`repro_torch.orbits`: who can talk to whom, when), the
+communications layer (`repro_torch.comms`: link rates, ISL contact
+windows, relay routing, uplink codecs; a `ContactPlan` is built only for
+`isl=True` algorithms or explicit link models), the FL algorithm
+(`repro_torch.core`: selection + client regime + aggregation) and the
+workload (`repro_torch.core.workload`: what the satellites train), and
+produces the paper's three metrics per round: accuracy, round duration,
+and per-satellite idle time.
 
 One strategy-driven event loop (`_run_events`) executes every algorithm
 through two event feeds — the synchronous selection barrier of
@@ -17,13 +20,14 @@ Tensor work runs on `device` (cuda unless the caller passes "cpu"). The
 dataset is moved to the device once and rounds gather their clients by
 index there. Each round trains its whole client stack as one (C, P) flat
 buffer — one `prox_sgd` launch per local step — and aggregates it with
-one `fedagg` launch. Random draws (initial params, minibatch indices) come
-from a `sampler`; the default `TorchSampler` holds one `torch.Generator`.
+one `fedagg` launch. A lossy uplink codec round-trips the stack between
+the two (`repro_torch.comms.codec`). Random draws (initial params,
+minibatch indices, the codec's stochastic-rounding uniforms) come from a
+`sampler`; the default `TorchSampler` holds one `torch.Generator`.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-`ContactPlan` / link models / ISL topologies and the strategy outlook
-(comms slice), `execution="mesh"` (multi-device slice), lossy codecs
-(comms slice), and workloads other than `femnist_mlp`.
+`execution="mesh"` (multi-device slice) and workloads other than
+`femnist_mlp`.
 """
 from __future__ import annotations
 
@@ -34,6 +38,14 @@ from typing import Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.comms.codec import client_roundtrip, get_codec
+from repro_torch.comms.contact_plan import (
+    ContactOutlook,
+    ContactPlan,
+    build_contact_plan,
+)
+from repro_torch.comms.isl import ISLTopology, compute_isl_windows
+from repro_torch.comms.links import ConstantRate, LinkModel
 from repro_torch.core.aggregation import admission_weights
 from repro_torch.core.client import vmapped_client_update
 from repro_torch.core.spaceify import SpaceifiedAlgorithm
@@ -46,7 +58,8 @@ from repro_torch.device import resolve_device
 from repro_torch.obs import count, enabled as obs_enabled, span
 from repro_torch.orbits.access import AccessWindows, compute_access_windows
 from repro_torch.orbits.walker import WalkerStar
-from repro_torch.params import params_from_jax, params_to_numpy
+from repro_torch.params import ParamLayout, params_from_jax, \
+    params_to_numpy
 from repro_torch.sim.metrics import RoundRecord, SimResult
 
 
@@ -71,9 +84,13 @@ class TorchSampler:
     `init(workload)` gives the initial flat params; `minibatches(n_valid,
     bound, batch_size)` gives one training round's (C, bound, B) int64
     minibatch indices, client c's drawn uniformly from
-    [0, max(n_valid[c], 1)). The engine calls `minibatches` once per
-    training round, in the order the reference splits its PRNG key, so a
-    sampler that replays the reference's draws reproduces its runs.
+    [0, max(n_valid[c], 1)); `codec_uniforms(n_clients, layout)` gives the
+    (C, P) float32 uniforms of one stochastic-rounding codec round-trip of
+    that round's client stack. The engine calls `minibatches` once per
+    training round, in the order the reference splits its PRNG key, and
+    `codec_uniforms` right after it in rounds that round-trip a
+    stochastic codec, so a sampler that replays the reference's draws
+    reproduces its runs.
     """
 
     def __init__(self, seed: int = 0, device=None):
@@ -93,6 +110,11 @@ class TorchSampler:
                        device=self.device)
         top = (n - 1).long()[:, None, None]
         return torch.minimum((u * n[:, None, None]).long(), top)
+
+    def codec_uniforms(self, n_clients: int,
+                       layout: ParamLayout) -> torch.Tensor:
+        return torch.rand((n_clients, layout.size), generator=self.generator,
+                          dtype=torch.float32, device=self.device)
 
 
 def client_steps(n_k: int, epochs: int, batch_size: int,
@@ -153,10 +175,10 @@ class ConstellationSim:
         hw: HardwareModel | None = None,
         cfg: SimConfig | None = None,
         access: AccessWindows | None = None,
-        contact_plan=None,
-        link_model=None,
-        isl_link=None,
-        isl_topology=None,
+        contact_plan: ContactPlan | None = None,
+        link_model: LinkModel | None = None,
+        isl_link: LinkModel | None = None,
+        isl_topology: ISLTopology | None = None,
         workload: Workload | str | None = None,
         execution: str | None = None,
         *,
@@ -164,12 +186,6 @@ class ConstellationSim:
         sampler=None,
         init_params: dict | None = None,
     ):
-        for name, value in (("contact_plan", contact_plan),
-                            ("link_model", link_model),
-                            ("isl_link", isl_link),
-                            ("isl_topology", isl_topology)):
-            if value is not None:
-                raise NotImplementedError(f"{name}=: ROADMAP comms slice")
         self.constellation = constellation
         self.stations = stations
         self.alg = algorithm
@@ -185,6 +201,19 @@ class ConstellationSim:
             self.hw = HardwareModel.for_workload(self.workload)
         else:
             self.hw = HardwareModel()
+        # Uplink transfer codec: the algorithm's knob resolves to a
+        # registry codec and rides inside the HardwareModel, so every
+        # wire-pricing consumer prices encoded uplinks. "identity" leaves
+        # the HardwareModel untouched (the seed's pricing, bit for bit); a
+        # caller-supplied `hw` that carries a codec keeps it unless the
+        # algorithm names a lossy one.
+        self.codec = get_codec(algorithm.codec)
+        if self.codec.name != "identity":
+            self.hw = dataclasses.replace(
+                self.hw, codec=self.codec,
+                bytes_per_param=int(self.workload.bytes_per_param))
+        elif self.hw.codec is not None:
+            self.codec = self.hw.codec
         self.data = data
         if access is not None:
             self.aw = access
@@ -193,7 +222,27 @@ class ConstellationSim:
                 self.aw = compute_access_windows(
                     constellation, stations, horizon_s=self.cfg.horizon_s,
                     device=self.device)
-        self.plan = None
+        # Comms: algorithms marked `isl=True` (or an explicit link model)
+        # plan against a ContactPlan; everything else keeps the
+        # AccessWindows-only path, bit for bit.
+        self.plan = contact_plan
+        if self.plan is not None and (link_model is not None
+                                      or isl_link is not None):
+            # A cached plan is geometry, not pricing: re-rate it with the
+            # requested link models (a lone link_model prices both sides;
+            # a lone isl_link re-prices ISLs and keeps the ground pricing).
+            self.plan = self.plan.rerate(link_model, isl_link)
+        elif self.plan is None and (algorithm.isl or link_model is not None):
+            ground = link_model or ConstantRate(self.hw.link_mbps)
+            iw = None
+            if algorithm.isl:
+                topo = isl_topology or ISLTopology.walker_star(constellation)
+                iw = compute_isl_windows(constellation, topo,
+                                         horizon_s=self.cfg.horizon_s,
+                                         device=self.device)
+            self.plan = build_contact_plan(
+                self.aw, iw, ground, isl_link or ground,
+                constellation=constellation, stations=stations)
         self.execution = validate_execution(
             execution or self.workload.execution)
         if self.execution == "mesh":
@@ -278,12 +327,32 @@ class ConstellationSim:
             self._sync_if_traced()
         return out
 
+    def _codec_roundtrip(self, stacked: torch.Tensor, anchors: torch.Tensor
+                         ) -> torch.Tensor:
+        """Each client's return re-expressed as anchor + codec.apply(delta)
+        — exactly what the server receives after a lossy uplink. A
+        stochastic codec's uniforms come from the sampler, right after
+        the round's minibatch draw."""
+        layout = self.workload.layout
+        u = (self.sampler.codec_uniforms(len(stacked), layout)
+             if self.codec.stochastic else None)
+        decoded = client_roundtrip(self.codec, stacked, anchors, layout, u)
+        if obs_enabled():
+            count("comms.codec_error",
+                  float(torch.linalg.vector_norm(stacked - decoded)))
+        return decoded
+
     def _train_round(self, global_params, ks: list[int], epochs: list[int],
                      *, weights, staleness, anchors=None) -> torch.Tensor:
         """Client updates + aggregation for one round (or buffer flush).
         Returns the new global params."""
         stacked = self._run_clients(global_params, ks, epochs,
                                     anchors=anchors)
+        if self.codec.lossy:
+            # The server only ever sees the codec round-trip of each
+            # client's delta against its anchor.
+            stacked = self._codec_roundtrip(
+                stacked, global_params if anchors is None else anchors)
         with span("sim.aggregate", strategy=self.alg.strategy.name,
                   clients=len(ks)):
             out = self.alg.strategy.aggregate(
@@ -305,6 +374,10 @@ class ConstellationSim:
         mb = float(self.hw.model_bytes)
         wire_saved = sum((1.0 + h) * mb + mb - cb
                          for h, cb in zip(relay_hops, comms_bytes))
+        if obs_enabled():
+            # Encoded uplink bytes actually on the wire this round
+            # (billed bytes minus the full-precision download leg).
+            count("comms.encoded_bytes", sum(cb - mb for cb in comms_bytes))
         rec = RoundRecord(
             idx=len(rounds), t_start=t_start, t_end=t_end,
             participants=participants, epochs=epochs, idle_s=idle_s,
@@ -380,10 +453,17 @@ class ConstellationSim:
     # ------------------------------------------------------------------ #
     # Strategy-driven event loop
     # ------------------------------------------------------------------ #
-    def _build_outlook(self):
-        """The strategy hooks' read-only contact-schedule view. None of
-        the Table-1 strategies reads it."""
-        raise NotImplementedError("ContactOutlook: ROADMAP comms slice")
+    def _build_outlook(self) -> ContactOutlook:
+        """Read-only contact-schedule view handed to the strategy hooks.
+
+        Built from the compiled ContactPlan when the algorithm plans
+        against one, otherwise straight from the access windows at the
+        hardware link rate. Only constructed when a hook actually reads
+        it (`_LazyOutlook`), so stock strategies pay nothing."""
+        if self.plan is not None:
+            return ContactOutlook.from_plan(self.plan)
+        return ContactOutlook.from_access(
+            self.aw, rate_bps=self.hw.link_mbps * 1e6)
 
     def _sync_flush_groups(self, plans, outlook) -> list[list[int]]:
         """Partition one synchronous selection into aggregation groups.
@@ -608,9 +688,9 @@ class ConstellationSim:
 
 
 class _LazyOutlook:
-    """Deferred outlook construction for the strategy hooks: the stock
-    strategies never read it, so it is only built on first attribute
-    access."""
+    """Deferred `ContactOutlook` construction for the strategy hooks: the
+    stock strategies never read it, so it is only built on first
+    attribute access."""
 
     def __init__(self, build):
         self._build = build

@@ -19,6 +19,7 @@ import math
 import pytest
 import torch
 
+from repro_torch.comms import isl
 from repro_torch.configs import get_config
 from repro_torch.core import ALGORITHMS
 from repro_torch.data import synth_femnist
@@ -253,6 +254,68 @@ def test_card_run_matches_cpu_run(dev):
                 torch.as_tensor(card.final_params[layer][leaf]),
                 torch.as_tensor(cpu.final_params[layer][leaf]),
                 rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------------------------ comms
+# Threshold-tie band of the ISL distance tests (tests/test_torch_comms.py).
+ISL_TIE_M = 50.0
+
+
+def test_card_isl_windows_differ_from_cpu_only_at_threshold_ties(dev):
+    """c10s10 with cross-plane links and 2 seam candidates over 1 day: the
+    card's f32 ISL grid flips only samples whose blocking radius or range
+    lies within ISL_TIE_M of its threshold."""
+    cst = WalkerStar(10, 10)
+    el = cst.elements()
+    topo = isl.ISLTopology.walker_grid(cst, cross_plane=True, seam_k=2)
+    ei = torch.tensor([i for i, _ in topo.edges])
+    ej = torch.tensor([j for _, j in topo.edges])
+    t = torch.arange(0, 86400.0 + 1, 30.0, dtype=torch.float64).float()
+    reach = isl.DEFAULT_ISL_MAX_RANGE_KM * 1e3
+    cpu = isl.isl_visibility_grid(el, ei, ej, t, reach)
+    card = isl.isl_visibility_grid(el, ei.to(dev), ej.to(dev), t.to(dev),
+                                   reach).cpu()
+    min_r, rng = isl.isl_margins(el, ei, ej, t)
+    diff = cpu != card
+    tie = (((min_r - (isl.R_EARTH + isl.ATMOSPHERE_PAD_M)).abs()
+            <= ISL_TIE_M) | ((rng - reach).abs() <= ISL_TIE_M))
+    assert bool(tie[diff].all()), int((diff & ~tie).sum())
+    if not diff.any():
+        a = isl.compute_isl_windows(cst, topo, horizon_s=86400.0,
+                                    device="cpu")
+        b = isl.compute_isl_windows(cst, topo, horizon_s=86400.0, device=dev)
+        assert all(torch.equal(torch.as_tensor(x), torch.as_tensor(y))
+                   for pa, pb in zip(a.per_edge, b.per_edge)
+                   for x, y in zip(pa, pb))
+
+
+@pytest.mark.parametrize("name", ["quant_int8", "quant_fp8", "topk_sparse"])
+def test_card_codec_roundtrip_matches_cpu(dev, name):
+    """One codec round trip of a 10-client femnist_mlp stack on the card
+    and on the CPU from the same params, anchors and uniforms: bitwise
+    (exactly rounded f32 division, floor, compare and product on both),
+    but for quant_fp8 elements where `log2` of the normalized magnitude
+    lies within an ulp of an integer (one quantization step apart)."""
+    from repro_torch.comms.codec import CODECS, client_roundtrip
+    from repro_torch.params import FEMNIST_MLP
+    g = torch.Generator().manual_seed(3)
+    params = torch.randn((10, P_MLP), generator=g) * 0.1
+    anchor = params + torch.randn((10, P_MLP), generator=g) * 1e-3
+    u = torch.rand((10, P_MLP), generator=g)
+    codec = CODECS[name]
+    cpu = client_roundtrip(codec, params, anchor, FEMNIST_MLP, u)
+    card = client_roundtrip(codec, params.to(dev), anchor.to(dev),
+                            FEMNIST_MLP, u.to(dev)).cpu()
+    diff = cpu != card
+    if name != "quant_fp8":
+        assert not diff.any(), int(diff.sum())
+        return
+    segs = torch.split(params - anchor, FEMNIST_MLP.sizes, dim=-1)
+    v = torch.cat([x / x.abs().amax(-1, keepdim=True) for x in segs], -1)
+    lg = torch.log2(v.abs().clamp(min=2.0 ** -30))
+    near = (lg - lg.round()).abs() <= torch.finfo(torch.float32).eps * \
+        lg.abs().clamp(min=1.0)
+    assert bool(near[diff].all()), int((diff & ~near).sum())
 
 
 # ------------------------------------------------------------ LM kernels
