@@ -23,7 +23,10 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              (`ms_cold`), the mean time of a launch among 100 run back
              to back with no event between them (`ms_back_to_back`, and
              `floor_back_to_back_ms` for the empty launch) and the host
-             time of one wrapper call (`host_us`);
+             time of one wrapper call (`host_us`); the batched sweep's
+             extended forms at 32 scenarios x 10 clients of femnist_cnn
+             (prox_sgd with per-row mu and grouped or per-client anchors,
+             fedagg over a scenario axis, plain and delta);
   main_path  ConstellationSim.run() for all 8 Table-1 algorithms on the
              paper's largest cell (100 satellites, 13 stations), with the
              kernels' launch counters zeroed just before and read just
@@ -45,9 +48,10 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              kernels launched, finite params, >= 10 rounds, and each ISL
              run at least one relayed return;
   path_shapes  prox_sgd and fedagg against their plain versions (same
-             tolerances) at every distinct shape the main path and the
-             comms path launched them with (recorded while those ran:
-             partial-visit and buffered flushes, sparse rounds);
+             tolerances) at every distinct shape the main, comms, CNN and
+             batched paths launched them with (recorded while those ran:
+             partial-visit and buffered flushes, sparse rounds, per-row
+             mu, grouped anchors, the scenario axis);
   comms_scale the 1,024-satellite plan of benchmarks/bench_scale.py
              (Walker-Star 32 x 32, cross-plane grid with 2 seam
              candidates, 13 stations, 1 day): access and ISL windows on
@@ -56,12 +60,26 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              (3 hops) under both pricings, with each stage's wall; the
              card's ISL grid against the CPU's, where every differing
              sample must be a threshold tie;
-  comms_cpu_vs_card  fedprox_intracc_isl and fedprox with the int8 codec
-             on a dense 10-satellite plane on the card and on the CPU
-             with the same windows, init params, minibatch draws and
-             codec uniforms: RoundRecords identical, ISL params within
-             1e-4, int8 params within the bounds of
-             tests/test_torch_engine.py's codec parity test.
+  comms_cpu_vs_card  fedprox_intracc_isl and fedprox with each lossy
+             codec (int8, fp8, top-k) on a dense 10-satellite plane on the
+             card and on the CPU with the same windows, init params,
+             minibatch draws and codec uniforms: RoundRecords identical,
+             ISL params within 1e-4, each codec run within the bounds
+             derived at CODEC_BOUNDS; the fp8 round trip's log2 ties;
+  cnn_path   the paper's CNN (femnist_cnn) through ConstellationSim on the
+             main-path cell (fedavg, fedprox, fedbuff, 10 rounds), launch
+             counters zeroed before and read after each run; card vs CPU
+             on c2s2/g1: identical RoundRecords, one local step within
+             1e-4, the trained run's gap beside a one-ulp envelope;
+  batched_sweep  (a) the Table-1 grid (8 algorithms x 4 x 4 x 6 = 768
+             scenarios) as one timing-only BatchedSweep (7 days, 10
+             rounds), every 32nd cell held to the loop path bitwise;
+             (b) 32 scenarios trained through BatchedSweep on femnist_cnn
+             (one prox_sgd launch a local step, one fedagg a round,
+             counted) with device busy time and idle share, then through
+             the loop path (identical records, params and curves within
+             1e-4);
+             (c) a fedavg/fedprox/fedbuff batch on the card and the CPU.
   lm_kernels flash_attention and wkv6 against their plain versions at
              hymba-1.5b's serving shapes (wkv6 also in the SSD heads'
              broadcast layout) and in every mask variant on both flash
@@ -119,6 +137,9 @@ from repro_torch.core.timing import HardwareModel  # noqa: E402
 from repro_torch.data import synth_femnist  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.core.client import vmapped_client_update  # noqa: E402
+from repro_torch.core.workload import get_workload  # noqa: E402
+from repro_torch.models.femnist_cnn import femnist_cnn_init  # noqa: E402
 from repro_torch.models.femnist_mlp import femnist_mlp_init  # noqa: E402
 from repro_torch.models.lm.params import (  # noqa: E402
     lm_params_from_jax,
@@ -130,12 +151,15 @@ from repro_torch.orbits import (  # noqa: E402
     compute_access_windows,
     station_subnetwork,
 )
-from repro_torch.params import params_to_numpy  # noqa: E402
+from repro_torch.params import FEMNIST_CNN, params_to_numpy  # noqa: E402
 from repro_torch.sim import (  # noqa: E402
+    BatchedSweep,
     ConstellationSim,
     SimConfig,
     TorchSampler,
 )
+from repro_torch.sim.batched import _fast_plannable  # noqa: E402
+from repro_torch.sim.engine import client_steps  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the tensor
@@ -149,6 +173,8 @@ COLD_LAUNCHES = 50
 FLUSH_BYTES = 256 << 20              # written before each cold launch: > L2
 HOST_CALLS = 1000
 P_MLP = 46_639                       # femnist_mlp parameters
+P_CNN = 47_887                       # femnist_cnn parameters
+BATCH_S, BATCH_C = 32, 10            # the batched sweep's kernel shapes
 
 
 class SmokeFailure(RuntimeError):
@@ -388,6 +414,100 @@ def check_prox_sgd(dev, C: int, P: int, dtype: str, mu: float,
         bound_ms=b_ms, bound_by=b_by)
 
 
+def check_prox_sgd_rows(dev, R: int, P: int, group: int,
+                        flush: torch.Tensor | None,
+                        mu: tuple | None = None, **label) -> dict:
+    """The extended form on R rows, 7 of every 10 live, anchors one row
+    per `group` rows ((R / group, P); group 1 is per client) and per-row
+    mu (given, or 0.01 on every third row and 0 elsewhere). Checked
+    against the plain version, bitwise in f32, then timed; with no `flush`
+    buffer only the comparison is made."""
+    g = torch.Generator(device=dev).manual_seed(R + P + group)
+    w = torch.randn((R, P), generator=g, device=dev)
+    grad = torch.randn((R, P), generator=g, device=dev)
+    anchor = torch.randn((R // group, P), generator=g, device=dev)
+    steps = torch.tensor([2 if r % 10 >= 7 else 8 for r in range(R)],
+                         dtype=torch.int32, device=dev)
+    mu_t = torch.tensor(mu if mu is not None else
+                        [0.01 if r % 3 == 0 else 0.0 for r in range(R)],
+                        dtype=torch.float32, device=dev)
+    step, lr = 3, 0.05
+    got, want = w.clone(), w.clone()
+    ops.prox_sgd_op(got, grad, anchor, steps, step, lr, mu_t)
+    ref.prox_sgd_rows_ref_(want, grad, anchor, steps, step, lr, mu_t)
+    torch.cuda.synchronize()
+    err = _max_err(got, want, TOL["float32"])
+    require(bool(torch.equal(got, want)),
+            "prox_sgd (rows form) is not bitwise its plain version in f32")
+    masked = steps <= step
+    require(bool(torch.equal(got[masked], w[masked])),
+            "prox_sgd wrote a masked row")
+    live = int((~masked).sum())
+    row = dict(name="prox_sgd", form="rows", **label, R=R, P=P,
+               dtype="float32", mu="rows", anchor_group=group, live=live,
+               max_abs_err=err, tol=TOL["float32"])
+    if flush is None:
+        return row
+    # Live rows read w and g and write w; each anchor row a live row uses
+    # is read once; every row's step budget and mu.
+    used = len({r // group for r in range(R) if not masked[r]})
+    n_bytes = (3 * live + used) * P * 4 + R * 8
+    b_ms, b_by = bound_ms(n_bytes, 5 * live * P)
+    wk, wp = w.clone(), w.clone()
+    kernel = lambda: ops.prox_sgd_op(  # noqa: E731
+        wk, grad, anchor, steps, step, lr, mu_t)
+    return dict(
+        row, ms=device_ms(kernel), ms_cold=device_ms_cold(kernel, flush),
+        ms_back_to_back=device_ms_back_to_back(kernel),
+        host_us=host_us(kernel),
+        plain_ms=device_ms(lambda: ref.prox_sgd_rows_ref_(
+            wp, grad, anchor, steps, step, lr, mu_t)),
+        # No one PyTorch call computes a per-row-mu proximal step.
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def check_fedagg_batched(dev, S: int, K: int, P: int, delta: bool,
+                         flush: torch.Tensor | None) -> dict:
+    """The batched form (S scenarios of K clients) against its plain
+    version (same tolerance as the unbatched rows), one scenario's
+    weights all zero (its delta form must return its base bit for bit),
+    then timed; with no `flush` buffer only the comparison is made."""
+    g = torch.Generator(device=dev).manual_seed(S * K + P)
+    x = torch.randn((S, K, P), generator=g, device=dev)
+    w = torch.rand((S, K), generator=g, device=dev)
+    w[S // 2] = 0.0
+    base = torch.randn((S, P), generator=g, device=dev) if delta else None
+    scale = torch.rand((S,), generator=g, device=dev) + 0.5
+    got = ops.fedagg_op(x, w, base, scale)
+    want = ref.fedagg_batched_ref(x, w, base, scale)
+    torch.cuda.synchronize()
+    err = _max_err(got, want, TOL["float32"])
+    if delta:
+        require(bool(torch.equal(got[S // 2], base[S // 2])),
+                "fedagg: an all-zero scenario did not keep its base")
+    row = dict(name="fedagg", form="batched_delta" if delta
+               else "batched_plain", S=S, K=K, P=P, dtype="float32",
+               max_abs_err=err, tol=TOL["float32"])
+    if flush is None:
+        return row
+    n_bytes = S * K * P * 4 + S * K * 4 + S * P * 4 + (
+        S * P * 4 + S * 4 if delta else 0)
+    n_flops = S * (3 * K * P + 2 * P) if delta else 2 * S * K * P
+    b_ms, b_by = bound_ms(n_bytes, n_flops)
+    kernel = lambda: ops.fedagg_op(x, w, base, scale)  # noqa: E731
+    return dict(
+        row, ms=device_ms(kernel), ms_cold=device_ms_cold(kernel, flush),
+        ms_back_to_back=device_ms_back_to_back(kernel),
+        host_us=host_us(kernel),
+        plain_ms=device_ms(lambda: ref.fedagg_batched_ref(x, w, base,
+                                                          scale)),
+        # One PyTorch call computes the plain form: a batched
+        # vector-matrix product (a yardstick only).
+        library_ms=(None if delta else
+                    device_ms(lambda: torch.bmm(w[:, None], x))),
+        bound_ms=b_ms, bound_by=b_by)
+
+
 def phase_kernels(dev) -> list[dict]:
     """The simulator's kernels' rows; the phase's line also carries the
     floor of an empty launch (`torch.cuda._sleep(0)`) timed as the kernels
@@ -405,6 +525,13 @@ def phase_kernels(dev) -> list[dict]:
                                                mu, shared, flush))
             rows.append(check_prox_sgd(dev, C, P_MLP, dtype, 0.0, True,
                                        flush, all_live=True))
+    # The batched sweep's shapes: 32 scenarios of 10 clients, femnist_cnn.
+    for group in (BATCH_C, 1):
+        rows.append(check_prox_sgd_rows(dev, BATCH_S * BATCH_C, P_CNN, group,
+                                        flush, S=BATCH_S, C=BATCH_C))
+    for delta in (False, True):
+        rows.append(check_fedagg_batched(dev, BATCH_S, BATCH_C, P_CNN, delta,
+                                         flush))
     empty = lambda: torch.cuda._sleep(0)  # noqa: E731
     floor = device_ms(empty)
     del flush
@@ -418,25 +545,41 @@ class LaunchShapes:
     while it is entered, by wrapping the launchers that `ops`' counted
     wrappers call (the launch counts are untouched), so that
     `phase_path_shapes` can hold the kernels to their plain versions at
-    exactly the shapes a path gave them."""
+    exactly the shapes a path gave them: for `fedagg` the scenario axis
+    (0 for none), K, P, dtype and form; for `prox_sgd` C, P, dtype, mu (a
+    float, or the values of a per-row vector) and the anchor (shared, per
+    client, or one row per group of rows)."""
 
     def __init__(self):
         self.fedagg: set[tuple] = set()
         self.prox_sgd: set[tuple] = set()
+        self._mu_rows: dict[tuple, tuple] = {}
+
+    def _mu_key(self, mu) -> float | tuple:
+        if not isinstance(mu, torch.Tensor):
+            return float(mu)
+        key = (mu.data_ptr(), mu.numel())   # read once per vector
+        if key not in self._mu_rows:
+            self._mu_rows[key] = tuple(mu.tolist())
+        return self._mu_rows[key]
 
     def __enter__(self) -> "LaunchShapes":
         self._launchers = fedagg, prox_sgd = ops.fedagg, ops.prox_sgd
 
         def record_fedagg(x, w, base, scale):
-            self.fedagg.add((x.shape[0], x.shape[1],
+            self.fedagg.add((x.shape[0] if x.dim() == 3 else 0,
+                             x.shape[-2], x.shape[-1],
                              str(x.dtype).removeprefix("torch."),
                              base is not None))
             return fedagg(x, w, base, scale)
 
         def record_prox_sgd(w, g, w0, steps, step, lr, mu):
+            rows = w0.shape[0] if w0.dim() == 2 else 1
+            anchor = ("shared" if rows == 1 else "per_client"
+                      if rows == w.shape[0] else w.shape[0] // rows)
             self.prox_sgd.add((w.shape[0], w.shape[1],
                                str(w.dtype).removeprefix("torch."),
-                               float(mu), w0.dim() == 1))
+                               self._mu_key(mu), anchor))
             return prox_sgd(w, g, w0, steps, step, lr, mu)
 
         ops.fedagg, ops.prox_sgd = record_fedagg, record_prox_sgd
@@ -446,28 +589,69 @@ class LaunchShapes:
         ops.fedagg, ops.prox_sgd = self._launchers
 
 
+def _prox_label(r: dict) -> str:
+    if r.get("form") == "rows":
+        return (f"R={r['R']} P={r['P']} {r['dtype']} mu=rows "
+                f"group={r['anchor_group']}")
+    return f"C={r['C']} P={r['P']} {r['dtype']} mu={r['mu']} {r['anchor']}"
+
+
 def phase_path_shapes(dev, shapes: dict[str, LaunchShapes]) -> dict:
     """`fedagg` and `prox_sgd` against their plain versions at every
-    distinct shape the main path and the comms path launched them with
-    (partial-visit and buffered flushes, sparse rounds), on fresh random
-    inputs: no timing, the `kernels` phase times the main-path shapes."""
+    distinct shape each path launched them with (partial-visit and
+    buffered flushes, sparse rounds, the batched sweep's scenario axis,
+    per-row mu and grouped anchors), on fresh random inputs: no timing,
+    the `kernels` phase times the main-path shapes."""
     out = {}
     for path, rec in shapes.items():
         require(rec.fedagg and rec.prox_sgd,
                 f"{path}: no kernel launch was recorded")
-        rows = [check_fedagg(dev, K, P, dtype, delta, None)
-                for K, P, dtype, delta in sorted(rec.fedagg)]
-        rows += [check_prox_sgd(dev, C, P, dtype, mu, shared, None)
-                 for C, P, dtype, mu, shared in sorted(rec.prox_sgd)]
+        rows = [check_fedagg_batched(dev, S, K, P, delta, None) if S
+                else check_fedagg(dev, K, P, dtype, delta, None)
+                for S, K, P, dtype, delta in sorted(rec.fedagg)]
+        for C, P, dtype, mu, anchor in sorted(rec.prox_sgd, key=str):
+            if isinstance(mu, float) and anchor in ("shared", "per_client"):
+                rows.append(check_prox_sgd(dev, C, P, dtype, mu,
+                                           anchor == "shared", None))
+            else:
+                group = {"shared": C, "per_client": 1}.get(anchor, anchor)
+                rows.append(check_prox_sgd_rows(
+                    dev, C, P, group, None,
+                    mu=mu if isinstance(mu, tuple) else (mu,) * C))
         out[path] = dict(
-            fedagg=[f"{r['form']} K={r['K']} P={r['P']} {r['dtype']}"
+            fedagg=[f"{r['form']} " + (f"S={r['S']} " if "S" in r else "")
+                    + f"K={r['K']} P={r['P']} {r['dtype']}"
                     for r in rows if r["name"] == "fedagg"],
-            prox_sgd=[f"C={r['C']} P={r['P']} {r['dtype']} mu={r['mu']} "
-                      f"{r['anchor']}" for r in rows
+            prox_sgd=[_prox_label(r) for r in rows
                       if r["name"] == "prox_sgd"],
             max_abs_err=max(r["max_abs_err"] for r in rows))
     emit("path_shapes", **out)
     return out
+
+
+def _check_final_params(label: str, res, n_params: int = P_MLP) -> None:
+    require(res.final_params is not None, f"{label}: no final params")
+    leaves = [v for layer in res.final_params.values()
+              for v in layer.values()]
+    require(sum(v.size for v in leaves) == n_params
+            and all(bool(np.isfinite(v).all()) for v in leaves),
+            f"{label}: bad final params")
+
+
+def _flat_params(final_params: dict) -> np.ndarray:
+    """A run's final params (nested numpy dict) as one vector, in layout
+    order."""
+    return np.concatenate([v.reshape(-1) for layer in final_params.values()
+                           for v in layer.values()])
+
+
+RECORD_FIELDS = ("idx", "t_start", "t_end", "participants", "epochs",
+                 "idle_s", "compute_s", "comm_s", "relays", "staleness",
+                 "relay_hops", "comms_bytes", "wire_bytes_saved")
+
+
+def _records(res) -> list:
+    return [[getattr(r, f) for f in RECORD_FIELDS] for r in res.rounds]
 
 
 # ------------------------------------------------------------- main path
@@ -512,13 +696,9 @@ def phase_main_path(dev, setup: dict) -> dict:
                 f"{name}: {res.n_rounds} rounds (< 10) in 2 days")
         require(launches["prox_sgd"] > 0 and launches["fedagg"] > 0,
                 f"{name}: a kernel was never launched: {launches}")
-        require(sim.device.type == "cuda" and res.final_params is not None,
+        require(sim.device.type == "cuda",
                 f"{name}: final params did not come from the card")
-        leaves = [v for layer in res.final_params.values()
-                  for v in layer.values()]
-        require(sum(v.size for v in leaves) == P_MLP
-                and all(bool(np.isfinite(v).all())
-                        for v in leaves), f"{name}: bad final params")
+        _check_final_params(name, res)
         require(bool(accs) and all(math.isfinite(a) for a in accs),
                 f"{name}: accuracy not finite: {accs}")
     totals = dict(ops.LAUNCHES)
@@ -651,16 +831,11 @@ def phase_cpu_vs_card(dev) -> dict:
         runs[where] = ConstellationSim(
             cst, st, alg, data=data, cfg=cfg, access=aw, device=device,
             sampler=sampler, init_params=init).run()
-    fields = ("idx", "t_start", "t_end", "participants", "epochs",
-              "idle_s", "compute_s", "comm_s", "relays", "staleness",
-              "relay_hops", "comms_bytes")
-    recs = {k: [[getattr(r, f) for f in fields] for r in v.rounds]
-            for k, v in runs.items()}
+    recs = {k: _records(v) for k, v in runs.items()}
     require(len(recs["card"]) == 3 and recs["card"] == recs["cpu"],
             "RoundRecords differ between the card and the CPU")
-    gap = max(float(np.max(np.abs(runs["card"].final_params[l][m]
-                                  - runs["cpu"].final_params[l][m])))
-              for l in ("fc1", "fc2") for m in ("b", "w"))
+    gap = float(np.abs(_flat_params(runs["card"].final_params)
+                       - _flat_params(runs["cpu"].final_params)).max())
     out = dict(algorithm="fedprox", cell="c2s2/g1", rounds=3,
                records_identical=True, final_params_max_abs_gap=gap,
                tol=1e-4,
@@ -677,14 +852,6 @@ ISL_NAMES = ("fedavg_intracc_isl", "fedprox_intracc_isl")
 CONNECTIVITY_NAMES = ("fedspace", "ground_assisted", "fedprox_sparse")
 LOSSY_CODECS = ("quant_int8", "quant_fp8", "topk_sparse")
 
-
-def _check_final_params(label: str, res) -> None:
-    require(res.final_params is not None, f"{label}: no final params")
-    leaves = [v for layer in res.final_params.values()
-              for v in layer.values()]
-    require(sum(v.size for v in leaves) == P_MLP
-            and all(bool(np.isfinite(v).all()) for v in leaves),
-            f"{label}: bad final params")
 
 
 def phase_comms_path(dev, setup: dict) -> dict:
@@ -848,10 +1015,11 @@ def phase_comms_scale(dev) -> dict:
 
 
 def phase_comms_cpu_vs_card(dev) -> dict:
-    """fedprox_intracc_isl and fedprox with the int8 codec on c1s10/g1
-    over 2 days (a dense plane whose ISL ring relays), 4 clients a round,
-    on the card and on the CPU: one set of access and ISL windows (one
-    contact plan), init params, minibatch draws and codec uniforms."""
+    """fedprox_intracc_isl and fedprox with each lossy codec (int8, fp8,
+    top-k) on c1s10/g1 over 2 days (a dense plane whose ISL ring relays),
+    4 clients a round, on the card and on the CPU: one set of access and
+    ISL windows (one contact plan), init params, minibatch draws and
+    codec uniforms; then the fp8 round trip's log2 ties."""
     cst, st = WalkerStar(1, 10), station_subnetwork(1)
     horizon = 2 * 86400.0
     aw = compute_access_windows(cst, st, horizon_s=horizon, device="cpu")
@@ -862,14 +1030,12 @@ def phase_comms_cpu_vs_card(dev) -> dict:
         torch.Generator().manual_seed(0), "cpu"))
     cfg = SimConfig(max_rounds=3, horizon_s=horizon, eval_every=1,
                     max_steps=16, clients_per_round=4)
-    fields = ("idx", "t_start", "t_end", "participants", "epochs",
-              "idle_s", "compute_s", "comm_s", "relays", "staleness",
-              "relay_hops", "comms_bytes", "wire_bytes_saved")
     out = {}
-    for label, alg in (("fedprox_intracc_isl",
-                        ALGORITHMS["fedprox_intracc_isl"]),
-                       ("fedprox_quant_int8",
-                        spaceify(FedProxSat(), codec="quant_int8"))):
+    runs_to_check = [("fedprox_intracc_isl",
+                      ALGORITHMS["fedprox_intracc_isl"])]
+    runs_to_check += [(f"fedprox_{c}", spaceify(FedProxSat(), codec=c))
+                      for c in LOSSY_CODECS]
+    for label, alg in runs_to_check:
         runs = {}
         for where, device, sampler in (
                 ("cpu", "cpu", TorchSampler(0, "cpu")),
@@ -878,12 +1044,8 @@ def phase_comms_cpu_vs_card(dev) -> dict:
                 cst, st, alg, data=data, cfg=cfg, access=aw,
                 contact_plan=plan if alg.isl else None, device=device,
                 sampler=sampler, init_params=init).run()
-        recs = {k: [[getattr(r, f) for f in fields] for r in v.rounds]
-                for k, v in runs.items()}
-        flat = {k: np.concatenate([v.final_params[l][m].reshape(-1)
-                                   for l in ("fc1", "fc2")
-                                   for m in ("b", "w")])
-                for k, v in runs.items()}
+        recs = {k: _records(v) for k, v in runs.items()}
+        flat = {k: _flat_params(v.final_params) for k, v in runs.items()}
         gap = np.abs(flat["card"] - flat["cpu"])
         accs = {k: [a for _, _, a in v.accuracy_curve]
                 for k, v in runs.items()}
@@ -906,15 +1068,433 @@ def phase_comms_cpu_vs_card(dev) -> dict:
                     f"{label}: final params differ by "
                     f"{row['final_params_max_abs_gap']} > 1e-4")
         else:
-            # tests/test_torch_engine.py::
-            # test_quant_int8_training_within_codec_bounds
-            require(row["params_over_1e5"] <= 100
-                    and row["relative_l2"] <= 1e-4
+            far, rel = CODEC_BOUNDS[alg.codec]
+            row.update(bound_params_over_1e5=far, bound_relative_l2=rel)
+            require(row["params_over_1e5"] <= far
+                    and row["relative_l2"] <= rel
                     and all(abs(a - b) <= 2 / 256 for a, b in
                             zip(accs["card"], accs["cpu"])),
                     f"{label}: card and CPU outside the codec bounds: {row}")
+    out["fp8_roundtrip_log2_ties"] = _fp8_tie_flips(dev)
     emit("comms_cpu_vs_card", cell="c1s10/g1", **out)
     return out
+
+
+# Card vs CPU bounds of a trained lossy-codec run (3 rounds x 4 clients x
+# 46,639 params on c1s10/g1): (params more than 1e-5 apart, relative L2 of
+# the final params' gap). Training on the card and on the CPU is ~1e-7
+# apart (the identity runs), so each delta entering the codec differs by
+# about an ulp of the params.
+# - quant_int8 (tests/test_torch_engine.py::
+#   test_quant_int8_training_within_codec_bounds): an element rounds to
+#   the other level when its uniform falls between the two fractional
+#   parts, probability |gap| / step with step = amax / 127 of its leaf,
+#   ~1e-4 a rounding; a flip moves the global model by its client's
+#   weight (~1/4) of a step, and flips do not compound (every round
+#   re-anchors on the global model): <= 100 params, relative L2 <= 1e-4.
+# - quant_fp8: the same mechanism on a relative grid; an element's step is
+#   2^(e - 3) of its leaf's amax-normalized exponent, as fine as amax/512
+#   at the e4m3 floor, so a rounding flips up to 4x as often as int8's
+#   (amax/127 against amax/512) while each flip moves its element by a
+#   step no larger than int8's on average: <= 400 params (4x), relative
+#   L2 <= 2e-4 (sqrt(4) = 2x). Where log2 ties, the card's and CPU's
+#   round trips differ on identical inputs too (one step, counted in
+#   `fp8_roundtrip_log2_ties`), inside the same bound.
+# - topk_sparse: deterministic; a client's kept set differs only where an
+#   element's magnitude lies within the ~1e-7 training gap of its row's
+#   k-th largest (~5e-3 expected swaps a client-round at 46,639 elements
+#   spread over ~1e-3); a swap moves two elements by about the threshold
+#   magnitude times the client's weight: <= 10 params (a few swaps),
+#   relative L2 <= 1e-4 (a few threshold-size moves against a norm ~15).
+CODEC_BOUNDS = {"quant_int8": (100, 1e-4), "quant_fp8": (400, 2e-4),
+                "topk_sparse": (10, 1e-4)}
+
+
+def _fp8_tie_flips(dev) -> dict:
+    """One fp8 round trip of a 10-client femnist_mlp stack on the card and
+    on the CPU from the same params, anchors and uniforms (the inputs of
+    tests/test_torch_cuda.py::test_card_codec_roundtrip_matches_cpu): the
+    elements that differ, each required to be a log2 tie (log2 of its
+    normalized magnitude within an ulp of an integer)."""
+    from repro_torch.comms.codec import CODECS, client_roundtrip
+    from repro_torch.params import FEMNIST_MLP
+    g = torch.Generator().manual_seed(3)
+    params = torch.randn((10, P_MLP), generator=g) * 0.1
+    anchor = params + torch.randn((10, P_MLP), generator=g) * 1e-3
+    u = torch.rand((10, P_MLP), generator=g)
+    codec = CODECS["quant_fp8"]
+    cpu = client_roundtrip(codec, params, anchor, FEMNIST_MLP, u)
+    card = client_roundtrip(codec, params.to(dev), anchor.to(dev),
+                            FEMNIST_MLP, u.to(dev)).cpu()
+    diff = cpu != card
+    segs = torch.split(params - anchor, FEMNIST_MLP.sizes, dim=-1)
+    v = torch.cat([x / x.abs().amax(-1, keepdim=True) for x in segs], -1)
+    lg = torch.log2(v.abs().clamp(min=2.0 ** -30))
+    near = (lg - lg.round()).abs() <= torch.finfo(torch.float32).eps * \
+        lg.abs().clamp(min=1.0)
+    not_ties = int((diff & ~near).sum())
+    require(not_ties == 0, f"fp8 round trip: {not_ties} elements differ "
+            "between the card and the CPU away from a log2 tie")
+    return dict(elements=int(diff.numel()), differing=int(diff.sum()),
+                ties=int(near.sum()))
+
+
+# -------------------------------------------------------------- cnn path
+CNN_ROUNDS = 10
+CNN_NAMES = ("fedavg", "fedprox", "fedbuff")
+
+
+def phase_cnn_path(dev, setup: dict) -> dict:
+    """The paper's CNN (`femnist_cnn`, 47,887 params, derived cost model)
+    through the loop path on the main-path cell, each run with the launch
+    counters zeroed just before it and read just after; then card vs CPU
+    on c2s2/g1."""
+    cst, st, data, aw = (setup[k] for k in ("cst", "st", "data", "aw"))
+    cfg = SimConfig(max_rounds=CNN_ROUNDS, horizon_s=MAIN_HORIZON_S,
+                    eval_every=5)
+    runs = []
+    totals = {"prox_sgd": 0, "fedagg": 0}
+    for name in CNN_NAMES:
+        ops.reset_launches()          # this run's counts start here
+        t0 = time.perf_counter()
+        sim = ConstellationSim(cst, st, ALGORITHMS[name], data=data,
+                               cfg=cfg, access=aw, workload="femnist_cnn",
+                               device=dev)
+        res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        for k in totals:
+            totals[k] += launches[k]
+        accs = [a for _, _, a in res.accuracy_curve]
+        runs.append(dict(algorithm=name, rounds=res.n_rounds, wall_s=wall,
+                         launches=launches, accuracy=accs,
+                         epoch_mflops=sim.hw.epoch_mflops,
+                         model_bytes=sim.hw.model_bytes))
+        require(res.n_rounds >= 5,
+                f"cnn {name}: {res.n_rounds} rounds (< 5) in 2 days")
+        require(launches["prox_sgd"] > 0 and launches["fedagg"] > 0,
+                f"cnn {name}: a kernel was never launched: {launches}")
+        require(sim.device.type == "cuda", f"cnn {name}: not on the card")
+        _check_final_params(f"cnn {name}", res, P_CNN)
+        require(bool(accs) and all(math.isfinite(a) for a in accs),
+                f"cnn {name}: accuracy not finite: {accs}")
+    out = dict(cell=MAIN_CELL, horizon_days=MAIN_HORIZON_S / 86400.0,
+               max_rounds=CNN_ROUNDS, runs=runs, launches=totals,
+               cpu_vs_card=_cnn_cpu_vs_card(dev))
+    emit("cnn_path", **out)
+    return out
+
+
+def _one_step_gap(dev, wl, data, init: torch.Tensor) -> float:
+    """One local step (gradient + one prox_sgd launch, mu 0.1) of a
+    4-client stack from the same params and minibatch, card vs CPU."""
+    idx = torch.randint(0, 200, (4, 1, 32),
+                        generator=torch.Generator().manual_seed(1))
+    outs = []
+    for device in ("cpu", dev):
+        update = vmapped_client_update(wl.loss_fn, lr=0.05, batch_size=32,
+                                       max_steps=1, layout=wl.layout)
+        p0 = init.to(device)
+        outs.append(update(p0.expand(4, -1), p0,
+                           torch.as_tensor(data.x[:4], device=device),
+                           torch.as_tensor(data.y[:4], device=device).long(),
+                           [1] * 4, 0.1, idx.to(device)).cpu())
+    return float((outs[0] - outs[1]).abs().max())
+
+
+def _cnn_cpu_vs_card(dev) -> dict:
+    """fedprox on femnist_cnn, c2s2/g1, 3 rounds, on the card and on the
+    CPU with the same access windows, init params and minibatch draws.
+
+    The RoundRecords must be identical and one local step within 1e-4.
+    The trained run's params gap is reported, not bounded: the CNN's
+    max-pools route a window's gradient to its largest input, and two
+    inputs within an ulp of each other (conv outputs that the card's and
+    the CPU's matmuls round differently) send it to different positions,
+    a step apart by ~lr * 1e-3; later steps amplify that. The same run on
+    the card from params one ulp away (`ulp_envelope_gap`) shows how far
+    two runs that differ only in rounding drift apart."""
+    cst, st = WalkerStar(2, 2), station_subnetwork(1)
+    horizon = 4 * 86400.0
+    aw = compute_access_windows(cst, st, horizon_s=horizon, device="cpu")
+    data = synth_femnist(cst.n_sats, seed=0)
+    wl = get_workload("femnist_cnn")
+    init_t = femnist_cnn_init(torch.Generator().manual_seed(0), "cpu")
+    init = params_to_numpy(init_t, FEMNIST_CNN)
+    nudged = params_to_numpy(torch.nextafter(init_t, torch.tensor(np.inf)),
+                             FEMNIST_CNN)
+    cfg = SimConfig(max_rounds=3, horizon_s=horizon, eval_every=1,
+                    max_steps=16)
+    alg = ALGORITHMS["fedprox"]
+    runs = {}
+    for where, device, sampler, start in (
+            ("cpu", "cpu", TorchSampler(0, "cpu"), init),
+            ("card", dev, _OnDevice(TorchSampler(0, "cpu"), dev), init),
+            ("card_ulp", dev, _OnDevice(TorchSampler(0, "cpu"), dev),
+             nudged)):
+        runs[where] = ConstellationSim(
+            cst, st, alg, data=data, cfg=cfg, access=aw, device=device,
+            workload="femnist_cnn", sampler=sampler,
+            init_params=start).run()
+    recs = {k: _records(v) for k, v in runs.items()}
+    require(len(recs["card"]) == 3 and recs["card"] == recs["cpu"],
+            "cnn: RoundRecords differ between the card and the CPU")
+    flat = {k: _flat_params(v.final_params) for k, v in runs.items()}
+    step_gap = _one_step_gap(dev, wl, data, init_t)
+    out = dict(algorithm="fedprox", cell="c2s2/g1", rounds=3,
+               records_identical=True, one_step_max_abs_gap=step_gap,
+               tol=1e-4,
+               final_params_max_abs_gap=float(np.abs(
+                   flat["card"] - flat["cpu"]).max()),
+               ulp_envelope_gap=float(np.abs(
+                   flat["card"] - flat["card_ulp"]).max()),
+               accuracy_card=[a for _, _, a in runs["card"].accuracy_curve],
+               accuracy_cpu=[a for _, _, a in runs["cpu"].accuracy_curve])
+    require(step_gap <= 1e-4,
+            f"cnn: one local step differs by {step_gap} > 1e-4")
+    return out
+
+
+# --------------------------------------------------------- batched sweep
+SWEEP_HORIZON_S = 7 * 86400.0        # cut from 90 days
+SWEEP_ROUNDS = 10                    # cut from 500
+SWEEP_CLUSTERS = (1, 2, 5, 10)
+SWEEP_SATS = (1, 2, 5, 10)
+SWEEP_STATIONS = (1, 2, 3, 5, 10, 13)
+# Every 32nd cell of the 768 (alg-major order): 3 cells per algorithm,
+# 8 algorithms, from c1s2/g2 to c5s10/g13.
+SWEEP_SAMPLE = slice(7, None, 32)
+TRAIN_ALGS = ("fedavg", "fedprox", "fedavg_sched", "fedbuff")
+TRAIN_CLUSTERS, TRAIN_SATS, TRAIN_STATIONS = (2, 10), (2, 10), (1, 13)
+TRAIN_ROUNDS = 10                    # cut from 20 to fit the time limit
+TRAIN_HORIZON_S = 2 * 86400.0
+
+
+def _sweep_windows(dev, constellations, horizon_s: float) -> dict:
+    """Access windows on the card for each (clusters, sats) at the full
+    13-station network; smaller networks by `subset` (the first-n ladder),
+    as benchmarks/common.py derives them."""
+    out = {}
+    for cl, sp in constellations:
+        full = compute_access_windows(WalkerStar(cl, sp),
+                                      station_subnetwork(13),
+                                      horizon_s=horizon_s, device=dev)
+        for g in SWEEP_STATIONS:
+            out[(cl, sp, g)] = full if g == 13 else full.subset(g)
+    torch.cuda.synchronize()
+    return out
+
+
+def _expected_launches(results, sims) -> dict:
+    """The kernels' launches a batched training run must make: one
+    `prox_sgd` per local step of each round (the round's largest client
+    budget over the batch) and one `fedagg` per round."""
+    n_rounds = max(len(r.rounds) for r in results)
+    steps = 0
+    for rnd in range(n_rounds):
+        steps += max(
+            (client_steps(int(sim.data.n[k]), e, sim.cfg.batch_size,
+                          sim.cfg.max_steps)
+             for res, sim in zip(results, sims) if rnd < len(res.rounds)
+             for k, e in zip(res.rounds[rnd].participants,
+                             res.rounds[rnd].epochs)), default=0)
+    return {"prox_sgd": steps, "fedagg": n_rounds}
+
+
+def _train_cells_sims(dev, workload: str, aws: dict, datas: dict,
+                      cells) -> list:
+    cfg = SimConfig(max_rounds=TRAIN_ROUNDS, horizon_s=TRAIN_HORIZON_S,
+                    eval_every=5)
+    return [ConstellationSim(WalkerStar(cl, sp), station_subnetwork(g),
+                             ALGORITHMS[a], data=datas[cl * sp], cfg=cfg,
+                             access=aws[(cl, sp, g)], workload=workload,
+                             device=dev)
+            for a, cl, sp, g in cells]
+
+
+def _compare_paths(loop, batched) -> dict:
+    """Loop vs batched results: records must be identical; the gaps of
+    final params and accuracy curves are returned."""
+    for lr, br in zip(loop, batched):
+        require(_records(lr) == _records(br) and len(lr.rounds) > 0,
+                f"{lr.algorithm}: batched RoundRecords differ from the loop "
+                "path's")
+    params_gap = max(float(np.abs(_flat_params(lr.final_params)
+                                  - _flat_params(br.final_params)).max())
+                     for lr, br in zip(loop, batched))
+    curve_gap = 0.0
+    for lr, br in zip(loop, batched):
+        cl = {i: a for i, _, a in lr.accuracy_curve}
+        cb = {i: a for i, _, a in br.accuracy_curve}
+        require(set(cl) == set(cb), f"{lr.algorithm}: curves cover other "
+                f"rounds: {sorted(cl)} vs {sorted(cb)}")
+        curve_gap = max([curve_gap] + [abs(cl[i] - cb[i]) for i in cl])
+    return dict(final_params_max_abs_gap=params_gap,
+                accuracy_max_abs_gap=curve_gap)
+
+
+def phase_batched_sweep(dev) -> dict:
+    """(a) The paper's Table-1 grid (8 algorithms x 4 x 4 x 6 = 768
+    scenarios) as one timing-only BatchedSweep, a fixed sample held to the
+    loop path bitwise; (b) 32 scenarios trained on femnist_cnn through the
+    batched executor (launches counted from 0 just before it; then once
+    more under torch.profiler), then through the loop path: identical
+    records, final params and curves within 1e-4; (c) a small batch on
+    the card and on the CPU."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    # (a) timing only.
+    walls = {}
+    grid = [(a, cl, sp, g) for a in TABLE1_NAMES for cl in SWEEP_CLUSTERS
+            for sp in SWEEP_SATS for g in SWEEP_STATIONS]
+    t0 = time.perf_counter()
+    aws = _sweep_windows(dev, [(cl, sp) for cl in SWEEP_CLUSTERS
+                               for sp in SWEEP_SATS], SWEEP_HORIZON_S)
+    walls["access_windows"] = time.perf_counter() - t0
+    cfg = SimConfig(max_rounds=SWEEP_ROUNDS, horizon_s=SWEEP_HORIZON_S,
+                    train=False)
+
+    def timing_sim(a, cl, sp, g):
+        return ConstellationSim(WalkerStar(cl, sp), station_subnetwork(g),
+                                ALGORITHMS[a], cfg=cfg,
+                                access=aws[(cl, sp, g)], device=dev)
+
+    t0 = time.perf_counter()
+    sims = [timing_sim(*c) for c in grid]
+    walls["setup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with obs.tracing():
+        results = BatchedSweep(sims, [f"{a}/c{cl}s{sp}/g{g}"
+                                      for a, cl, sp, g in grid]).run()
+        spans = obs.metrics_summary()["spans"]
+    walls["batched"] = time.perf_counter() - t0
+    sample = grid[SWEEP_SAMPLE]
+    t0 = time.perf_counter()
+    loop = [timing_sim(*c).run() for c in sample]
+    walls["loop_sample"] = time.perf_counter() - t0
+    picked = results[SWEEP_SAMPLE]
+    for c, lr, br in zip(sample, loop, picked):
+        require(_records(lr) == _records(br) and len(lr.rounds) > 0,
+                f"{c}: batched timing differs from the loop path's")
+    fed = sum(1 for c in grid if c[1] * c[2] >= 2)
+    require(len(results) == len(grid) == 768 and fed == 720
+            and all(len(r.rounds) == 0 for c, r in zip(grid, results)
+                    if c[1] * c[2] < 2), "the grid's results are incomplete")
+    out["timing"] = dict(
+        scenarios=len(grid), federating=fed,
+        horizon_days=SWEEP_HORIZON_S / 86400.0, max_rounds=SWEEP_ROUNDS,
+        rounds=sum(len(r.rounds) for r in results),
+        lockstep_planned=sum(1 for sim in sims if _fast_plannable(sim)),
+        scalar_twins=spans.get("sim.batched.plan_scalar", {}).get("count"),
+        sample=[f"{a}/c{cl}s{sp}/g{g}" for a, cl, sp, g in sample],
+        sample_records_identical=True, walls_s=walls)
+    print(json.dumps({"phase": "batched_sweep_timing", **out["timing"]}),
+          flush=True)
+    del sims, results
+
+    # (b) training on femnist_cnn, then the same cells on femnist_mlp.
+    cells = [(a, cl, sp, g) for a in TRAIN_ALGS for cl in TRAIN_CLUSTERS
+             for sp in TRAIN_SATS for g in TRAIN_STATIONS]
+    t0 = time.perf_counter()
+    aws = _sweep_windows(dev, [(cl, sp) for cl in TRAIN_CLUSTERS
+                               for sp in TRAIN_SATS], TRAIN_HORIZON_S)
+    datas = {cl * sp: synth_femnist(cl * sp, seed=0)
+             for cl in TRAIN_CLUSTERS for sp in TRAIN_SATS}
+    setup_s = time.perf_counter() - t0
+    train = {}
+    for wl in ("femnist_cnn",):
+        row = dict(scenarios=len(cells), rounds=TRAIN_ROUNDS,
+                   horizon_days=TRAIN_HORIZON_S / 86400.0)
+        sims = _train_cells_sims(dev, wl, aws, datas, cells)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()            # the batched run's counts start here
+        t0 = time.perf_counter()
+        batched = BatchedSweep(sims).run()
+        torch.cuda.synchronize()
+        row["batched_wall_s"] = time.perf_counter() - t0
+        row["launches"] = launches = dict(ops.LAUNCHES)
+        row["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+        want = _expected_launches(batched, sims)
+        row["expected_launches"] = want
+        require(launches["prox_sgd"] == want["prox_sgd"]
+                and launches["fedagg"] == want["fedagg"],
+                f"{wl}: the batch launched {launches}, expected {want}: one "
+                "prox_sgd a local step and one fedagg a round")
+        for res in batched:
+            _check_final_params(f"{wl} batched {res.algorithm}", res,
+                                get_workload(wl).n_params)
+            require(all(math.isfinite(a) for _, _, a in res.accuracy_curve)
+                    and res.accuracy_curve[-1][0] == res.rounds[-1].idx,
+                    f"{wl} batched {res.algorithm}: bad accuracy curve")
+        if wl == "femnist_cnn":
+            sims = _train_cells_sims(dev, wl, aws, datas, cells)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                BatchedSweep(sims).run()
+                torch.cuda.synchronize()
+            row["profiled"] = _device_time(prof, row["batched_wall_s"])
+            del prof
+        t0 = time.perf_counter()
+        loop = [sim.run() for sim in
+                _train_cells_sims(dev, wl, aws, datas, cells)]
+        torch.cuda.synchronize()
+        row["loop_wall_s"] = time.perf_counter() - t0
+        row.update(_compare_paths(loop, batched), records_identical=True)
+        require(row["final_params_max_abs_gap"] <= 1e-4
+                and row["accuracy_max_abs_gap"] <= 1e-4,
+                f"{wl}: batched and loop differ: {row}")
+        train[wl] = row
+        print(json.dumps({"phase": f"batched_sweep_{wl}", **row}),
+              flush=True)
+    out["train"] = train
+    out["train_setup_s"] = setup_s
+    out["cpu_vs_card"] = _batched_cpu_vs_card(dev)
+    emit("batched_sweep", card=smi_line(),
+         **{k: v for k, v in out.items() if k not in ("timing", "train")},
+         timing_walls_s=out["timing"]["walls_s"],
+         walls_s={wl: dict(batched=r["batched_wall_s"],
+                           loop=r["loop_wall_s"])
+                  for wl, r in train.items()})
+    return out
+
+
+def _batched_cpu_vs_card(dev) -> dict:
+    """fedavg, fedprox and fedbuff as one batch on c2s2/g1, 3 rounds, on
+    the card and on the CPU with the same windows and draws: identical
+    records; femnist_mlp params within 1e-4 (the main path's card-vs-CPU
+    limit); femnist_cnn's gap reported (see `_cnn_cpu_vs_card`)."""
+    cst, st = WalkerStar(2, 2), station_subnetwork(1)
+    horizon = 4 * 86400.0
+    aw = compute_access_windows(cst, st, horizon_s=horizon, device="cpu")
+    data = synth_femnist(cst.n_sats, seed=0)
+    cfg = SimConfig(max_rounds=3, horizon_s=horizon, eval_every=1,
+                    max_steps=16)
+    out = {}
+    for wl in ("femnist_mlp", "femnist_cnn"):
+        runs = {}
+        for where, device in (("cpu", "cpu"), ("card", dev)):
+            sims = [ConstellationSim(
+                cst, st, ALGORITHMS[a], data=data, cfg=cfg, access=aw,
+                device=device, workload=wl,
+                sampler=(TorchSampler(0, "cpu") if where == "cpu" else
+                         _OnDevice(TorchSampler(0, "cpu"), dev)))
+                    for a in CNN_NAMES]
+            runs[where] = BatchedSweep(sims).run()
+        for c, b in zip(runs["cpu"], runs["card"]):
+            require(_records(c) == _records(b) and len(b.rounds) == 3,
+                    f"{wl} {b.algorithm}: batched records differ between "
+                    "the card and the CPU")
+        gap = max(float(np.abs(_flat_params(c.final_params)
+                               - _flat_params(b.final_params)).max())
+                  for c, b in zip(runs["cpu"], runs["card"]))
+        out[wl] = dict(records_identical=True, final_params_max_abs_gap=gap)
+        if wl == "femnist_mlp":
+            require(gap <= 1e-4, f"batched {wl}: card and CPU params "
+                    f"differ by {gap} > 1e-4")
+    return dict(cell="c2s2/g1", rounds=3, algorithms=list(CNN_NAMES), **out)
 
 
 # ------------------------------------------------------------ lm kernels
@@ -1197,13 +1777,18 @@ def main() -> int:
     timed("card", phase_card)
     rows = timed("kernels", phase_kernels, dev)
     setup = timed("main_path_setup", main_path_setup, dev)
-    shapes = {"main_path": LaunchShapes(), "comms_path": LaunchShapes()}
+    shapes = {name: LaunchShapes() for name in (
+        "main_path", "comms_path", "cnn_path", "batched_sweep")}
     with shapes["main_path"]:
         main_path = timed("main_path", phase_main_path, dev, setup)
     timed("where_time_goes", phase_where_time_goes, dev, setup)
     timed("cpu_vs_card", phase_cpu_vs_card, dev)
     with shapes["comms_path"]:
         comms = timed("comms_path", phase_comms_path, dev, setup)
+    with shapes["cnn_path"]:
+        timed("cnn_path", phase_cnn_path, dev, setup)
+    with shapes["batched_sweep"]:
+        sweep = timed("batched_sweep", phase_batched_sweep, dev)
     timed("path_shapes", phase_path_shapes, dev, shapes)
     timed("comms_scale", phase_comms_scale, dev)
     timed("comms_cpu_vs_card", phase_comms_cpu_vs_card, dev)
@@ -1236,8 +1821,11 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             # The comms path's runs, each counted from 0 (not the main
-            # path's count above).
-            comms_path_launches=comms["launches"].get(row["name"], 0)))
+            # path's count above), and the batched sweep's femnist_cnn
+            # batch (32 scenarios, counted from 0).
+            comms_path_launches=comms["launches"].get(row["name"], 0),
+            batched_sweep_launches=sweep["train"]["femnist_cnn"][
+                "launches"].get(row["name"], 0)))
     emit("done", wall_s=time.perf_counter() - t_start, phases_s=phases_s)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,8 @@
 """Unified contact plan: ground passes + ISL windows, priced by link rate.
 
 Port of `repro.comms.contact_plan`: numpy float64 end to end and a
-verbatim copy of the reference (less `WindowTable.stack`, which only the
-batched sweep uses), so on the same `AccessWindows` and `ISLWindows`
-every table, query, route input and re-rating is bitwise the
+verbatim copy of the reference, so on the same `AccessWindows` and
+`ISLWindows` every table, query, route input and re-rating is bitwise the
 reference's (`tests/test_torch_comms.py`).
 
 A `ContactPlan` compiles the orbital geometry into the one structure the
@@ -389,6 +388,60 @@ class WindowTable:
             ok |= fit
             w = np.where(act & ~fit, w + 1, w)
         return s_out, e_out, ok
+
+    @classmethod
+    def stack(cls, tables: list["WindowTable"]
+              ) -> tuple["WindowTable", np.ndarray]:
+        """Stack window tables along a *scenario* axis.
+
+        Concatenates the edge (row) axes of several tables — typically
+        one per sweep scenario — padding every window axis to the stack
+        maximum with the exact padding `from_edges` uses (+inf starts/
+        ends/cummax, `MIN_RATE_BPS` rates, zero profiles), so one
+        batched `first_live`/`ground_upload`/`transfer` call can span
+        lanes from every scenario at once (`repro_torch.sim.batched`).
+
+        Returns `(stacked, offsets)` with `offsets` of length
+        `len(tables) + 1`: table `i`'s row `r` lives at stacked row
+        `offsets[i] + r`. Queries over the stacked table are bitwise the
+        per-table queries (tests/test_torch_batched.py pins this).
+        """
+        W = max((t.starts.shape[1] for t in tables), default=0)
+        prof_ws = {t.rate_profile.shape[2] for t in tables
+                   if t.rate_profile is not None}
+        if len(prof_ws) > 1:
+            # Tail-padding a narrower profile with zeros would flip its
+            # windows onto the flat-rate path (the `_tx_end` presence
+            # check reads the last profile instant) — refuse rather than
+            # silently change pricing.
+            raise ValueError("cannot stack WindowTables with differing "
+                             f"rate-profile widths {sorted(prof_ws)}")
+        prof_w = prof_ws.pop() if prof_ws else 0
+        offsets = np.zeros(len(tables) + 1, np.int64)
+        for i, t in enumerate(tables):
+            offsets[i + 1] = offsets[i] + t.n_edges
+        E = int(offsets[-1])
+        starts = np.full((E, W), np.inf)
+        ends = np.full((E, W), np.inf)
+        rates = np.full((E, W), MIN_RATE_BPS)
+        cummax = np.full((E, W), np.inf)
+        counts = np.zeros(E, np.int64)
+        prof = np.zeros((E, W, prof_w)) if prof_w else None
+        prof_t = np.zeros((E, W, prof_w)) if prof_w else None
+        for i, t in enumerate(tables):
+            a, b = int(offsets[i]), int(offsets[i + 1])
+            w = t.starts.shape[1]
+            starts[a:b, :w] = t.starts
+            ends[a:b, :w] = t.ends
+            rates[a:b, :w] = t.rates
+            cummax[a:b, :w] = t.cummax_ends
+            counts[a:b] = t.counts
+            if prof is not None and t.rate_profile is not None:
+                prof[a:b, :w] = t.rate_profile
+                prof_t[a:b, :w] = t._profile_times
+        return cls(starts=starts, ends=ends, rates=rates, counts=counts,
+                   cummax_ends=cummax, rate_profile=prof,
+                   _profile_times=prof_t), offsets
 
 
 @dataclasses.dataclass(frozen=True, eq=False)

@@ -1,8 +1,7 @@
 """Assigned-architecture registry: --arch <id> resolves here.
 
-A copy of `repro.configs` (the configs are pure data). `femnist-47k`, the
-paper's CNN client model, waits for the `femnist_cnn` port (ROADMAP queue
-item "femnist_cnn").
+A copy of `repro.configs` (the configs are pure data); `femnist-47k`, the
+paper's CNN client model, names the port's `femnist_cnn` functions.
 """
 from __future__ import annotations
 
@@ -33,17 +32,13 @@ _MODULES = {
     "rwkv6-1.6b": "rwkv6_1_6b",
     "hymba-1.5b": "hymba_1_5b",
     "qwen1.5-110b": "qwen1_5_110b",
-    "femnist-47k": None,
+    "femnist-47k": "femnist_47k",
 }
 
 
 def get_config(arch_id: str):
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch '{arch_id}'; choices: {ARCH_IDS}")
-    if _MODULES[arch_id] is None:
-        raise NotImplementedError(
-            f"{arch_id}: the femnist_cnn model is not ported yet (ROADMAP "
-            "queue item 'femnist_cnn')")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")
     return mod.CONFIG
 

@@ -17,6 +17,9 @@ out on the flat (C, P) parameter buffer:
 
 FedAvg is prox_mu = 0; FedProx / FedBuff anchor on the round's global
 model (or, for FedBuff, each client's download version) with prox_mu > 0.
+A batch of scenarios (`repro_torch.sim.batched`) stacks every scenario's
+clients as rows of one buffer, with one prox_mu per row and one anchor
+row per scenario (or per client), still one launch per local step.
 """
 from __future__ import annotations
 
@@ -52,16 +55,19 @@ def vmapped_client_update(loss_fn: Callable, *, lr: float = 0.05,
 
     Returns fn(params0, anchor, x, y, steps, prox_mu, idx) -> params:
       params0: (C, P) start params (not modified);
-      anchor:  (P,) shared anchor (sync barrier) or (C, P) per client;
+      anchor:  (P,) shared anchor (sync barrier), (C, P) per client, or
+               (G, P) with C % G == 0, row c anchoring on row c // (C / G)
+               (one anchor per scenario of a batch);
       x: (C, N, *sample_shape); y: (C, N) int64;
       steps: C ints <= max_steps (host side);
+      prox_mu: a float, or a (C,) float32 tensor on params0's device;
       idx: (C, >= max(steps), batch_size) int64 minibatch indices.
     `loss_fn(views, xb, yb)` returns the (C,) per-client data losses.
     """
 
     def client_update(params0: torch.Tensor, anchor: torch.Tensor,
                       x: torch.Tensor, y: torch.Tensor,
-                      steps: Sequence[int], prox_mu: float,
+                      steps: Sequence[int], prox_mu: float | torch.Tensor,
                       idx: torch.Tensor) -> torch.Tensor:
         steps = [int(s) for s in steps]
         if max(steps, default=0) > max_steps:

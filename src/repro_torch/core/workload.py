@@ -13,10 +13,12 @@ Port of `repro.core.workload`. A `Workload` carries:
   * a cost model: `model_bytes` and `epoch_mflops` derived from the
     parameter layout, unless pinned.
 
-`femnist_mlp`, the paper's sweep model, is the only workload of this
-slice; its cost numbers are pinned to the paper's section-5 constants, so
-`HardwareModel.for_workload("femnist_mlp") == HardwareModel()`. The
-reference's other workloads come in later slices (ROADMAP).
+Two workloads are ported: `femnist_mlp`, the paper's sweep model, whose
+cost numbers are pinned to the paper's section-5 constants (so
+`HardwareModel.for_workload("femnist_mlp") == HardwareModel()`), and
+`femnist_cnn`, the paper's headline 47k-parameter CNN, whose cost is
+derived from its conv/dense dims. The reference's LM workloads come in a
+later slice (ROADMAP).
 """
 from __future__ import annotations
 
@@ -27,13 +29,12 @@ from typing import Callable
 from repro_torch.core.client import classification_loss, evaluate
 from repro_torch.data.femnist import IMG, synth_femnist
 from repro_torch.orbits import constants as C
-from repro_torch.params import FEMNIST_MLP, ParamLayout
+from repro_torch.params import FEMNIST_CNN, FEMNIST_MLP, ParamLayout
 
 EXECUTION_MODES = ("host", "mesh")
 
 # Reference workloads still to port, with the ROADMAP item that brings each.
 _NOT_PORTED = {
-    "femnist_cnn": "ROADMAP femnist_cnn slice",
     "lm_tiny": "ROADMAP LM training slice",
     "lm_moe_tiny": "ROADMAP LM training slice",
     "lm_rwkv6_tiny": "ROADMAP LM training slice",
@@ -155,7 +156,27 @@ def _femnist_mlp() -> Workload:
     )
 
 
-_BUILDERS: dict[str, Callable[[], Workload]] = {"femnist_mlp": _femnist_mlp}
+def _femnist_cnn() -> Workload:
+    from repro_torch.models.femnist_cnn import (
+        femnist_cnn_apply,
+        femnist_cnn_init,
+    )
+    # Derived cost: conv FLOPs scale with spatial positions, not params.
+    # fwd MACs = 28^2*(3*3*1*8) + 14^2*(3*3*8*16) + 784*56 + 56*47
+    conv_macs = 28 * 28 * 3 * 3 * 1 * 8 + 14 * 14 * 3 * 3 * 8 * 16
+    dense_macs = 7 * 7 * 16 * 56 + 56 * 47
+    fwd_flops = 2.0 * (conv_macs + dense_macs)
+    return classification_workload(
+        "femnist_cnn", femnist_cnn_init, femnist_cnn_apply,
+        layout=FEMNIST_CNN,
+        flops_per_sample=3.0 * fwd_flops,    # fwd + ~2x fwd for backward
+    )
+
+
+_BUILDERS: dict[str, Callable[[], Workload]] = {
+    "femnist_mlp": _femnist_mlp,
+    "femnist_cnn": _femnist_cnn,
+}
 _CACHE: dict[str, Workload] = {}
 
 

@@ -54,6 +54,17 @@
 // bytes, and a row of 46,639 f32 is 186,556 bytes.
 // The sum runs over k in order with explicitly rounded operations (no FMA
 // contraction), so f32 results are bitwise those of the same torch ops.
+//
+// Batched form (`fedagg_batched_*`), for the batched scenario sweep
+// (`repro/sim/batched.py`, which vmaps `weighted_delta_update` over a
+// scenario axis): x (S, K, P), w (S, K), base (S, P), and a per-scenario
+// server learning rate `scale` (S,) read on the card; out (S, P). The
+// scenario is the grid's second dimension and each block runs the loop
+// above over its scenario's stack, so one launch aggregates a whole
+// batch: at S = 32, K = 10, P = 47,887 f32 the delta form moves 73.6 MB,
+// 22 us at 3.35 TB/s, where 32 launches of the unbatched kernel would pay
+// 32 launch floors. A scenario whose weights are all zero gets base back
+// (base + scale * 0).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -97,6 +108,39 @@ __global__ void fedagg_kernel(const T* __restrict__ x,
   }
 }
 
+// Scenario s of S: x + s*K*P, w + s*K, base + s*P, scale[s], out + s*P;
+// each scenario's loop is fedagg_kernel's (kept as its own kernel above,
+// so the unbatched launch's machine code stays as measured).
+template <typename T, bool BASE>
+__global__ void fedagg_batched_kernel(const T* __restrict__ x,
+                                      const float* __restrict__ w,
+                                      const T* __restrict__ base,
+                                      const float* __restrict__ scale,
+                                      T* __restrict__ out, int S, int K,
+                                      int64_t P) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int s = blockIdx.y; s < S; s += gridDim.y) {
+    const T* xs = x + (int64_t)s * K * P;
+    const float* ws = w + (int64_t)s * K;
+    T* os = out + (int64_t)s * P;
+    for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < P;
+         p += stride) {
+      float acc = 0.0f;
+      if (BASE) {
+        const float b = to_f32(base[(int64_t)s * P + p]);
+        for (int k = 0; k < K; ++k)
+          acc = __fadd_rn(acc, __fmul_rn(__ldg(ws + k),
+                                         __fsub_rn(to_f32(xs[k * P + p]), b)));
+        os[p] = from_f32<T>(__fadd_rn(b, __fmul_rn(__ldg(scale + s), acc)));
+      } else {
+        for (int k = 0; k < K; ++k)
+          acc = __fadd_rn(acc, __fmul_rn(__ldg(ws + k), to_f32(xs[k * P + p])));
+        os[p] = from_f32<T>(acc);
+      }
+    }
+  }
+}
+
 template <typename T>
 int launch(const void* x, const void* w, const void* base, float scale,
            void* out, int K, int64_t P, int device, void* stream) {
@@ -124,6 +168,34 @@ int launch(const void* x, const void* w, const void* base, float scale,
   return (int)err;
 }
 
+template <typename T>
+int launch_batched(const void* x, const void* w, const void* base,
+                   const void* scale, void* out, int S, int K, int64_t P,
+                   int device, void* stream) {
+  int prev = device;
+  cudaError_t err = cudaGetDevice(&prev);
+  if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = 256;
+  int64_t blocks = (P + threads - 1) / threads;
+  if (blocks > 4096) blocks = 4096;
+  if (blocks < 1) blocks = 1;
+  const dim3 grid((unsigned)blocks, (unsigned)(S < 65535 ? S : 65535));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (base != nullptr)
+    fedagg_batched_kernel<T, true><<<grid, threads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(w),
+        static_cast<const T*>(base), static_cast<const float*>(scale),
+        static_cast<T*>(out), S, K, P);
+  else
+    fedagg_batched_kernel<T, false><<<grid, threads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(w), nullptr,
+        nullptr, static_cast<T*>(out), S, K, P);
+  err = cudaGetLastError();
+  if (prev != device) cudaSetDevice(prev);
+  return (int)err;
+}
+
 }  // namespace
 
 // C entry points (bound with ctypes). `base` may be null (plain form).
@@ -138,4 +210,22 @@ extern "C" int fedagg_bf16(const void* x, const void* w, const void* base,
                            float scale, void* out, int K, int64_t P,
                            int device, void* stream) {
   return launch<__nv_bfloat16>(x, w, base, scale, out, K, P, device, stream);
+}
+
+// The batched form: x (S, K, P), w (S, K), base (S, P) or null, scale (S,)
+// f32 on the card (read only with base), out (S, P).
+extern "C" int fedagg_batched_f32(const void* x, const void* w,
+                                  const void* base, const void* scale,
+                                  void* out, int S, int K, int64_t P,
+                                  int device, void* stream) {
+  return launch_batched<float>(x, w, base, scale, out, S, K, P, device,
+                               stream);
+}
+
+extern "C" int fedagg_batched_bf16(const void* x, const void* w,
+                                   const void* base, const void* scale,
+                                   void* out, int S, int K, int64_t P,
+                                   int device, void* stream) {
+  return launch_batched<__nv_bfloat16>(x, w, base, scale, out, S, K, P,
+                                       device, stream);
 }

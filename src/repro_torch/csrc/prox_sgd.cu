@@ -46,6 +46,22 @@
 // element at a time. The arithmetic is f32 with explicitly rounded
 // operations (no FMA contraction), in the order of the plain PyTorch
 // version, so the f32 results are bitwise those of its torch ops.
+//
+// Extended form (`prox_sgd_rows_*`), for the batched scenario sweep
+// (`repro/sim/batched.py`, which vmaps the client update over scenarios
+// with a per-scenario mu and per-scenario anchors): one launch over the
+// R = S * Cpad rows of a whole batch of scenarios. `mu` may be an (R,)
+// f32 vector, read once per vector by its row (twice where the vector
+// straddles two rows, each element taking its own row's). The anchor may
+// be grouped: w0 is (G, P) and row r reads anchor row r / (R / G), so a
+// batch of synchronous scenarios anchors each scenario's Cpad rows on its
+// own global model without an (R, P) broadcast; G = R is the per-client
+// form and a (P,) anchor the shared one. A grouped anchor row does not
+// line up with the flat stack's 16-byte vectors (P is odd), so it is read
+// element by element through the read-only path, like the shared one; it
+// adds G * P reads, 6 MB at S = 32 against the stack's 184 MB. The forms
+// are template parameters: the unextended entry points instantiate the
+// same code as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,14 +108,19 @@ __device__ __forceinline__ int64_t row_of(int64_t e, int64_t P, bool narrow) {
                 : e / P;
 }
 
-// n = C * P elements; packs of N (P >= N). SHARED: w0 is one (P,) anchor,
-// else (C, P) like w. One pack a thread and pass.
-template <typename T, int N, bool SHARED>
+// How row r finds its anchor: one shared (P,) anchor, its own row of an
+// (R, P) stack, or row r / group of a (G, P) stack.
+enum Anchor { kShared = 0, kPerRow = 1, kGrouped = 2 };
+
+// n = R * P elements; packs of N (P >= N). One pack a thread and pass.
+// MU_ROWS: mu is the (R,) vector `mu_rows`, else the scalar `mu`.
+template <typename T, int N, int ANCHOR, bool MU_ROWS>
 __global__ void __launch_bounds__(kThreads)
     prox_sgd_kernel(T* __restrict__ w, const T* __restrict__ g,
                     const T* __restrict__ w0,
                     const int32_t* __restrict__ steps, int step, int64_t P,
-                    int64_t n, bool narrow, float lr, float mu) {
+                    int64_t n, bool narrow, float lr, float mu,
+                    int64_t group, const float* __restrict__ mu_rows) {
   using V = Pack<T, N>;
   const int64_t nv = n / N;
   for (int64_t v = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
@@ -108,34 +129,49 @@ __global__ void __launch_bounds__(kThreads)
     // first (lo) and last (hi) elements are live: a masked pack is neither
     // read nor written.
     const int64_t e = v * N, c = row_of(e, P, narrow), off = e - c * P;
+    const bool straddle = off + N > P;
     const bool lo = step < __ldg(steps + c);
-    const bool hi = off + N > P ? step < __ldg(steps + c + 1) : lo;
+    const bool hi = straddle ? step < __ldg(steps + c + 1) : lo;
     if (!(lo || hi)) continue;
+    const int64_t first = P - off;   // elements in the first row
     // Every load before any arithmetic.
     V wv = reinterpret_cast<const V*>(w)[v];
     const V gv = __ldg(reinterpret_cast<const V*>(g) + v);
     V av;
     T an[N];
-    if constexpr (SHARED) {
+    if constexpr (ANCHOR == kShared) {
 #pragma unroll
       for (int j = 0; j < N; ++j) {
         const int64_t p = off + j;
         an[j] = __ldg(w0 + (p < P ? p : p - P));
       }
+    } else if constexpr (ANCHOR == kGrouped) {
+      const T* a_lo = w0 + row_of(c, group, narrow) * P;
+      const T* a_hi = straddle ? w0 + row_of(c + 1, group, narrow) * P : a_lo;
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int64_t p = off + j;
+        an[j] = p < P ? __ldg(a_lo + p) : __ldg(a_hi + (p - P));
+      }
     } else {
       av = __ldg(reinterpret_cast<const V*>(w0) + v);
+    }
+    float mu_lo = mu, mu_hi = mu;
+    if constexpr (MU_ROWS) {
+      mu_lo = __ldg(mu_rows + c);
+      mu_hi = straddle ? __ldg(mu_rows + c + 1) : mu_lo;
     }
     // The step; a live pack goes back as one store, a pack that straddles
     // a live and a masked row element by element.
     T* we = reinterpret_cast<T*>(&wv);
     const T* ge = reinterpret_cast<const T*>(&gv);
-    const T* ae = SHARED ? an : reinterpret_cast<const T*>(&av);
+    const T* ae = ANCHOR == kPerRow ? reinterpret_cast<const T*>(&av) : an;
 #pragma unroll
-    for (int j = 0; j < N; ++j) we[j] = step_one(we[j], ge[j], ae[j], lr, mu);
+    for (int j = 0; j < N; ++j)
+      we[j] = step_one(we[j], ge[j], ae[j], lr, j < first ? mu_lo : mu_hi);
     if (lo && hi) {
       reinterpret_cast<V*>(w)[v] = wv;
     } else {
-      const int64_t first = P - off;   // elements in the first row
 #pragma unroll
       for (int j = 0; j < N; ++j)
         if (j < first ? lo : hi) w[e + j] = we[j];
@@ -145,10 +181,13 @@ __global__ void __launch_bounds__(kThreads)
   if (N > 1 && blockIdx.x == 0) {
     const int64_t e = nv * N + threadIdx.x;
     if (e < n) {
-      const int64_t c = row_of(e, P, narrow);
+      const int64_t c = row_of(e, P, narrow), p = e - c * P;
+      const int64_t a = ANCHOR == kShared   ? p
+                        : ANCHOR == kPerRow ? e
+                                            : row_of(c, group, narrow) * P + p;
       if (step < __ldg(steps + c))
-        w[e] = step_one(w[e], __ldg(g + e),
-                        __ldg(w0 + (SHARED ? e - c * P : e)), lr, mu);
+        w[e] = step_one(w[e], __ldg(g + e), __ldg(w0 + a), lr,
+                        MU_ROWS ? __ldg(mu_rows + c) : mu);
     }
   }
 }
@@ -173,24 +212,53 @@ cudaError_t resident_blocks(Kernel kernel, int device,
   return cudaSuccess;
 }
 
-template <typename T, int N, bool SHARED>
-cudaError_t run(T* w, const T* g, const T* w0, const int32_t* steps,
-                int step, int64_t C, int64_t P, float lr, float mu,
-                int device, cudaStream_t stream) {
+// Everything a launch passes on to the kernel.
+template <typename T>
+struct Args {
+  T* w;
+  const T* g;
+  const T* w0;
+  const int32_t* steps;
+  int step;
+  int64_t C, P;
+  float lr, mu;
+  int64_t group;
+  const float* mu_rows;
+};
+
+template <typename T, int N, int ANCHOR, bool MU_ROWS>
+cudaError_t run(const Args<T>& a, int device, cudaStream_t stream) {
   static std::atomic<int> cap[kMaxDevices];
   int max_blocks = 0;
-  const cudaError_t err = resident_blocks(prox_sgd_kernel<T, N, SHARED>,
-                                          device, cap, &max_blocks);
+  const cudaError_t err = resident_blocks(
+      prox_sgd_kernel<T, N, ANCHOR, MU_ROWS>, device, cap, &max_blocks);
   if (err != cudaSuccess) return err;
-  const int64_t n = C * P;
+  const int64_t n = a.C * a.P;
   const int64_t per_block = static_cast<int64_t>(kThreads) * N;
   const int64_t chunks = std::max<int64_t>(1, (n + per_block - 1) / per_block);
   const int64_t passes = (chunks + max_blocks - 1) / max_blocks;
   const int64_t blocks = (chunks + passes - 1) / passes;
-  prox_sgd_kernel<T, N, SHARED><<<static_cast<unsigned>(blocks), kThreads, 0,
-                                  stream>>>(w, g, w0, steps, step, P, n,
-                                            n <= UINT32_MAX, lr, mu);
+  prox_sgd_kernel<T, N, ANCHOR, MU_ROWS>
+      <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          a.w, a.g, a.w0, a.steps, a.step, a.P, n, n <= UINT32_MAX, a.lr,
+          a.mu, a.group, a.mu_rows);
   return cudaGetLastError();
+}
+
+template <typename T, int N, int ANCHOR>
+cudaError_t run_mu(const Args<T>& a, int device, cudaStream_t stream) {
+  return a.mu_rows != nullptr ? run<T, N, ANCHOR, true>(a, device, stream)
+                              : run<T, N, ANCHOR, false>(a, device, stream);
+}
+
+template <typename T, int N>
+cudaError_t run_anchor(const Args<T>& a, int anchor, int device,
+                       cudaStream_t stream) {
+  switch (anchor) {
+    case kShared: return run_mu<T, N, kShared>(a, device, stream);
+    case kPerRow: return run_mu<T, N, kPerRow>(a, device, stream);
+    default: return run_mu<T, N, kGrouped>(a, device, stream);
+  }
 }
 
 bool aligned16(const void* p) {
@@ -198,36 +266,47 @@ bool aligned16(const void* p) {
 }
 
 template <typename T>
-int launch(void* w_, const void* g_, const void* w0_, int64_t w0_stride,
-           const void* steps_, int step, int C, int64_t P, float lr, float mu,
-           int device, void* stream) {
+int launch(const Args<T>& a, int anchor, int device, void* stream) {
   // Launch on the tensors' device and give the calling thread back its
   // current device, which PyTorch reads for its own defaults.
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  T* w = static_cast<T*>(w_);
-  const T* g = static_cast<const T*>(g_);
-  const T* w0 = static_cast<const T*>(w0_);
-  const int32_t* steps = static_cast<const int32_t*>(steps_);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int N = 16 / sizeof(T);
-  const bool shared = w0_stride == 0;
-  const bool vec = P >= N && aligned16(w) && aligned16(g) &&
-                   (shared || aligned16(w0));
-  if (vec)
-    err = shared ? run<T, N, true>(w, g, w0, steps, step, C, P, lr, mu,
-                                   device, s)
-                 : run<T, N, false>(w, g, w0, steps, step, C, P, lr, mu,
-                                    device, s);
-  else
-    err = shared ? run<T, 1, true>(w, g, w0, steps, step, C, P, lr, mu,
-                                   device, s)
-                 : run<T, 1, false>(w, g, w0, steps, step, C, P, lr, mu,
-                                    device, s);
+  // Only a per-row anchor is read as vectors of the flat stack.
+  const bool vec = a.P >= N && aligned16(a.w) && aligned16(a.g) &&
+                   (anchor != kPerRow || aligned16(a.w0));
+  err = vec ? run_anchor<T, N>(a, anchor, device, s)
+            : run_anchor<T, 1>(a, anchor, device, s);
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
+}
+
+template <typename T>
+int launch_plain(void* w, const void* g, const void* w0, int64_t w0_stride,
+                 const void* steps, int step, int C, int64_t P, float lr,
+                 float mu, int device, void* stream) {
+  const Args<T> a{static_cast<T*>(w), static_cast<const T*>(g),
+                  static_cast<const T*>(w0),
+                  static_cast<const int32_t*>(steps), step, C, P, lr, mu,
+                  0, nullptr};
+  return launch<T>(a, w0_stride == 0 ? kShared : kPerRow, device, stream);
+}
+
+// group: 0 for one shared (P,) anchor, else the rows that share one row of
+// the (R / group, P) anchor stack (1: per row).
+template <typename T>
+int launch_rows(void* w, const void* g, const void* w0, int64_t group,
+                const void* mu_rows, const void* steps, int step, int R,
+                int64_t P, float lr, float mu, int device, void* stream) {
+  const Args<T> a{static_cast<T*>(w), static_cast<const T*>(g),
+                  static_cast<const T*>(w0),
+                  static_cast<const int32_t*>(steps), step, R, P, lr, mu,
+                  group, static_cast<const float*>(mu_rows)};
+  const int anchor = group == 0 ? kShared : group == 1 ? kPerRow : kGrouped;
+  return launch<T>(a, anchor, device, stream);
 }
 
 }  // namespace
@@ -238,14 +317,34 @@ extern "C" int prox_sgd_f32(void* w, const void* g, const void* w0,
                             int64_t w0_stride, const void* steps, int step,
                             int C, int64_t P, float lr, float mu, int device,
                             void* stream) {
-  return launch<float>(w, g, w0, w0_stride, steps, step, C, P, lr, mu, device,
-                       stream);
+  return launch_plain<float>(w, g, w0, w0_stride, steps, step, C, P, lr, mu,
+                             device, stream);
 }
 
 extern "C" int prox_sgd_bf16(void* w, const void* g, const void* w0,
                              int64_t w0_stride, const void* steps, int step,
                              int C, int64_t P, float lr, float mu, int device,
                              void* stream) {
-  return launch<__nv_bfloat16>(w, g, w0, w0_stride, steps, step, C, P, lr, mu,
-                               device, stream);
+  return launch_plain<__nv_bfloat16>(w, g, w0, w0_stride, steps, step, C, P,
+                                     lr, mu, device, stream);
+}
+
+// The extended form: anchor row group and an optional (R,) f32 mu vector
+// (null: the scalar mu).
+extern "C" int prox_sgd_rows_f32(void* w, const void* g, const void* w0,
+                                 int64_t group, const void* mu_rows,
+                                 const void* steps, int step, int R,
+                                 int64_t P, float lr, float mu, int device,
+                                 void* stream) {
+  return launch_rows<float>(w, g, w0, group, mu_rows, steps, step, R, P, lr,
+                            mu, device, stream);
+}
+
+extern "C" int prox_sgd_rows_bf16(void* w, const void* g, const void* w0,
+                                  int64_t group, const void* mu_rows,
+                                  const void* steps, int step, int R,
+                                  int64_t P, float lr, float mu, int device,
+                                  void* stream) {
+  return launch_rows<__nv_bfloat16>(w, g, w0, group, mu_rows, steps, step, R,
+                                    P, lr, mu, device, stream);
 }

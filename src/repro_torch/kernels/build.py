@@ -43,9 +43,19 @@ _SIGNATURES = {
                      _i32, _vp],
     "prox_sgd_bf16": [_vp, _vp, _vp, _i64, _vp, _i32, _i32, _i64, _f32, _f32,
                       _i32, _vp],
+    # w, g, w0, group, mu_rows, steps, step, R, P, lr, mu, device, stream
+    "prox_sgd_rows_f32": [_vp, _vp, _vp, _i64, _vp, _vp, _i32, _i32, _i64,
+                          _f32, _f32, _i32, _vp],
+    "prox_sgd_rows_bf16": [_vp, _vp, _vp, _i64, _vp, _vp, _i32, _i32, _i64,
+                           _f32, _f32, _i32, _vp],
     # x, w, base, scale, out, K, P, device, stream
     "fedagg_f32": [_vp, _vp, _vp, _f32, _vp, _i32, _i64, _i32, _vp],
     "fedagg_bf16": [_vp, _vp, _vp, _f32, _vp, _i32, _i64, _i32, _vp],
+    # x, w, base, scale (S,), out, S, K, P, device, stream
+    "fedagg_batched_f32": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _i32,
+                           _vp],
+    "fedagg_batched_bf16": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _i32,
+                            _vp],
     # q, k, v, o, strides[4][3] (b, h, s of q, k, v, o), B, H, KV, S, D,
     # scale, causal, window (0 = none), softcap (0 = none), device, stream
     "flash_attention_f32": [_vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,

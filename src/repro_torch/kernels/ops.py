@@ -28,9 +28,13 @@ def reset_launches() -> None:
 
 def fedagg_op(x: torch.Tensor, w: torch.Tensor,
               base: torch.Tensor | None = None,
-              scale: float = 1.0) -> torch.Tensor:
-    """sum_k w[k] * x[k] over (K, P), or its delta form against `base`."""
+              scale: float | torch.Tensor = 1.0) -> torch.Tensor:
+    """sum_k w[k] * x[k] over (K, P), or its delta form against `base`;
+    over (S, K, P) with a leading scenario axis (w (S, K), base (S, P),
+    scale an (S,) float32 tensor), one launch for every scenario."""
     if x.device.type == "cpu":
+        if x.dim() == 3:
+            return ref.fedagg_batched_ref(x, w, base, scale)
         return ref.fedagg_ref(x, w, base, scale)
     out = fedagg(x, w, base, scale)
     LAUNCHES["fedagg"] += 1
@@ -39,9 +43,14 @@ def fedagg_op(x: torch.Tensor, w: torch.Tensor,
 
 def prox_sgd_op(w: torch.Tensor, g: torch.Tensor, w0: torch.Tensor,
                 steps: torch.Tensor, step: int, lr: float,
-                mu: float) -> torch.Tensor:
-    """In-place masked proximal SGD step over a (C, P) client stack."""
+                mu: float | torch.Tensor) -> torch.Tensor:
+    """In-place masked proximal SGD step over a (C, P) client stack; `mu`
+    a float or a (C,) tensor, `w0` (P,), (C, P) or (G, P) anchors (row c
+    reads row c // (C / G))."""
     if w.device.type == "cpu":
+        if isinstance(mu, torch.Tensor) or (
+                w0.dim() == 2 and w0.shape[0] not in (1, w.shape[0])):
+            return ref.prox_sgd_rows_ref_(w, g, w0, steps, step, lr, mu)
         return ref.prox_sgd_masked_ref_(w, g, w0, steps, step, lr, mu)
     prox_sgd(w, g, w0, steps, step, lr, mu)
     LAUNCHES["prox_sgd"] += 1

@@ -39,6 +39,37 @@ def prox_sgd_masked_ref_(w: torch.Tensor, g: torch.Tensor,
     return w.copy_(torch.where(live, prox_sgd_ref(w, g, w0, lr, mu), w))
 
 
+def prox_sgd_rows_ref_(w: torch.Tensor, g: torch.Tensor, w0: torch.Tensor,
+                       steps: torch.Tensor, step: int, lr: float,
+                       mu) -> torch.Tensor:
+    """The kernel's extended form, in place over an (R, P) buffer: per-row
+    `mu` ((R,) float32, or one float) and grouped anchors (w0 (G, P) with
+    R % G == 0, row r reading anchor row r // (R / G); a (P,) anchor is
+    G = 1). A loop of `prox_sgd_masked_ref_` over the rows, one at a time."""
+    R, P = w.shape
+    anchors = w0.reshape(-1, P)
+    group = R // anchors.shape[0]
+    for r in range(R):
+        mu_r = float(mu[r]) if isinstance(mu, torch.Tensor) else mu
+        prox_sgd_masked_ref_(w[r:r + 1], g[r:r + 1], anchors[r // group],
+                             steps[r:r + 1], step, lr, mu_r)
+    return w
+
+
+def fedagg_batched_ref(x: torch.Tensor, w: torch.Tensor,
+                       base: torch.Tensor | None = None,
+                       scale: torch.Tensor | float = 1.0) -> torch.Tensor:
+    """The kernel's scenario-batched form: x (S, K, P), w (S, K), base
+    (S, P) or None, scale (S,) float32 or one float (with base) -> (S, P).
+    A loop of `fedagg_ref` over the scenarios."""
+    def scale_of(s: int) -> float:
+        return float(scale[s]) if isinstance(scale, torch.Tensor) else scale
+
+    return torch.stack([
+        fedagg_ref(x[s], w[s], None if base is None else base[s],
+                   scale_of(s)) for s in range(x.shape[0])])
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int | None = None,
                         softcap: float | None = None) -> torch.Tensor:

@@ -21,7 +21,9 @@ _TRUNC_STD = 0.87962566103423978
 
 
 def _he_normal_(w: torch.Tensor, generator: torch.Generator) -> None:
-    std = math.sqrt(2.0 / w.shape[-2]) / _TRUNC_STD
+    """In place, with jax's fan-in: every axis but the last (an HWIO conv
+    kernel's receptive field times its input channels)."""
+    std = math.sqrt(2.0 / math.prod(w.shape[:-1])) / _TRUNC_STD
     torch.nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
                                 generator=generator)
 

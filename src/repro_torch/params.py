@@ -92,6 +92,19 @@ FEMNIST_MLP = ParamLayout((
     ("fc2/w", (56, 47)),
 ))
 
+# The paper's CNN (`repro.models.femnist_cnn`): conv 1->8 and 8->16 (3x3,
+# HWIO kernels), dense 784 -> 56 -> 47; P = 47,887.
+FEMNIST_CNN = ParamLayout((
+    ("conv1/b", (8,)),
+    ("conv1/w", (3, 3, 1, 8)),
+    ("conv2/b", (16,)),
+    ("conv2/w", (3, 3, 8, 16)),
+    ("fc1/b", (56,)),
+    ("fc1/w", (784, 56)),
+    ("fc2/b", (47,)),
+    ("fc2/w", (56, 47)),
+))
+
 
 def params_from_jax(tree: dict, layout: ParamLayout = FEMNIST_MLP,
                     device=None) -> torch.Tensor:

@@ -25,9 +25,9 @@ the two (`repro_torch.comms.codec`). Random draws (initial params,
 minibatch indices, the codec's stochastic-rounding uniforms) come from a
 `sampler`; the default `TorchSampler` holds one `torch.Generator`.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP item):
-`execution="mesh"` (multi-device slice) and workloads other than
-`femnist_mlp`.
+The workloads are `femnist_mlp` and `femnist_cnn`. Not ported yet (each
+raises NotImplementedError naming its ROADMAP item): `execution="mesh"`
+(multi-device slice) and the LM workloads.
 """
 from __future__ import annotations
 

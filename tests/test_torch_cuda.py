@@ -168,6 +168,97 @@ def test_sim_kernels_take_inputs_off_16_bytes(dev, c, p, dtype, shift):
         assert torch.equal(agg, _ordered_fedagg(x, wk, base, 0.5))
 
 
+# The batched sweep's forms. (R, P, rows of w0): the smoke's 32 x 10
+# stack with one anchor per scenario or per client, one scenario (S = 1),
+# rows not a multiple of 4, and narrow widths where every vector
+# straddles rows (mu alternates row by row below, so a straddling vector's
+# two rows have different mu).
+ROWS_SHAPES = [(320, 47_887, 32), (320, 47_887, 320), (10, 47_887, 1),
+               (7, 47_887, 7), (13, P_MLP, 1), (9, 5, 3), (6, 3, 2),
+               (15, 4099, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("r,p,rows", ROWS_SHAPES)
+def test_prox_sgd_rows_form_matches_plain(dev, r, p, rows, dtype):
+    """Per-row mu (0 and 0.01 alternating) and grouped anchors: f32
+    bitwise the plain version, bf16 within 2e-2, masked rows untouched,
+    one launch."""
+    g = torch.Generator(device=dev).manual_seed(r + p + rows)
+    w = torch.randn((r, p), generator=g, device=dev).to(dtype)
+    grad = torch.randn((r, p), generator=g, device=dev).to(dtype)
+    anchor = torch.randn((rows, p), generator=g, device=dev).to(dtype)
+    steps = torch.tensor([2 if i % 10 >= 7 else 8 for i in range(r)],
+                         dtype=torch.int32, device=dev)
+    mu = torch.tensor([0.01 * (i % 2) for i in range(r)], device=dev)
+    got, want = w.clone(), w.clone()
+    before = ops.LAUNCHES["prox_sgd"]
+    assert ops.prox_sgd_op(got, grad, anchor, steps, 3, 0.05, mu) is got
+    ref.prox_sgd_rows_ref_(want, grad, anchor, steps, 3, 0.05, mu)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["prox_sgd"] == before + 1
+    _close(got, want, TOL[dtype])
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+    masked = steps <= 3
+    assert torch.equal(got[masked], w[masked])
+
+
+@pytest.mark.parametrize("delta", [False, True])
+@pytest.mark.parametrize("s,k,p", [(32, 10, 47_887), (1, 10, 47_887),
+                                   (5, 7, 4099), (3, 1, 3), (70, 3, 777)])
+def test_fedagg_batched_form_matches_ordered_sum(dev, s, k, p, delta):
+    """Each scenario bitwise the ordered f32 sum with its own scale; one
+    scenario's weights all zero keeps its base (delta form) bit for bit;
+    one launch."""
+    g = torch.Generator(device=dev).manual_seed(s * k + p)
+    x = torch.randn((s, k, p), generator=g, device=dev)
+    w = torch.rand((s, k), generator=g, device=dev)
+    w[s // 2] = 0.0
+    base = torch.randn((s, p), generator=g, device=dev) if delta else None
+    scale = torch.rand((s,), generator=g, device=dev) + 0.5
+    before = ops.LAUNCHES["fedagg"]
+    got = ops.fedagg_op(x, w, base, scale)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fedagg"] == before + 1
+    assert got.shape == (s, p)
+    _close(got, ref.fedagg_batched_ref(x, w, base, scale), TOL[torch.float32])
+    for i in range(s):
+        assert torch.equal(got[i], _ordered_fedagg(
+            x[i], w[i], None if base is None else base[i], scale[i]))
+    if delta:
+        assert torch.equal(got[s // 2], base[s // 2])
+
+
+def test_batched_sweep_trains_through_one_launch_a_step(dev):
+    """A small femnist_cnn batch on the card: one prox_sgd launch per
+    local step (the round's largest budget) and one fedagg per round."""
+    from repro_torch.sim import BatchedSweep
+    from repro_torch.sim.engine import client_steps
+    H = 2 * 86400.0
+    cells = [("fedavg", 2, 2, 1), ("fedprox", 2, 5, 2), ("fedbuff", 2, 2, 1)]
+    sims = [ConstellationSim(
+        WalkerStar(cl, sp), station_subnetwork(g), ALGORITHMS[a],
+        data=synth_femnist(cl * sp, seed=0),
+        cfg=SimConfig(max_rounds=3, horizon_s=H, max_steps=16),
+        access=compute_access_windows(WalkerStar(cl, sp),
+                                      station_subnetwork(g), horizon_s=H,
+                                      device=dev),
+        workload="femnist_cnn", device=dev) for a, cl, sp, g in cells]
+    ops.reset_launches()
+    res = BatchedSweep(sims).run()
+    torch.cuda.synchronize()
+    rounds = max(len(r.rounds) for r in res)
+    steps = sum(max(client_steps(int(sim.data.n[k]), e, 32, 16)
+                    for r, sim in zip(res, sims) if i < len(r.rounds)
+                    for k, e in zip(r.rounds[i].participants,
+                                    r.rounds[i].epochs))
+                for i in range(rounds))
+    assert ops.LAUNCHES["fedagg"] == rounds > 0
+    assert ops.LAUNCHES["prox_sgd"] == steps
+    assert all(r.final_params is not None for r in res)
+
+
 def test_prox_sgd_unaligned_rows_take_the_scalar_path(dev):
     """A view that starts off a 16-byte boundary is still updated right."""
     g = torch.Generator(device=dev).manual_seed(1)

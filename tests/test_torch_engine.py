@@ -423,8 +423,13 @@ def test_isl_codec_mesh_and_workload_requests_raise():
         ALGORITHMS["no_such_algorithm"]
     with pytest.raises(NotImplementedError, match="multi-device"):
         _small_sim(execution="mesh")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _small_sim(workload="femnist_cnn")
+    # The paper's CNN resolves, priced by its derived cost model exactly
+    # as the reference prices it.
+    from repro.core.timing import HardwareModel as JaxHardwareModel
+    cnn = _small_sim(workload="femnist_cnn")
+    assert cnn.workload.name == "femnist_cnn"
+    assert dataclasses.asdict(cnn.hw) == dataclasses.asdict(
+        JaxHardwareModel.for_workload("femnist_cnn"))
 
 
 def _read_outlook(log: list, outlook, now: float) -> bool:

@@ -120,6 +120,72 @@ def test_prox_sgd_step_mask(mu, shared_anchor):
                                   w[c].view(np.uint32))
 
 
+# The batched sweep's forms: S scenarios of C client rows each.
+@pytest.mark.parametrize("S,C,P", [(3, 4, 4099), (1, 7, 130), (5, 3, 3)])
+@pytest.mark.parametrize("group", ["scenario", "client", "shared"])
+def test_prox_sgd_rows_form_is_the_loop_over_scenarios(S, C, P, group):
+    """Per-row mu and grouped anchors on CPU tensors equal a loop of the
+    unextended plain version over the scenarios (each scenario's scalar mu
+    and its own anchor), bitwise; the scenarios' mu mixes 0 and 0.1."""
+    rng = np.random.default_rng(S * C + P)
+    R = S * C
+    w = rng.normal(size=(R, P)).astype(np.float32)
+    g = rng.normal(size=(R, P)).astype(np.float32)
+    rows = {"scenario": S, "client": R, "shared": 1}[group]
+    a = rng.normal(size=(rows, P)).astype(np.float32)
+    steps = rng.integers(0, 6, size=R).astype(np.int32)
+    mus = np.array([0.1 if s % 2 else 0.0 for s in range(S)], np.float32)
+    got = torch.as_tensor(w.copy())
+    out = ops.prox_sgd_op(got, torch.as_tensor(g), torch.as_tensor(a),
+                          torch.as_tensor(steps), 3, 0.05,
+                          torch.as_tensor(np.repeat(mus, C)))
+    assert out is got
+    want = torch.as_tensor(w.copy())
+    for s in range(S):
+        sl = slice(s * C, (s + 1) * C)
+        anchor = (a[s] if group == "scenario" else a[sl]
+                  if group == "client" else a[0])
+        ref.prox_sgd_masked_ref_(want[sl], torch.as_tensor(g[sl]),
+                                 torch.as_tensor(anchor),
+                                 torch.as_tensor(steps[sl]), 3, 0.05,
+                                 float(mus[s]))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("delta", [False, True])
+@pytest.mark.parametrize("S,K,P", [(4, 10, 4099), (1, 3, 47887), (3, 1, 5)])
+def test_fedagg_batched_form_is_the_loop_over_scenarios(S, K, P, delta):
+    """The scenario axis on CPU tensors equals a loop of the unextended
+    plain version, bitwise, with per-scenario scales; one scenario's
+    weights all zero keeps its base bit for bit; and each scenario is the
+    reference kernel's (interpret mode) within its tolerance."""
+    rng = np.random.default_rng(S * K + P)
+    x = rng.normal(size=(S, K, P)).astype(np.float32)
+    w = rng.random((S, K)).astype(np.float32)
+    w[S // 2] = 0.0
+    base = rng.normal(size=(S, P)).astype(np.float32) if delta else None
+    scale = (rng.random(S) + 0.5).astype(np.float32)
+    bt = None if base is None else torch.as_tensor(base)
+    got = ops.fedagg_op(torch.as_tensor(x), torch.as_tensor(w), bt,
+                        torch.as_tensor(scale))
+    assert got.shape == (S, P)
+    for s in range(S):
+        want = ref.fedagg_ref(torch.as_tensor(x[s]), torch.as_tensor(w[s]),
+                              None if bt is None else bt[s], float(scale[s]))
+        assert torch.equal(got[s], want)
+        if delta:
+            jw = jax_fedagg(jnp.asarray(x[s] - base[s][None]),
+                            jnp.asarray(w[s]), interpret=True)
+            jwant = base[s] + scale[s] * np.asarray(jw)
+        else:
+            jwant = np.asarray(jax_fedagg(jnp.asarray(x[s]),
+                                          jnp.asarray(w[s]), interpret=True))
+        np.testing.assert_allclose(got[s].numpy(), jwant, rtol=2e-5,
+                                   atol=2e-5)
+    if delta:
+        assert torch.equal(got[S // 2], bt[S // 2])
+
+
 def test_cuda_path_never_falls_back_to_plain():
     """A tensor that is not on the CPU goes to the kernel wrapper, which
     raises for anything but a CUDA tensor; the launch counters only move

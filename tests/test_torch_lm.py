@@ -355,8 +355,14 @@ def test_every_arch_resolves():
         cfg, jcfg = get_config(arch), jax_get_config(arch)
         assert asdict(cfg) == asdict(jcfg), arch
         assert asdict(cfg.reduced()) == asdict(jcfg.reduced()), arch
-    with pytest.raises(NotImplementedError, match="femnist_cnn"):
-        get_config("femnist-47k")
+    # The paper's CNN: the reference's config, naming the port's model.
+    from repro_torch.models.femnist_cnn import femnist_cnn_apply, \
+        femnist_cnn_init
+    cnn, jcnn = get_config("femnist-47k"), jax_get_config("femnist-47k")
+    assert {k: v for k, v in cnn.items() if k not in ("init", "apply")} \
+        == {k: v for k, v in jcnn.items() if k not in ("init", "apply")}
+    assert (cnn["init"], cnn["apply"]) == (femnist_cnn_init,
+                                           femnist_cnn_apply)
 
 
 @pytest.mark.parametrize("arch,what", [

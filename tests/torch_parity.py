@@ -22,8 +22,15 @@ import numpy as np
 import torch
 
 from repro.comms.codec import CODEC_RNG_TAG
-from repro.models.femnist_mlp import femnist_mlp_init
+from repro.core.workload import get_workload as jax_get_workload
 from repro_torch.params import params_from_jax
+
+
+# The suite runs in several worker processes at once (pytest-xdist), and
+# each torch CPU op would start a thread per core in each of them: the
+# threads then contend for the same cores and the parity tests run many
+# times slower. One torch thread a worker keeps them apart.
+torch.set_num_threads(1)
 
 
 @functools.partial(jax.jit, static_argnames=("bound", "batch_size"))
@@ -80,8 +87,10 @@ class JaxReplaySampler:
         self.device = torch.device(device)
 
     def init(self, workload) -> torch.Tensor:
+        """The reference's init of the workload of the same name."""
         self.rng, init_rng = jax.random.split(self.rng)
-        tree = jax.device_get(femnist_mlp_init(init_rng))
+        tree = jax.device_get(jax_get_workload(workload.name).init_fn(
+            init_rng))
         return params_from_jax(tree, workload.layout, device=self.device)
 
     def minibatches(self, n_valid, bound: int, batch_size: int):
@@ -97,10 +106,11 @@ class JaxReplaySampler:
         return torch.as_tensor(u, device=self.device)
 
 
-def jax_init_params(seed: int = 0) -> dict:
-    """The reference engine's initial params for `SimConfig(seed=seed)`."""
+def jax_init_params(seed: int = 0, workload: str = "femnist_mlp") -> dict:
+    """The reference engine's initial params for `SimConfig(seed=seed)`
+    on `workload`."""
     _, init_rng = jax.random.split(jax.random.PRNGKey(seed))
-    return jax.device_get(femnist_mlp_init(init_rng))
+    return jax.device_get(jax_get_workload(workload).init_fn(init_rng))
 
 
 EDGE_FIELDS = ("starts", "ends", "rates", "mid_range_m", "range_profile",
