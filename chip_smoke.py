@@ -47,11 +47,15 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              zeroed before and read after each run; each run needs both
              kernels launched, finite params, >= 10 rounds, and each ISL
              run at least one relayed return;
-  path_shapes  prox_sgd and fedagg against their plain versions (same
-             tolerances) at every distinct shape the main, comms, CNN and
-             batched paths launched them with (recorded while those ran:
-             partial-visit and buffered flushes, sparse rounds, per-row
-             mu, grouped anchors, the scenario axis);
+  path_shapes  every kernel against its plain version (same
+             tolerances) at every distinct shape the main, comms, CNN,
+             batched, serving, LM constellation and LM training paths
+             launched it with (recorded while those ran: partial-visit
+             and buffered flushes, sparse rounds, per-row mu, grouped
+             anchors, the scenario axis, the LM layouts' P; for the LM
+             kernels each tensor's shape, strides and offset, so the
+             model's transposed and broadcast views are replayed as
+             they were passed); run after lm_train;
   comms_scale the 1,024-satellite plan of benchmarks/bench_scale.py
              (Walker-Star 32 x 32, cross-plane grid with 2 seam
              candidates, 13 stations, 1 day): access and ISL windows on
@@ -97,6 +101,37 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
   serve_cpu_vs_card  reduced hymba-1.5b and gemma-2b (f32) from the same
              weights on the card and on the CPU, 160-token prompts:
              identical greedy tokens, logits within 1e-4.
+  lm_fl      ConstellationSim.run() for fedavg and fedprox on the LM
+             workloads lm_tiny and lm_hybrid_tiny (c2s2/g1, 2 days, 3
+             rounds), launch counters zeroed before and read after each
+             run: exactly one prox_sgd launch a local step, one fedagg a
+             round, and per attention layer one flash_attention launch a
+             local step and an evaluation and one flash_attention_bwd a
+             local step for the whole client stack (wkv6 / wkv6_bwd
+             likewise for the SSD heads); finite params and accuracy;
+  lm_train_kernels  the two backward kernels against their plain
+             backward (f32 rtol = atol = 2e-5, bf16 rtol 8e-3 + atol
+             1e-3 as the forward; wkv6's dlogw
+             beside the scale of the terms its suffix sum adds) at the LM
+             cell's shapes and at full-width hymba-1.5b (bf16 attention
+             windowed and full causal, the SSD heads' f32 scan), two
+             launches giving the same bits, with device times, bounds
+             and, for flash, the backward of scaled_dot_product_attention
+             as the yardstick; the D = 32 forward (lm_tiny);
+  lm_train   `repro_torch.launch.train.main` on full-width hymba-1.5b
+             (bf16, batch 2 x 2048, 4 AdamW steps at the launcher's lr),
+             launch counters zeroed just before and read just after: 32
+             launches a step of each of flash_attention,
+             flash_attention_bwd, wkv6 and wkv6_bwd, finite losses;
+             s/step, tokens/s, peak device memory; then 4 steps of the
+             same configuration on one fixed batch (one of them under
+             torch.profiler: idle share, time by kernel), whose loss
+             must fall by more than 3x the spread of the initial
+             weights' loss over 4 other batches;
+  lm_cpu_vs_card  lm_tiny fedprox on the card and on the CPU from the
+             same init and draws: RoundRecords identical, params within
+             1e-4; one training step of reduced hymba-1.5b and gemma-2b
+             from the same weights: loss and every gradient within 1e-4.
 
 Each phase prints one JSON line; any failure exits non-zero before the
 last line, which is {"ok": true, "device": {...}}.
@@ -135,8 +170,14 @@ from repro_torch.core import (  # noqa: E402
 )
 from repro_torch.core.timing import HardwareModel  # noqa: E402
 from repro_torch.data import synth_femnist  # noqa: E402
+from repro_torch.data.tokens import synthetic_token_batch  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention,
+    flash_attention_bwd,
+)
+from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd  # noqa: E402
+from repro_torch.launch import serve, train  # noqa: E402
 from repro_torch.core.client import vmapped_client_update  # noqa: E402
 from repro_torch.core.workload import get_workload  # noqa: E402
 from repro_torch.models.femnist_cnn import femnist_cnn_init  # noqa: E402
@@ -144,8 +185,14 @@ from repro_torch.models.femnist_mlp import femnist_mlp_init  # noqa: E402
 from repro_torch.models.lm.params import (  # noqa: E402
     lm_params_from_jax,
     lm_params_to_numpy,
+    map_tree,
+    tree_leaves,
 )
-from repro_torch.models.lm.transformer import init_params  # noqa: E402
+from repro_torch.models.lm.transformer import (  # noqa: E402
+    count_params,
+    init_params,
+)
+from repro_torch.optim.adam import adam_init  # noqa: E402
 from repro_torch.orbits import (  # noqa: E402
     WalkerStar,
     compute_access_windows,
@@ -160,6 +207,7 @@ from repro_torch.sim import (  # noqa: E402
 )
 from repro_torch.sim.batched import _fast_plannable  # noqa: E402
 from repro_torch.sim.engine import client_steps  # noqa: E402
+from repro_torch.train.step import lm_loss, make_train_step  # noqa: E402
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the tensor
@@ -540,20 +588,41 @@ def phase_kernels(dev) -> list[dict]:
     return rows
 
 
-class LaunchShapes:
-    """Records the distinct shapes of the simulator kernels' launches
-    while it is entered, by wrapping the launchers that `ops`' counted
-    wrappers call (the launch counts are untouched), so that
-    `phase_path_shapes` can hold the kernels to their plain versions at
-    exactly the shapes a path gave them: for `fedagg` the scenario axis
-    (0 for none), K, P, dtype and form; for `prox_sgd` C, P, dtype, mu (a
-    float, or the values of a per-row vector) and the anchor (shared, per
-    client, or one row per group of rows)."""
+# The LM kernels' launchers in `ops`, each with its tensor arguments.
+LM_KERNELS = ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd")
 
-    def __init__(self):
+
+def _layout(t) -> tuple | None:
+    """A tensor argument as a launch saw it: shape, strides, storage
+    offset and dtype (None for an absent optional tensor)."""
+    if t is None:
+        return None
+    return (tuple(t.shape), tuple(t.stride()), t.storage_offset(),
+            str(t.dtype).removeprefix("torch."))
+
+
+class LaunchShapes:
+    """Records the distinct shapes of the kernels' launches while it is
+    entered, by wrapping the launchers that `ops`' counted wrappers call
+    (the launch counts are untouched), so that `phase_path_shapes` can
+    hold the kernels to their plain versions at exactly the shapes a path
+    gave them: for `fedagg` the scenario axis (0 for none), K, P, dtype
+    and form; for `prox_sgd` C, P, dtype, mu (a float, or the values of a
+    per-row vector) and the anchor (shared, per client, or one row per
+    group of rows); for the LM kernels every tensor argument's
+    `_layout` and the keyword options. `kernels` names the kernels the
+    path must launch."""
+
+    def __init__(self, *kernels: str):
+        self.kernels = kernels
         self.fedagg: set[tuple] = set()
         self.prox_sgd: set[tuple] = set()
+        self.lm: dict[str, set[tuple]] = {name: set() for name in LM_KERNELS}
         self._mu_rows: dict[tuple, tuple] = {}
+
+    def launched(self, name: str) -> bool:
+        return bool(self.lm[name] if name in self.lm
+                    else getattr(self, name))
 
     def _mu_key(self, mu) -> float | tuple:
         if not isinstance(mu, torch.Tensor):
@@ -563,8 +632,18 @@ class LaunchShapes:
             self._mu_rows[key] = tuple(mu.tolist())
         return self._mu_rows[key]
 
+    def _record_lm(self, name: str, launcher):
+        def record(*args, **kw):
+            self.lm[name].add((tuple(_layout(a) for a in args),
+                               tuple(sorted(kw.items()))))
+            return launcher(*args, **kw)
+        return record
+
     def __enter__(self) -> "LaunchShapes":
         self._launchers = fedagg, prox_sgd = ops.fedagg, ops.prox_sgd
+        self._lm_launchers = {name: getattr(ops, name) for name in LM_KERNELS}
+        for name, launcher in self._lm_launchers.items():
+            setattr(ops, name, self._record_lm(name, launcher))
 
         def record_fedagg(x, w, base, scale):
             self.fedagg.add((x.shape[0] if x.dim() == 3 else 0,
@@ -587,6 +666,8 @@ class LaunchShapes:
 
     def __exit__(self, *exc) -> None:
         ops.fedagg, ops.prox_sgd = self._launchers
+        for name, launcher in self._lm_launchers.items():
+            setattr(ops, name, launcher)
 
 
 def _prox_label(r: dict) -> str:
@@ -596,16 +677,77 @@ def _prox_label(r: dict) -> str:
     return f"C={r['C']} P={r['P']} {r['dtype']} mu={r['mu']} {r['anchor']}"
 
 
+def _strided(layout: tuple, g: torch.Generator, dev,
+             decay: bool = False) -> torch.Tensor:
+    """Random normal values (with `decay`, -0.3 |normal|: a log decay)
+    laid out as `layout` (`_layout`): the same shape, strides (transposed
+    and broadcast views too) and offset."""
+    shape, stride, offset, dtype = layout
+    n = offset + 1 + sum((m - 1) * st for m, st in zip(shape, stride))
+    buf = torch.randn(n, generator=g, device=dev)
+    if decay:
+        buf = -0.3 * buf.abs()
+    return buf.to(getattr(torch, dtype)).as_strided(shape, stride, offset)
+
+
+def _dense_strides(shape: tuple) -> tuple:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
+def check_lm_shape(dev, name: str, layouts: tuple, options: tuple) -> dict:
+    """One LM kernel against its plain version on random inputs laid out
+    exactly as a recorded launch's (`LaunchShapes`), at the tolerances of
+    `lm_kernels` and `lm_train_kernels`; no timing."""
+    g = torch.Generator(device=dev).manual_seed(math.prod(layouts[0][0]))
+    kw = dict(options)
+    # wkv6's fourth argument is logw, a log decay (<= 0).
+    t = [None if lay is None else _strided(
+             lay, g, dev, decay=name.startswith("wkv6") and i == 3)
+         for i, lay in enumerate(layouts)]
+    dtype = layouts[0][3]
+    if name == "flash_attention":
+        got = flash_attention(*t, **kw)
+        want = ref.flash_attention_ref(*t, **kw)
+        errs = [_max_err(got, want, *FLASH_TOL[dtype])]
+    elif name == "flash_attention_bwd":
+        t[3].copy_(ref.flash_attention_ref(*t[:3], **kw))     # o
+        got = flash_attention_bwd(*t, **kw)
+        want = ref.flash_attention_bwd_ref(*t, **kw)
+        errs = [_max_err(a, w, *BWD_TOL[dtype]) for a, w in zip(got, want)]
+    elif name == "wkv6":
+        got = wkv6(*t, **kw)
+        want = ref.wkv6_ref(*t, **kw)
+        errs = [_max_err(a, w, WKV6_TOL) for a, w in zip(got, want)]
+    else:
+        got = wkv6_bwd(*t, **kw)
+        want = ref.wkv6_bwd_ref(*t, **kw)
+        errs, _ = _wkv6_bwd_errs(t[0], t[1], got, want)
+    torch.cuda.synchronize()
+    return dict(name=name, label=_lm_label(name, layouts, options),
+                max_abs_err=max(errs))
+
+
+def _lm_label(name: str, layouts: tuple, options: tuple = ()) -> str:
+    given = [lay for lay in layouts if lay is not None]
+    shapes = ", ".join(dict.fromkeys("x".join(map(str, lay[0]))
+                                     for lay in given))
+    dense = all(lay[1] == _dense_strides(lay[0]) for lay in given)
+    opts = " ".join(f"{k}={v}" for k, v in options)
+    return (f"{name} {shapes} {given[0][3]} {opts}"
+            + ("" if dense else " views"))
+
+
 def phase_path_shapes(dev, shapes: dict[str, LaunchShapes]) -> dict:
-    """`fedagg` and `prox_sgd` against their plain versions at every
-    distinct shape each path launched them with (partial-visit and
-    buffered flushes, sparse rounds, the batched sweep's scenario axis,
-    per-row mu and grouped anchors), on fresh random inputs: no timing,
-    the `kernels` phase times the main-path shapes."""
+    """Every kernel against its plain version at every distinct shape
+    each path launched it with (partial-visit and buffered flushes,
+    sparse rounds, the batched sweep's scenario axis, per-row mu and
+    grouped anchors; the LM kernels at the shapes, strides and options
+    the model passed), on fresh random inputs: no timing, the `kernels`,
+    `lm_kernels` and `lm_train_kernels` phases time their shapes."""
     out = {}
     for path, rec in shapes.items():
-        require(rec.fedagg and rec.prox_sgd,
-                f"{path}: no kernel launch was recorded")
+        missing = [k for k in rec.kernels if not rec.launched(k)]
+        require(not missing, f"{path}: no launch of {missing} was recorded")
         rows = [check_fedagg_batched(dev, S, K, P, delta, None) if S
                 else check_fedagg(dev, K, P, dtype, delta, None)
                 for S, K, P, dtype, delta in sorted(rec.fedagg)]
@@ -618,12 +760,16 @@ def phase_path_shapes(dev, shapes: dict[str, LaunchShapes]) -> dict:
                 rows.append(check_prox_sgd_rows(
                     dev, C, P, group, None,
                     mu=mu if isinstance(mu, tuple) else (mu,) * C))
+        rows += [check_lm_shape(dev, name, layouts, options)
+                 for name in LM_KERNELS
+                 for layouts, options in sorted(rec.lm[name], key=str)]
         out[path] = dict(
             fedagg=[f"{r['form']} " + (f"S={r['S']} " if "S" in r else "")
                     + f"K={r['K']} P={r['P']} {r['dtype']}"
                     for r in rows if r["name"] == "fedagg"],
             prox_sgd=[_prox_label(r) for r in rows
                       if r["name"] == "prox_sgd"],
+            lm=[r["label"] for r in rows if "label" in r],
             max_abs_err=max(r["max_abs_err"] for r in rows))
     emit("path_shapes", **out)
     return out
@@ -762,7 +908,7 @@ def phase_where_time_goes(dev, setup: dict) -> dict:
 
 
 PORT_KERNEL_NAMES = ("prox_sgd_kernel", "fedagg_kernel", "flash_f32_kernel",
-                     "flash_bf16_kernel", "wkv6_")
+                     "flash_bf16_kernel", "flash_bwd_", "wkv6_")
 
 
 def _device_time(prof, wall_s: float) -> dict:
@@ -1751,6 +1897,360 @@ def phase_serve_cpu_vs_card(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ LM training
+# The backward kernels against their plain backward (`ref.*_bwd_ref`, the
+# kernels' own formulas in torch), on the same inputs: f32 rtol = atol =
+# 2e-5; bf16 as the forward (FLASH_TOL): both sides widen the same bf16
+# inputs to f32 and round one f32 result, so they differ by at most one
+# bf16 step, 2**-7 * |want| < 8e-3 * |want| (atol 1e-3 for results near
+# 0). One written exception: wkv6's dlogw is a
+# suffix sum over the whole sequence of q_t - p_t (q = r dr, p = k dk),
+# terms that cancel, so its rounding scales with those terms and not with
+# the result; its atol is 2e-5 of max |r dr| + max |k dk| (at full width
+# on an H100 the gap measured 4.7e-4 against terms of 614, 7.6e-7 of
+# them; PERF.md).
+BWD_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (8e-3, 1e-3)}
+TRAIN_ARCH = "hymba-1.5b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 2048, 4
+# The launcher's default lr (--lr), as the reference's launcher.
+TRAIN_LR = 1e-3
+# The fixed-batch steps must lower the loss by more than this many times
+# the spread of the initial weights' loss over TRAIN_STEPS other batches
+# (how far the loss moves with the batch alone).
+TRAIN_DROP_SPREADS = 3.0
+# The constellation's LM cell: c2s2/g1 (4 clients a round, 32 sequences
+# of 33 tokens each): 128 sequences a kernel launch.
+LM_FL_CLIENTS, LM_FL_BATCH, LM_FL_ROUNDS = 4, 32, 3
+LM_FL_HORIZON_S = 2 * 86400.0
+
+
+def _flash_bwd_inputs(dev, B, H, KV, S, D, dtype):
+    g = torch.Generator(device=dev).manual_seed(B * H * S + D + 1)
+    dt = getattr(torch, dtype)
+    q, do = (torch.randn((B, H, S, D), generator=g, device=dev).to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((B, KV, S, D), generator=g, device=dev).to(dt)
+            for _ in range(2))
+    return q, k, v, do
+
+
+def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
+                    dtype: str, causal: bool = True,
+                    window: int | None = None) -> dict:
+    """flash_attention_bwd against its plain backward; the yardstick is
+    the backward of scaled_dot_product_attention (is_causal, or the
+    window as an explicit mask), its forward run once outside the
+    timing."""
+    q, k, v, do = _flash_bwd_inputs(dev, B, H, KV, S, D, dtype)
+    kw = dict(causal=causal, window=window)
+    o = ref.flash_attention_ref(q, k, v, **kw)
+    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    err = max(_max_err(a, w, *BWD_TOL[dtype]) for a, w in zip(got, want))
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"flash_attention_bwd {case}: two launches differ")
+    pairs = B * H * _flash_pairs(S, causal, window)
+    n_bytes = (4 * B * H * S * D + 4 * B * KV * S * D) * q.element_size()
+    b_ms, b_by = bound_ms(n_bytes, 2.5 * 4 * D * pairs,
+                          BF16_FLOPS_PER_S if dtype == "bfloat16"
+                          else F32_FLOPS_PER_S)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    if window is None:
+        lib_o = sdpa(*leaves, is_causal=causal, enable_gqa=True)
+    else:
+        pos = torch.arange(S, device=dev)
+        lag = pos[:, None] - pos[None, :]
+        mask = (lag < window) & ((lag >= 0) if causal else True)
+        lib_o = sdpa(*leaves, attn_mask=mask, enable_gqa=True)
+    library = lambda: torch.autograd.grad(lib_o, leaves, do,
+                                          retain_graph=True)
+    return dict(
+        name="flash_attention_bwd", case=case, B=B, H=H, KV=KV, S=S, D=D,
+        dtype=dtype, causal=causal, window=window, pairs=pairs,
+        max_abs_err=err, rtol=BWD_TOL[dtype][0], atol=BWD_TOL[dtype][1],
+        deterministic=True,
+        ms=device_ms(lambda: flash_attention_bwd(q, k, v, o, do, **kw)),
+        plain_ms=device_ms(
+            lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)),
+        library_ms=device_ms(library), bound_ms=b_ms, bound_by=b_by)
+
+
+def _wkv6_bwd_errs(r, k, got, want) -> tuple[list[float], float]:
+    """Each output's max error within BWD_TOL; dlogw's atol scales with
+    its terms, max |r dr| + max |k dk|."""
+    rtol, atol = BWD_TOL["float32"]
+    terms = float((r * want[0]).abs().max() + (k * want[1]).abs().max())
+    return [_max_err(a, w, rtol, atol * terms if i == 3 else atol)
+            for i, (a, w) in enumerate(zip(got, want))], terms
+
+
+def check_wkv6_bwd(dev, case: str, B: int, H: int, T: int, K: int,
+                   V: int) -> dict:
+    """wkv6_bwd against its plain backward, inputs in the SSD heads'
+    layout (k broadcast over heads, logw over the state dim, v a
+    transposed view), as the training path passes them."""
+    g = torch.Generator(device=dev).manual_seed(B * H * T + K + 1)
+    rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    r = rnd(B, H, T, K)
+    k = rnd(B, 1, T, K).expand(B, H, T, K)
+    v = rnd(B, T, H, V).transpose(1, 2)
+    lw = -0.3 * rnd(B, H, T, 1).abs().expand(B, H, T, K)
+    s0 = torch.zeros((B, H, K, V), device=dev)
+    do = rnd(B, H, T, V)
+    args = (r, k, v, lw, s0, do)
+    got = wkv6_bwd(*args)
+    want = ref.wkv6_bwd_ref(*args)
+    again = wkv6_bwd(*args)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"wkv6_bwd {case}: two launches differ")
+    errs, terms = _wkv6_bwd_errs(r, k, got, want)
+    # Each input read once (a broadcast input's distinct elements), each
+    # output (dense dr, dk, dv, dlogw, ds0) written once; operations: the
+    # step-by-step recurrences, forward state (3 K V) and backward (dS 3,
+    # dr 2, dk 2, dv 2, dlogw 2 K V).
+    n_in = sum(x.untyped_storage().nbytes() for x in args)
+    n_out = (3 * B * H * T * K + B * H * T * V + B * H * K * V) * 4
+    b_ms, b_by = bound_ms(n_in + n_out, 14 * B * H * T * K * V)
+    return dict(
+        name="wkv6_bwd", case=case, B=B, H=H, T=T, K=K, V=V, chunk=64,
+        ssd_views=True, max_abs_err=max(errs), dlogw_max_abs_err=errs[3],
+        dlogw_terms=terms, tol=BWD_TOL["float32"][0], deterministic=True,
+        ms=device_ms(lambda: wkv6_bwd(*args)),
+        plain_ms=device_ms(lambda: ref.wkv6_bwd_ref(*args)),
+        library_ms=None, bound_ms=b_ms, bound_by=b_by)
+
+
+def phase_lm_train_kernels(dev) -> list[dict]:
+    """Both backward kernels at the training paths' shapes (the LM cell's
+    128 sequences of 33 tokens; full-width hymba-1.5b at 2 x 2048), and
+    the D = 32 forward (lm_tiny) against its plain version."""
+    n = LM_FL_CLIENTS * LM_FL_BATCH
+    rows = [
+        check_flash(dev, "lm_tiny_d32", n, 2, 2, 33, 32, "float32"),
+        check_flash_bwd(dev, "lm_tiny", n, 2, 2, 33, 32, "float32"),
+        check_flash_bwd(dev, "lm_hybrid_tiny", n, 4, 4, 33, 64, "float32",
+                        window=128),
+        check_flash_bwd(dev, "train_swa", TRAIN_BATCH, 25, 5, TRAIN_SEQ, 64,
+                        "bfloat16", window=1024),
+        check_flash_bwd(dev, "train_full", TRAIN_BATCH, 25, 5, TRAIN_SEQ, 64,
+                        "bfloat16"),
+        check_wkv6_bwd(dev, "lm_hybrid_tiny", n, 8, 33, 16, 64),
+        check_wkv6_bwd(dev, "train", TRAIN_BATCH, 50, TRAIN_SEQ, 16, 64)]
+    emit("lm_train_kernels", rows=rows)
+    return rows
+
+
+def _token_batch(cfg, seed: int, dev) -> dict:
+    """A batch of the launcher's data (its Markov chains), on `dev`."""
+    toks = synthetic_token_batch(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
+                                 seed=seed)
+    return {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=dev)}
+
+
+def phase_lm_train(dev) -> dict:
+    """`repro_torch.launch.train.main` on full-width hymba-1.5b (bf16,
+    random weights from a seed) at its default lr, traced, with the
+    launch counters zeroed just before and read just after. Then the same
+    configuration from the same weights on one fixed batch: its initial
+    loss on TRAIN_STEPS other batches (the spread the batch alone gives),
+    TRAIN_STEPS steps (two plain, wall; one under torch.profiler: device
+    busy time, idle share and time by kernel; one plain) and the loss
+    after them, which must fall by more than TRAIN_DROP_SPREADS spreads:
+    the full-width gradient trains the model."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                 # the training path's counts
+    t0 = time.perf_counter()
+    with obs.tracing():
+        done = train.main([
+            "--arch", TRAIN_ARCH, "--full-config", "--device", "cuda",
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--steps", str(TRAIN_STEPS)])
+        summary = obs.metrics_summary()
+    torch.cuda.synchronize()
+    main_wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = get_config(TRAIN_ARCH)
+    want = cfg.n_layers * TRAIN_STEPS
+    require(all(launches[k] == want for k in LM_KERNELS),
+            f"train launched {launches}; expected {want} of each LM kernel "
+            f"({cfg.n_layers} a step)")
+    losses = done["losses"]
+    require(len(losses) == TRAIN_STEPS
+            and all(math.isfinite(x) for x in losses),
+            f"train losses not finite: {losses}")
+    counters = summary["counters"]
+    require(counters.get("launch.train_tokens")
+            == TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ,
+            f"train counters: {counters}")
+    spans = summary["spans"]["launch.train_step"]
+
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    with torch.no_grad():
+        spread_losses = [float(lm_loss(cfg, params, _token_batch(cfg, s,
+                                                                 dev))[0])
+                         for s in range(1, TRAIN_STEPS + 1)]
+    spread = max(spread_losses) - min(spread_losses)
+    opt = adam_init(params)
+    train_step = make_train_step(cfg, lr=TRAIN_LR, remat=False)
+    fixed = _token_batch(cfg, 0, dev)
+    fixed_losses, walls = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        if i == 2:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                params, opt, metrics = train_step(params, opt, fixed)
+                torch.cuda.synchronize()
+            profiled = dict(wall_s=walls[-1], **_device_time(prof,
+                                                             walls[-1]))
+            del prof
+        else:
+            params, opt, metrics = train_step(params, opt, fixed)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        fixed_losses.append(float(metrics["loss"]))
+    with torch.no_grad():
+        fixed_losses.append(float(lm_loss(cfg, params, fixed)[0]))
+    drop = fixed_losses[0] - fixed_losses[-1]
+    require(all(math.isfinite(x) for x in fixed_losses)
+            and drop > TRAIN_DROP_SPREADS * spread,
+            f"fixed-batch losses {fixed_losses} fell by {drop}, not more "
+            f"than {TRAIN_DROP_SPREADS} x the spread {spread} of "
+            f"{spread_losses}")
+    n_params = count_params(params)
+    del params, opt
+    torch.cuda.empty_cache()
+    out = dict(
+        arch=TRAIN_ARCH, dtype=cfg.dtype, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, lr=TRAIN_LR, losses=losses,
+        launches=launches, main_wall_s=main_wall,
+        s_per_step=done["s_per_step"], tokens_per_s=done["tokens_per_s"],
+        step_span_s=dict(count=spans["count"], total_s=spans["total_s"]),
+        peak_device_memory_bytes=peak, params=n_params,
+        initial_loss_by_batch=spread_losses, initial_loss_spread=spread,
+        fixed_batch_losses=fixed_losses, fixed_batch_drop=drop,
+        plain_step_walls_s=walls, profiled_step=profiled)
+    emit("lm_train", **out)
+    return out
+
+
+def phase_lm_fl(dev) -> dict:
+    """ConstellationSim.run() for fedavg and fedprox on lm_tiny and
+    lm_hybrid_tiny (c2s2/g1, 2 days), launch counters zeroed before and
+    read after each run: one prox_sgd launch a local step and one fedagg
+    a round; one flash_attention launch per attention layer per local
+    step and per evaluation for the whole client stack, and one
+    flash_attention_bwd per layer per local step (wkv6 and wkv6_bwd
+    likewise for the hybrid's SSD heads)."""
+    out = {}
+    for name in ("lm_tiny", "lm_hybrid_tiny"):
+        wl = get_workload(name)
+        n_layers = 2                     # both workloads: 2 attention layers
+        for alg in ("fedavg", "fedprox"):
+            sim = ConstellationSim(
+                WalkerStar(2, 2), station_subnetwork(1), ALGORITHMS[alg],
+                cfg=SimConfig(max_rounds=LM_FL_ROUNDS,
+                              horizon_s=LM_FL_HORIZON_S,
+                              batch_size=LM_FL_BATCH),
+                workload=name, device=dev)
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            res = sim.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(ops.LAUNCHES)
+            label = f"{name}/{alg}"
+            expected = _expected_launches([res], [sim])
+            steps, evals = expected["prox_sgd"], len(res.accuracy_curve)
+            want = dict(expected, flash_attention=n_layers * (steps + evals),
+                        flash_attention_bwd=n_layers * steps,
+                        wkv6=0, wkv6_bwd=0)
+            if name == "lm_hybrid_tiny":
+                want.update(wkv6=want["flash_attention"],
+                            wkv6_bwd=want["flash_attention_bwd"])
+            require(res.n_rounds >= 2, f"{label}: {res.n_rounds} rounds")
+            require(launches == want,
+                    f"{label}: launched {launches}, expected {want}")
+            leaves = tree_leaves(res.final_params)
+            require(sum(v.size for v in leaves) == wl.n_params
+                    and all(bool(np.isfinite(v).all()) for v in leaves),
+                    f"{label}: bad final params")
+            accs = [a for *_, a in res.accuracy_curve]
+            require(bool(accs) and all(math.isfinite(a) for a in accs),
+                    f"{label}: accuracy not finite: {accs}")
+            out[label] = dict(rounds=res.n_rounds, wall_s=wall,
+                              n_params=wl.n_params, local_steps=steps,
+                              evals=evals, accuracy=accs, launches=launches)
+    emit("lm_fl", **out)
+    return out
+
+
+def _grads_of(cfg, params, toks):
+    leaves = []
+    map_tree(lambda p: leaves.append(p.requires_grad_(True)), params)
+    loss, _ = lm_loss(cfg, params, {"tokens": toks})
+    grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [g.detach().cpu() for g in grads]
+
+
+def phase_lm_cpu_vs_card(dev) -> dict:
+    """lm_tiny fedprox on the card and on the CPU from the same init and
+    draws (made on the CPU): identical RoundRecords, final params within
+    1e-4; one training step (loss and every gradient leaf) of reduced
+    hymba-1.5b and gemma-2b from the same weights and tokens, within
+    1e-4."""
+    cst, st = WalkerStar(2, 2), station_subnetwork(1)
+    aw = compute_access_windows(cst, st, horizon_s=LM_FL_HORIZON_S,
+                                device="cpu")
+    cfg = SimConfig(max_rounds=LM_FL_ROUNDS, horizon_s=LM_FL_HORIZON_S,
+                    eval_every=1, max_steps=8)
+    runs = {}
+    for where, device, sampler in (
+            ("cpu", "cpu", TorchSampler(0, "cpu")),
+            ("card", dev, _OnDevice(TorchSampler(0, "cpu"), dev))):
+        runs[where] = ConstellationSim(
+            cst, st, ALGORITHMS["fedprox"], cfg=cfg, access=aw,
+            workload="lm_tiny", device=device, sampler=sampler).run()
+    recs = {k: _records(v) for k, v in runs.items()}
+    require(len(recs["card"]) == LM_FL_ROUNDS and recs["card"] == recs["cpu"],
+            "lm_tiny: RoundRecords differ between the card and the CPU")
+    flat = lambda r: np.concatenate([v.reshape(-1) for v in
+                                     tree_leaves(r.final_params)])
+    gap = float(np.abs(flat(runs["card"]) - flat(runs["cpu"])).max())
+    out = {"lm_tiny": dict(
+        algorithm="fedprox", cell="c2s2/g1", records_identical=True,
+        final_params_max_abs_gap=gap, tol=1e-4,
+        accuracy_card=[a for *_, a in runs["card"].accuracy_curve],
+        accuracy_cpu=[a for *_, a in runs["cpu"].accuracy_curve])}
+    require(gap <= 1e-4, f"lm_tiny: final params differ by {gap} > 1e-4")
+    for arch in (TRAIN_ARCH, "gemma-2b"):
+        mcfg = get_config(arch).reduced()
+        cpu_params = init_params(mcfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+        card_params = lm_params_from_jax(lm_params_to_numpy(cpu_params), dev)
+        toks = torch.randint(0, mcfg.vocab_size, (2, 65),
+                             generator=torch.Generator().manual_seed(1))
+        loss_cpu, g_cpu = _grads_of(mcfg, cpu_params, toks)
+        loss_card, g_card = _grads_of(mcfg, card_params, toks.to(dev))
+        grad_gap = max(float((a - b).abs().max())
+                       for a, b in zip(g_card, g_cpu))
+        out[arch] = dict(loss_gap=abs(loss_card - loss_cpu),
+                         grad_max_abs_gap=grad_gap, tol=1e-4)
+        require(abs(loss_card - loss_cpu) <= 1e-4 and grad_gap <= 1e-4,
+                f"{arch}: a train step differs between the card and the "
+                f"CPU: loss {loss_card} vs {loss_cpu}, grads {grad_gap}")
+    emit("lm_cpu_vs_card", **out)
+    return out
+
+
 # ------------------------------------------------------------------ main
 def _pick(rows: list[dict], **match) -> dict:
     for r in rows:
@@ -1777,8 +2277,12 @@ def main() -> int:
     timed("card", phase_card)
     rows = timed("kernels", phase_kernels, dev)
     setup = timed("main_path_setup", main_path_setup, dev)
-    shapes = {name: LaunchShapes() for name in (
+    sim = ("fedagg", "prox_sgd")
+    shapes = {name: LaunchShapes(*sim) for name in (
         "main_path", "comms_path", "cnn_path", "batched_sweep")}
+    shapes.update(serve=LaunchShapes("flash_attention", "wkv6"),
+                  lm_fl=LaunchShapes(*sim, *LM_KERNELS),
+                  lm_train=LaunchShapes(*LM_KERNELS))
     with shapes["main_path"]:
         main_path = timed("main_path", phase_main_path, dev, setup)
     timed("where_time_goes", phase_where_time_goes, dev, setup)
@@ -1789,12 +2293,19 @@ def main() -> int:
         timed("cnn_path", phase_cnn_path, dev, setup)
     with shapes["batched_sweep"]:
         sweep = timed("batched_sweep", phase_batched_sweep, dev)
-    timed("path_shapes", phase_path_shapes, dev, shapes)
+    with shapes["lm_fl"]:
+        lm_fl = timed("lm_fl", phase_lm_fl, dev)
     timed("comms_scale", phase_comms_scale, dev)
     timed("comms_cpu_vs_card", phase_comms_cpu_vs_card, dev)
     lm_rows = timed("lm_kernels", phase_lm_kernels, dev)
-    served = timed("serve", phase_serve, dev)
+    with shapes["serve"]:
+        served = timed("serve", phase_serve, dev)
     timed("serve_cpu_vs_card", phase_serve_cpu_vs_card, dev)
+    train_rows = timed("lm_train_kernels", phase_lm_train_kernels, dev)
+    with shapes["lm_train"]:
+        trained = timed("lm_train", phase_lm_train, dev)
+    timed("path_shapes", phase_path_shapes, dev, shapes)
+    timed("lm_cpu_vs_card", phase_lm_cpu_vs_card, dev)
 
     # Main-path shapes: 10 clients per flush, femnist_mlp, f32.
     fed = _pick(rows, name="fedagg", form="plain", K=10, dtype="float32")
@@ -1804,6 +2315,13 @@ def main() -> int:
     flash = _pick(lm_rows, name="flash_attention", case="serve_swa",
                   dtype="bfloat16")
     wkv = _pick(lm_rows, name="wkv6", case="serve")
+    # Training shapes: full-width hymba-1.5b, bf16 attention (29 of its 32
+    # layers windowed), the SSD heads' f32 scan in their broadcast layout.
+    flash_bwd = _pick(train_rows, name="flash_attention_bwd",
+                      case="train_swa")
+    wkv_bwd = _pick(train_rows, name="wkv6_bwd", case="train")
+    fl_total = {k: sum(run["launches"].get(k, 0) for run in lm_fl.values())
+                for k in ops.LAUNCHES}
     kernels = []
     for row, source, replaces, launches in (
             (prox, "src/repro_torch/csrc/prox_sgd.cu",
@@ -1813,7 +2331,13 @@ def main() -> int:
             (flash, "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:114", served["launches"]),
             (wkv, "src/repro_torch/csrc/wkv6.cu",
-             "src/repro/kernels/wkv6.py:90", served["launches"])):
+             "src/repro/kernels/wkv6.py:90", served["launches"]),
+            # No TPU kernel: the reference trains through jax.grad of
+            # these jnp functions.
+            (flash_bwd, "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/models/lm/attention.py:25", trained["launches"]),
+            (wkv_bwd, "src/repro_torch/csrc/wkv6_bwd.cu",
+             "src/repro/models/lm/scan_core.py:27", trained["launches"])):
         kernels.append(dict(
             name=row["name"], route="cuda", source=source,
             replaces=replaces, launches=launches[row["name"]],
@@ -1821,11 +2345,15 @@ def main() -> int:
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             # The comms path's runs, each counted from 0 (not the main
-            # path's count above), and the batched sweep's femnist_cnn
-            # batch (32 scenarios, counted from 0).
+            # path's count above), the batched sweep's femnist_cnn batch
+            # (32 scenarios, counted from 0), the training path's 4
+            # full-width steps and the LM constellation runs (each
+            # counted from 0).
             comms_path_launches=comms["launches"].get(row["name"], 0),
             batched_sweep_launches=sweep["train"]["femnist_cnn"][
-                "launches"].get(row["name"], 0)))
+                "launches"].get(row["name"], 0),
+            lm_train_launches=trained["launches"].get(row["name"], 0),
+            lm_fl_launches=fl_total.get(row["name"], 0)))
     emit("done", wall_s=time.perf_counter() - t_start, phases_s=phases_s)
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -38,6 +38,9 @@ from repro_torch.core.spaceify import (
 from repro_torch.core.workload import (
     Workload,
     get_workload,
+    lm_workload,
+    make_lm_evaluate,
+    register_workload,
     validate_execution,
     workload_names,
 )
@@ -67,6 +70,9 @@ __all__ = [
     "register_algorithm",
     "Workload",
     "get_workload",
+    "lm_workload",
+    "make_lm_evaluate",
+    "register_workload",
     "validate_execution",
     "workload_names",
 ]

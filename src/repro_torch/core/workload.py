@@ -13,12 +13,16 @@ Port of `repro.core.workload`. A `Workload` carries:
   * a cost model: `model_bytes` and `epoch_mflops` derived from the
     parameter layout, unless pinned.
 
-Two workloads are ported: `femnist_mlp`, the paper's sweep model, whose
-cost numbers are pinned to the paper's section-5 constants (so
-`HardwareModel.for_workload("femnist_mlp") == HardwareModel()`), and
+Ported: `femnist_mlp`, the paper's sweep model, whose cost numbers are
+pinned to the paper's section-5 constants (so
+`HardwareModel.for_workload("femnist_mlp") == HardwareModel()`);
 `femnist_cnn`, the paper's headline 47k-parameter CNN, whose cost is
-derived from its conv/dense dims. The reference's LM workloads come in a
-later slice (ROADMAP).
+derived from its conv/dense dims; and the LM workloads `lm_tiny` and
+`lm_hybrid_tiny` (`lm_workload`: any ported LM config federated over
+token shards). An LM client stack is one (C, P) float32 buffer laid out
+as the config's param tree (`ParamLayout.of_tree`), trained by one
+forward and backward for the whole stack (`client_lm_losses`). Not
+ported: `lm_moe_tiny` and `lm_rwkv6_tiny` (their ROADMAP items).
 """
 from __future__ import annotations
 
@@ -26,8 +30,11 @@ import dataclasses
 import functools
 from typing import Callable
 
+import torch
+
 from repro_torch.core.client import classification_loss, evaluate
 from repro_torch.data.femnist import IMG, synth_femnist
+from repro_torch.data.tokens import federated_token_shards
 from repro_torch.orbits import constants as C
 from repro_torch.params import FEMNIST_CNN, FEMNIST_MLP, ParamLayout
 
@@ -35,10 +42,8 @@ EXECUTION_MODES = ("host", "mesh")
 
 # Reference workloads still to port, with the ROADMAP item that brings each.
 _NOT_PORTED = {
-    "lm_tiny": "ROADMAP LM training slice",
-    "lm_moe_tiny": "ROADMAP LM training slice",
-    "lm_rwkv6_tiny": "ROADMAP LM training slice",
-    "lm_hybrid_tiny": "ROADMAP LM training slice",
+    "lm_moe_tiny": "ROADMAP queue item 5 (MoE and MLA)",
+    "lm_rwkv6_tiny": "ROADMAP queue item 4 (rwkv6 time-mix)",
 }
 
 
@@ -173,11 +178,142 @@ def _femnist_cnn() -> Workload:
     )
 
 
+def make_lm_evaluate(cfg, layout: ParamLayout | None = None) -> Callable:
+    """Weighted next-token accuracy over stacked eval clients.
+
+    x: (K, N, S+1) integer token rows; y is ignored (targets are x
+    shifted); n_valid: (K,) valid-row counts. Mirrors `client.evaluate`'s
+    contract so the engine's padded-eval path works unchanged. `params`
+    is the model's tree, or its flat (P,) buffer when `layout` is given.
+    All K * N rows go through one forward (the reference vmaps over K)."""
+    from repro_torch.models.lm.transformer import forward_train
+
+    @torch.no_grad()
+    def lm_evaluate(params, x, y, n_valid):
+        del y
+        if layout is not None:
+            params = layout.views(params)
+        K, N, S1 = x.shape
+        rows = x.reshape(K * N, S1).long()
+        logits, _ = forward_train(cfg, params, rows)
+        pred = torch.argmax(logits[:, :-1, :], dim=-1)
+        correct = (pred == rows[:, 1:]).float().mean(-1).view(K, N)
+        mask = (torch.arange(N, device=x.device)[None, :]
+                < n_valid[:, None]).float()
+        return (correct * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+    return lm_evaluate
+
+
+def lm_inactive_params(cfg) -> int:
+    """Parameters of an LM ModelConfig that sit in the tree (and on the
+    wire) but that a training token never multiplies (the reference's
+    `lm_inactive_params`): an untied embedding table is a per-token row
+    gather, and a "moe" layer fires only `top_k` of its `n_experts`
+    routed experts per token. Dense "attn" / "rwkv" / "hybrid" layers
+    touch every weight."""
+    inactive = 0
+    if not cfg.tie_embeddings:
+        inactive += cfg.vocab_size * cfg.d_model
+    if cfg.moe is not None:
+        mats = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+        per_expert = mats * cfg.d_model * cfg.moe.d_ff_expert
+        idle = cfg.moe.n_experts - min(cfg.moe.top_k, cfg.moe.n_experts)
+        moe_layers = sum(s.n_layers for s in cfg.resolved_segments
+                         if s.kind == "moe")
+        inactive += moe_layers * idle * per_expert
+    return inactive
+
+
+def lm_layout(cfg) -> ParamLayout:
+    """The flat layout of an LM config's param tree (leaves in
+    `jax.tree.leaves` order, the `"segments"` list by index)."""
+    from repro_torch.models.lm.transformer import init_params
+    return ParamLayout.of_tree(
+        init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+
+
+def lm_workload(cfg, *, name: str | None = None, seq_len: int = 32,
+                samples_per_client: int = 32, eval_samples: int = 8
+                ) -> Workload:
+    """Federate an LM ModelConfig (float32) over token shards.
+
+    The cost model is the reference's: 6 FLOP per activated parameter per
+    token (fwd+bwd), (seq_len + 1) tokens per sample row; the parameter
+    count comes from the real parameter tree and prices the wire. The
+    client stack trains as one (C, P) float32 buffer, so the config's
+    dtype must be float32 (both LM workloads' is)."""
+    from repro_torch.models.lm.transformer import _check_supported, \
+        init_params
+    from repro_torch.train.step import client_lm_losses
+
+    _check_supported(cfg)
+    if cfg.dtype != "float32":
+        raise ValueError(f"lm_workload({cfg.name}): the client stack is one "
+                         f"float32 buffer; config dtype is {cfg.dtype}")
+    layout = lm_layout(cfg)
+
+    def init_fn(generator, device):
+        return layout.pack(init_params(cfg, generator, device))
+
+    def loss_fn(views, xb, yb):
+        del yb                     # targets are xb shifted by one token
+        return client_lm_losses(cfg, views, xb)
+
+    return Workload(
+        name=name or f"lm_{cfg.name}",
+        init_fn=init_fn,
+        loss_fn=loss_fn,
+        eval_fn=make_lm_evaluate(cfg, layout),
+        make_data=functools.partial(
+            federated_token_shards, seq_len=seq_len,
+            samples_per_client=samples_per_client, vocab=cfg.vocab_size,
+            eval_samples=eval_samples),
+        sample_shape=(seq_len + 1,),
+        sample_dtype="int32",
+        layout=layout,
+        train_flops_per_param=6.0 * (seq_len + 1),
+        inactive_params=lm_inactive_params(cfg),
+        samples_per_epoch=samples_per_client,
+        bytes_per_param=4,
+    )
+
+
+def _lm_tiny() -> Workload:
+    from repro_torch.models.lm.config import ModelConfig
+    cfg = ModelConfig(
+        name="tiny", arch_type="dense", n_layers=2, d_model=64,
+        n_heads=2, n_kv_heads=2, d_ff=128, vocab_size=128, head_dim=32,
+        tie_embeddings=True, dtype="float32",
+        source="reduced dense decoder for constellation fine-tuning")
+    return lm_workload(cfg, name="lm_tiny", seq_len=32,
+                       samples_per_client=32, eval_samples=8)
+
+
+def _lm_hybrid_tiny() -> Workload:
+    """Reduced Hymba: 2 hybrid layers (parallel sliding-window attention
+    + SSD heads; the first is a full-attention anchor)."""
+    from repro_torch.configs import get_config
+    return lm_workload(get_config("hymba-1.5b").reduced(),
+                       name="lm_hybrid_tiny", seq_len=32,
+                       samples_per_client=32, eval_samples=8)
+
+
+# Registry entries are built lazily (an LM workload builds its layout
+# from a param tree) and cached after first use.
 _BUILDERS: dict[str, Callable[[], Workload]] = {
     "femnist_mlp": _femnist_mlp,
     "femnist_cnn": _femnist_cnn,
+    "lm_tiny": _lm_tiny,
+    "lm_hybrid_tiny": _lm_hybrid_tiny,
 }
 _CACHE: dict[str, Workload] = {}
+
+
+def register_workload(name: str, builder: Callable[[], Workload]) -> None:
+    """Add a workload to the registry (idempotent per name)."""
+    _BUILDERS[name] = builder
+    _CACHE.pop(name, None)
 
 
 def workload_names() -> list[str]:

@@ -16,7 +16,8 @@
 // kernel, S need not be a multiple of a tile: the tail tile is masked.
 // The denominator is clamped at 1e-30 as on the TPU.
 //
-// Two kernels, one per input type.
+// Two kernels, one per input type. Head dims 64, 128 and 256 take both;
+// 32 (the lm_tiny workload) takes the f32 kernel only.
 //
 // bf16 (`flash_bf16_kernel`): tensor cores. One warpgroup (4 warps, 128
 // threads) owns 64 query rows. Q is staged once in shared memory; K and V
@@ -608,6 +609,10 @@ int launch(const void* q, const void* k, const void* v, void* o,
                     softcap, device, s);
   };
   switch (D) {
+    case 32:  // f32 only: a bf16 tile of 32 columns is no wgmma operand here
+      if constexpr (kBf16) err = cudaErrorInvalidValue;
+      else err = run(launch_f32<32>);
+      break;
     case 64:
       err = kBf16 ? run(launch_bf16<64>) : run(launch_f32<64>);
       break;

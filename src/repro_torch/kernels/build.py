@@ -24,7 +24,8 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("prox_sgd.cu", "fedagg.cu", "flash_attention.cu", "wkv6.cu")
+SOURCES = ("prox_sgd.cu", "fedagg.cu", "flash_attention.cu", "wkv6.cu",
+           "flash_attention_bwd.cu", "wkv6_bwd.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -66,6 +67,18 @@ _SIGNATURES = {
     # states, flags, device, stream
     "wkv6_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
                  _i32, _i32, _i32, _vp, _vp, _i32, _vp],
+    # q, k, v, o, dO, dQ, dK, dV, lse, delta, strides[8][3] (b, h, s), B,
+    # H, KV, S, D, scale, causal, window, softcap, device, stream
+    "flash_attention_bwd_f32": [_vp] * 10 + [_i64p, _i32, _i32, _i32, _i32,
+                                             _i32, _f32, _i32, _i32, _f32,
+                                             _i32, _vp],
+    "flash_attention_bwd_bf16": [_vp] * 10 + [_i64p, _i32, _i32, _i32, _i32,
+                                              _i32, _f32, _i32, _i32, _f32,
+                                              _i32, _vp],
+    # r, k, v, logw, s0, dO, dS_T (or null), dr, dk, dv, dlogw, ds0,
+    # states, strides[7][4], B, H, T, K, V, chunk, device, stream
+    "wkv6_bwd_f32": [_vp] * 13 + [_i64p, _i32, _i32, _i32, _i32, _i32, _i32,
+                                  _i32, _vp],
 }
 
 

@@ -14,6 +14,10 @@ dim must be contiguous), so the model's (B, S, H, D) tensors go in as
 transposed views, and the output keeps q's memory layout
 (`torch.empty_like`). The bf16 kernel loads rows with 16-byte copies, so
 a bf16 input whose rows do not start on 16 bytes is copied first.
+
+`flash_attention_bwd` launches the gradient's kernels
+(`repro_torch/csrc/flash_attention_bwd.cu`): dq, dk, dv from q, k, v, the
+forward's output and its gradient, with the same masks and strides.
 """
 from __future__ import annotations
 
@@ -26,7 +30,13 @@ from repro_torch.kernels.stream import current_stream
 
 _DTYPES = {torch.float32: "flash_attention_f32",
            torch.bfloat16: "flash_attention_bf16"}
-HEAD_DIMS = (64, 128, 256)
+# Head dims per input type: the bf16 kernel's wgmma tiles are 64 columns
+# wide, so D = 32 (lm_tiny) takes the f32 kernel only.
+HEAD_DIMS = {torch.float32: (32, 64, 128, 256),
+             torch.bfloat16: (64, 128, 256)}
+BWD_HEAD_DIMS = (32, 64, 128, 256)
+_BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
+                torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -34,38 +44,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     softcap: float | None = None) -> torch.Tensor:
     """Launch the kernel on CUDA tensors. q: (B, H, S, D); k/v:
     (B, KV, S, D) with H % KV == 0; one dtype, f32 or bf16; D in
-    (64, 128, 256). A (q, k) pair counts if `kpos <= qpos` (causal) and
-    `qpos - kpos < window`. Returns (B, H, S, D) in q's dtype and memory
-    layout."""
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda" or t.device != q.device:
-            raise ValueError(f"flash_attention: {name} must be a CUDA "
-                             f"tensor on {q.device}, got {t.device}")
-        if t.dtype != q.dtype:
-            raise TypeError("flash_attention: q, k and v must share one "
-                            "dtype")
-        if t.dim() != 4 or t.stride(-1) != 1:
-            raise ValueError(f"flash_attention: {name} must be 4-D with a "
-                             "contiguous last axis")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"flash_attention: dtype {q.dtype} not supported "
-                        "(float32 or bfloat16)")
-    B, H, S, D = q.shape
-    KV = k.shape[1]
-    if k.shape != (B, KV, S, D) or v.shape != k.shape:
-        raise ValueError(f"flash_attention: k and v must be ({B}, KV, {S}, "
-                         f"{D}), got {tuple(k.shape)} and {tuple(v.shape)}")
-    if KV == 0 or H % KV:
-        raise ValueError(f"flash_attention: H = {H} is not a multiple of "
-                         f"KV = {KV}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention: window must be >= 1, got "
-                         f"{window}")
-    if softcap is not None and not softcap > 0:
-        raise ValueError(f"flash_attention: softcap must be > 0, got "
-                         f"{softcap}")
+    HEAD_DIMS of that dtype. A (q, k) pair counts if `kpos <= qpos`
+    (causal) and `qpos - kpos < window`. Returns (B, H, S, D) in q's
+    dtype and memory layout."""
+    B, H, S, D, KV = _check(q, k, v, HEAD_DIMS.get(q.dtype, ()),
+                            window, softcap, "flash_attention")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -80,6 +63,74 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    int(window or 0), float(softcap or 0.0), q.device.index,
                    current_stream(q.device.index)), "flash_attention")
     return out
+
+
+def _check(q, k, v, head_dims, window, softcap, what: str):
+    """Raise on inputs the kernels do not take; returns (B, H, S, D, KV)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda" or t.device != q.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
+                             f"{q.device}, got {t.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{what}: q, k and v must share one dtype")
+        if t.dim() != 4 or t.stride(-1) != 1:
+            raise ValueError(f"{what}: {name} must be 4-D with a contiguous "
+                             "last axis")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{what}: dtype {q.dtype} not supported (float32 or "
+                        "bfloat16)")
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    if k.shape != (B, KV, S, D) or v.shape != k.shape:
+        raise ValueError(f"{what}: k and v must be ({B}, KV, {S}, {D}), got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if KV == 0 or H % KV:
+        raise ValueError(f"{what}: H = {H} is not a multiple of KV = {KV}")
+    if D not in head_dims:
+        raise ValueError(f"{what}: head dim {D} not in {head_dims} for "
+                         f"{q.dtype}")
+    if window is not None and window < 1:
+        raise ValueError(f"{what}: window must be >= 1, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"{what}: softcap must be > 0, got {softcap}")
+    return B, H, S, D, KV
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, window: int | None = None,
+                        softcap: float | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch the backward kernels (`csrc/flash_attention_bwd.cu`) on CUDA
+    tensors: q, k, v as for `flash_attention`, o its output and do the
+    gradient of o (both (B, H, S, D), q's dtype). Returns (dq, dk, dv) in
+    the input dtype, each in its input's memory layout. D in
+    BWD_HEAD_DIMS for both dtypes."""
+    B, H, S, D, KV = _check(q, k, v, BWD_HEAD_DIMS, window, softcap,
+                            "flash_attention_bwd")
+    for name, t in (("o", o), ("do", do)):
+        if t.shape != q.shape or t.dtype != q.dtype \
+                or t.device != q.device or t.stride(-1) != 1:
+            raise ValueError(f"flash_attention_bwd: {name} must match q "
+                             f"({tuple(q.shape)}, {q.dtype}, {q.device}) "
+                             "with a contiguous last axis")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    if q.numel() == 0:
+        return dq, dk, dv
+    # Row statistics (log-sum-exp and dO . O), recomputed by the kernel's
+    # pre-pass.
+    lse, delta = (torch.empty((B, H, S), dtype=torch.float32,
+                              device=q.device) for _ in range(2))
+    strides = (ctypes.c_int64 * 24)(*(
+        s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
+    fn = build.entry(_BWD_ENTRIES[q.dtype])
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                   do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                   lse.data_ptr(), delta.data_ptr(), strides, B, H, KV, S, D,
+                   float(D ** -0.5), int(causal), int(window or 0),
+                   float(softcap or 0.0), q.device.index,
+                   current_stream(q.device.index)), "flash_attention_bwd")
+    return dq, dk, dv
 
 
 def _rows_aligned(t: torch.Tensor) -> bool:

@@ -7,6 +7,13 @@ launches (and only those), so a run can show that its main path went
 through the kernels. Port of `repro.kernels.ops`: the simulator's two
 kernels (`fedagg`, `prox_sgd`) and the LM's two (`flash_attention`,
 `wkv6`).
+
+`flash_attention_op` and `wkv6_op` are differentiable
+(`torch.autograd.Function`): their backward is a kernel too
+(`flash_attention_bwd`, `wkv6_bwd`, counted under those names), or on
+the CPU the plain backward of `ref`, the kernel's own formulas written
+out (not autograd of the plain forward). The reference has no backward
+kernel: it differentiates its jnp attention and scan.
 """
 from __future__ import annotations
 
@@ -14,11 +21,15 @@ import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels.fedagg import fedagg
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+)
 from repro_torch.kernels.prox_sgd import prox_sgd
-from repro_torch.kernels.wkv6 import wkv6
+from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 
-LAUNCHES = {"fedagg": 0, "prox_sgd": 0, "flash_attention": 0, "wkv6": 0}
+LAUNCHES = {"fedagg": 0, "prox_sgd": 0, "flash_attention": 0, "wkv6": 0,
+            "flash_attention_bwd": 0, "wkv6_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -57,29 +68,79 @@ def prox_sgd_op(w: torch.Tensor, g: torch.Tensor, w0: torch.Tensor,
     return w
 
 
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        if q.device.type == "cpu":
+            o = ref.flash_attention_ref(q, k, v, causal, window, softcap)
+        else:
+            o = flash_attention(q, k, v, causal=causal, window=window,
+                                softcap=softcap)
+            LAUNCHES["flash_attention"] += 1
+        ctx.save_for_backward(q, k, v, o)
+        ctx.masks = (causal, window, softcap)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, do,
+                                                     *ctx.masks)
+        else:
+            causal, window, softcap = ctx.masks
+            if do.stride(-1) != 1:
+                do = do.contiguous()
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=causal,
+                                             window=window, softcap=softcap)
+            LAUNCHES["flash_attention_bwd"] += 1
+        return dq, dk, dv, None, None, None
+
+
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        *, causal: bool = True, window: int | None = None,
                        softcap: float | None = None) -> torch.Tensor:
     """GQA attention over positions 0..S-1: q (B, H, S, D), k/v
     (B, KV, S, D) -> (B, H, S, D). The kernel's tiles are fixed, so the
-    reference's `bq`/`bk` have no counterpart."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal, window, softcap)
-    out = flash_attention(q, k, v, causal=causal, window=window,
-                          softcap=softcap)
-    LAUNCHES["flash_attention"] += 1
-    return out
+    reference's `bq`/`bk` have no counterpart. Differentiable."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap)
+
+
+class _Wkv6(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, r, k, v, logw, s0, chunk):
+        if r.device.type == "cpu":
+            o, s_final = ref.wkv6_ref(r, k, v, logw, s0, chunk)
+        else:
+            o, s_final = wkv6(r, k, v, logw, s0, chunk=chunk)
+            LAUNCHES["wkv6"] += 1
+        ctx.save_for_backward(r, k, v, logw, s0)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return o, s_final
+
+    @staticmethod
+    def backward(ctx, do, ds_final):
+        r, k, v, logw, s0 = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        if r.device.type == "cpu":
+            grads = ref.wkv6_bwd_ref(r, k, v, logw, s0, do, ds_final,
+                                     ctx.chunk)
+        else:
+            grads = wkv6_bwd(r, k, v, logw, s0, do, ds_final,
+                             chunk=ctx.chunk)
+            LAUNCHES["wkv6_bwd"] += 1
+        return (*grads, None)
 
 
 def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             logw: torch.Tensor, s0: torch.Tensor, *,
             chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
-    """Strict-past chunked decay scan -> (o (B, H, T, V), s_final)."""
-    if r.device.type == "cpu":
-        return ref.wkv6_ref(r, k, v, logw, s0, chunk)
-    out = wkv6(r, k, v, logw, s0, chunk=chunk)
-    LAUNCHES["wkv6"] += 1
-    return out
+    """Strict-past chunked decay scan -> (o (B, H, T, V), s_final).
+    Differentiable in every input (broadcast views too: autograd sums the
+    dense gradients back over their expanded axes)."""
+    return _Wkv6.apply(r, k, v, logw, s0, chunk)
 
 
 __all__ = ["LAUNCHES", "reset_launches", "fedagg_op", "flash_attention_op",

@@ -132,3 +132,123 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = s * torch.exp(total[:, :, 0, :, None]) \
             + torch.einsum("bhik,bhiv->bhkv", kd, vc)
     return torch.cat(outs, dim=2)[:, :, :T], s
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            do: torch.Tensor, causal: bool = True,
+                            window: int | None = None,
+                            softcap: float | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The backward kernel's formulas (`csrc/flash_attention_bwd.cu`), in
+    f32: q (B,H,S,D), k/v (B,KV,S,D), o the forward's output and do its
+    gradient (B,H,S,D) -> (dq, dk, dv) in the input dtypes.
+
+    Row statistics first (the kernel's pre-pass): lse = log sum_k exp(s)
+    over the counted pairs and delta = sum_d do o. Then
+      p  = exp(s - lse) (exactly 0 where masked),
+      dv = sum over the KV head's query heads of p^T do,
+      ds = p (do v^T - delta) softcap'(raw) scale,
+      dq = ds k,  dk = sum over the KV head's query heads of ds^T q,
+    with raw = q.k scale and softcap'(raw) = 1 - tanh(raw / cap)^2."""
+    B, H, S, D = q.shape
+    KV = k.shape[1]
+    rep = H // KV
+    scale = D ** -0.5
+    qf, of, dof = q.float(), o.float(), do.float()
+    kf = k.float().repeat_interleave(rep, dim=1)
+    vf = v.float().repeat_interleave(rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    dscore = torch.full((), scale, device=q.device)
+    if softcap is not None:
+        t = torch.tanh(s / softcap)
+        s = softcap * t
+        dscore = (1.0 - t * t) * scale
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, -1e30)
+    m = s.amax(-1, keepdim=True)
+    lse = m + torch.log(torch.clamp(torch.exp(s - m).sum(-1, keepdim=True),
+                                    min=1e-30))
+    delta = (dof * of).sum(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - lse), 0.0)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
+    ds = p * (dp - delta) * dscore
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf).view(B, KV, rep, S, D).sum(2)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).view(B, KV, rep, S, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 logw: torch.Tensor, s0: torch.Tensor, do: torch.Tensor,
+                 ds_final: torch.Tensor | None = None, chunk: int = 64
+                 ) -> tuple[torch.Tensor, ...]:
+    """The backward kernel's formulas (`csrc/wkv6_bwd.cu`), in f32: the
+    inputs of `wkv6_ref`, do (B,H,T,V) the gradient of o and ds_final
+    (B,H,K,V) that of the end state (None: zero) -> (dr, dk, dv, dlogw,
+    ds0).
+
+    A forward pass recomputes each chunk's start state S (never dividing
+    by the decay). Then, from the last chunk back, with dS the gradient of
+    the chunk's end state, logc / logb the inclusive / exclusive
+    cumulative log decay and e[t,i,k] = exp(min(logb[t,k] - logc[i,k], 0)):
+      A[t,i] = sum_k r[t,k] k[i,k] e[t,i,k],  dA[t,i] = do[t] . v[i]
+               (both for i < t, else 0)
+      dv[i]  = sum_{t>i} A[t,i] do[t] + (k[i] exp(logc[-1] - logc[i]))^T dS
+      dr[t]  = exp(logb[t]) (S do[t]) + sum_{i<t} dA[t,i] k[i] e[t,i]
+      dk[i]  = sum_{t>i} dA[t,i] r[t] e[t,i]
+               + exp(logc[-1] - logc[i]) (dS v[i])
+      dS    <- dS exp(logc[-1]) + sum_t (r[t] exp(logb[t]))^T do[t]
+    and dlogw[s] = sum_{t>=s} (q_t - p_t) - q_s + sum_v dS_T S_T over the
+    whole sequence, with q = r dr and p = k dk."""
+    B, H, T, K = r.shape
+    pad = (-T) % chunk
+    r, k, v, logw, do = (F.pad(x.float(), (0, 0, 0, pad))
+                         for x in (r, k, v, logw, do))
+    n = (T + pad) // chunk
+    seg = lambda x, c: x[:, :, c * chunk:(c + 1) * chunk]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    s = s0.float()
+    starts = []
+    for c in range(n):
+        starts.append(s)
+        kc, vc, logc = seg(k, c), seg(v, c), torch.cumsum(seg(logw, c), 2)
+        total = logc[:, :, -1:, :]
+        s = s * torch.exp(total[:, :, 0, :, None]) + torch.einsum(
+            "bhik,bhiv->bhkv", kc * torch.exp(total - logc), vc)
+    ds = (torch.zeros_like(s) if ds_final is None else ds_final.float())
+    carry = (ds * s).sum(-1)                              # (B, H, K)
+    grads = []
+    for c in reversed(range(n)):
+        rc, kc, vc, wc, gc = (seg(x, c) for x in (r, k, v, logw, do))
+        logc = torch.cumsum(wc, 2)
+        logb = logc - wc
+        total = logc[:, :, -1:, :]
+        e = torch.exp(torch.clamp(logb[:, :, :, None, :]
+                                  - logc[:, :, None, :, :], max=0.0))
+        a = torch.where(tri, (rc[:, :, :, None, :] * kc[:, :, None, :, :]
+                              * e).sum(-1), 0.0)
+        da = torch.where(tri, torch.einsum("bhtv,bhiv->bhti", gc, vc), 0.0)
+        dv = torch.einsum("bhti,bhtv->bhiv", a, gc) + torch.einsum(
+            "bhik,bhkv->bhiv", kc * torch.exp(total - logc), ds)
+        dr = torch.exp(logb) * torch.einsum("bhkv,bhtv->bhtk", starts[c], gc) \
+            + (da[..., None] * kc[:, :, None, :, :] * e).sum(3)
+        dk = (da[..., None] * rc[:, :, :, None, :] * e).sum(2) \
+            + torch.exp(total - logc) * torch.einsum("bhkv,bhiv->bhik", ds, vc)
+        q, p = rc * dr, kc * dk
+        suffix = torch.flip(torch.cumsum(torch.flip(q - p, (2,)), 2), (2,))
+        grads.append((dr, dk, dv, carry[:, :, None, :] + suffix - q))
+        carry = carry + (q - p).sum(2)
+        ds = ds * torch.exp(total[:, :, 0, :, None]) + torch.einsum(
+            "bhtk,bhtv->bhkv", rc * torch.exp(logb), gc)
+    dr, dk, dv, dlogw = (torch.cat(g[::-1], dim=2)[:, :, :T]
+                         for g in zip(*grads))
+    return dr, dk, dv, dlogw, ds

@@ -16,6 +16,12 @@ The kernel takes all four strides of every input, so broadcast views
 (stride 0, as the SSD heads pass k and logw) and transposed views are read
 where they lie. `o` keeps v's memory layout where v is dense
 (`torch.empty_like`).
+
+`wkv6_bwd` launches the gradient's kernel (`repro_torch/csrc/wkv6_bwd.cu`,
+one block per (b, h), the chunk-start states recomputed into a scratch
+buffer allocated here): dr, dk, dv, dlogw and ds0 from the inputs, the
+gradient of o and (optionally) that of the end state. Its outputs are
+dense, whatever the inputs' strides.
 """
 from __future__ import annotations
 
@@ -28,6 +34,15 @@ from repro_torch.kernels.stream import current_stream
 
 # Shared memory a block may use on the H100 (227 KB).
 MAX_SMEM_BYTES = 232_448
+
+
+def bwd_smem_bytes(K: int, V: int, chunk: int) -> int:
+    """Shared memory of one backward block (`wkv6_bwd.cu`): eight (L, K)
+    tiles, two (L, V), two (L, L), two (K, V) states, each row padded by
+    one float, and two (K) vectors."""
+    L = chunk
+    return 4 * (8 * L * (K + 1) + 2 * L * (V + 1) + 2 * L * (L + 1)
+                + 2 * K * (V + 1) + 2 * K)
 
 
 def _round4(n: int) -> int:
@@ -52,23 +67,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the kernel on CUDA f32 tensors. r/k/logw: (B, H, T, K); v:
     (B, H, T, V); s0: (B, H, K, V); logw <= 0. Returns (o (B, H, T, V),
     s_final (B, H, K, V))."""
-    named = (("r", r), ("k", k), ("v", v), ("logw", logw), ("s0", s0))
-    for name, t in named:
-        if t.device.type != "cuda" or t.device != r.device:
-            raise ValueError(f"wkv6: {name} must be a CUDA tensor on "
-                             f"{r.device}, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"wkv6: {name} must be float32, got {t.dtype}")
-        if t.dim() != 4:
-            raise ValueError(f"wkv6: {name} must be 4-D")
-    B, H, T, K = r.shape
-    V = v.shape[-1]
-    if k.shape != r.shape or logw.shape != r.shape \
-            or v.shape != (B, H, T, V) or s0.shape != (B, H, K, V):
-        raise ValueError(
-            f"wkv6: expected r/k/logw (B,H,T,K), v (B,H,T,V), s0 (B,H,K,V); "
-            f"got {tuple(r.shape)}, {tuple(k.shape)}, {tuple(logw.shape)}, "
-            f"{tuple(v.shape)}, {tuple(s0.shape)}")
+    B, H, T, K, V = _check(r, k, v, logw, s0, "wkv6")
     if chunk < 1 or smem_bytes(K, V, chunk) > MAX_SMEM_BYTES:
         raise ValueError(f"wkv6: (K={K}, V={V}, chunk={chunk}) needs "
                          f"{smem_bytes(K, V, chunk)} B of shared memory; "
@@ -93,3 +92,70 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    states.data_ptr(), flags.data_ptr(), r.device.index,
                    current_stream(r.device.index)), "wkv6")
     return o, s_final
+
+
+def _check(r, k, v, logw, s0, what: str, extra=()):
+    """Raise on inputs the kernels do not take; returns (B, H, T, K, V)."""
+    named = (("r", r), ("k", k), ("v", v), ("logw", logw), ("s0", s0),
+             *extra)
+    for name, t in named:
+        if t.device.type != "cuda" or t.device != r.device:
+            raise ValueError(f"{what}: {name} must be a CUDA tensor on "
+                             f"{r.device}, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what}: {name} must be float32, got {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{what}: {name} must be 4-D")
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    if k.shape != r.shape or logw.shape != r.shape \
+            or v.shape != (B, H, T, V) or s0.shape != (B, H, K, V):
+        raise ValueError(
+            f"{what}: expected r/k/logw (B,H,T,K), v (B,H,T,V), s0 "
+            f"(B,H,K,V); got {tuple(r.shape)}, {tuple(k.shape)}, "
+            f"{tuple(logw.shape)}, {tuple(v.shape)}, {tuple(s0.shape)}")
+    return B, H, T, K, V
+
+
+def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, s0: torch.Tensor, do: torch.Tensor,
+             ds_final: torch.Tensor | None = None, *, chunk: int = 64
+             ) -> tuple[torch.Tensor, ...]:
+    """Launch the backward kernel on CUDA f32 tensors: the inputs of
+    `wkv6`, do (B, H, T, V) the gradient of o, ds_final (B, H, K, V) that
+    of the end state or None (zero). Returns dense (dr, dk, dv, dlogw,
+    ds0)."""
+    extra = (("do", do),) + (() if ds_final is None
+                             else (("ds_final", ds_final),))
+    B, H, T, K, V = _check(r, k, v, logw, s0, "wkv6_bwd", extra)
+    if do.shape != v.shape or (ds_final is not None
+                               and ds_final.shape != s0.shape):
+        raise ValueError(f"wkv6_bwd: do must be {tuple(v.shape)} and "
+                         f"ds_final {tuple(s0.shape)}")
+    if chunk < 1 or bwd_smem_bytes(K, V, chunk) > MAX_SMEM_BYTES:
+        raise ValueError(f"wkv6_bwd: (K={K}, V={V}, chunk={chunk}) needs "
+                         f"{bwd_smem_bytes(K, V, chunk)} B of shared "
+                         f"memory; a block has {MAX_SMEM_BYTES}")
+    dev = r.device
+    dr, dk, dlogw = (torch.empty((B, H, T, K), dtype=torch.float32,
+                                 device=dev) for _ in range(3))
+    dv = torch.empty((B, H, T, V), dtype=torch.float32, device=dev)
+    ds0 = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
+    if B * H == 0 or K * V == 0:
+        return dr, dk, dv, dlogw, ds0
+    states = torch.empty((B * H * -(-T // chunk) * K * V,),
+                         dtype=torch.float32, device=dev)
+    # Without an end-state gradient the kernel gets a null pointer, and
+    # s0's strides fill its slot.
+    ds_t = s0 if ds_final is None else ds_final
+    strides = (ctypes.c_int64 * 28)(*(
+        s for t in (r, k, v, logw, s0, do, ds_t) for s in t.stride()))
+    fn = build.entry("wkv6_bwd_f32")
+    build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   logw.data_ptr(), s0.data_ptr(), do.data_ptr(),
+                   None if ds_final is None else ds_final.data_ptr(),
+                   dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                   dlogw.data_ptr(), ds0.data_ptr(), states.data_ptr(),
+                   strides, B, H, T, K, V, chunk, dev.index,
+                   current_stream(dev.index)), "wkv6_bwd")
+    return dr, dk, dv, dlogw, ds0

@@ -11,16 +11,26 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.params import leaves_with_paths
 
 
-def map_tree(fn, tree):
+def map_tree(fn, tree, *rest):
     """`fn` over the leaves of an LM param or cache tree (dicts and the
-    `"segments"` list), keeping its structure."""
+    `"segments"` list), keeping its structure; with more trees of the same
+    structure, `fn` takes their leaves side by side."""
     if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
+        return {k: map_tree(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [map_tree(fn, v) for v in tree]
-    return fn(tree)
+        return [map_tree(fn, v, *(r[i] for r in rest))
+                for i, v in enumerate(tree)]
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves in `jax.tree.leaves` order: dict keys sorted, lists by
+    index."""
+    return [leaf for _, leaf in leaves_with_paths(tree)]
 
 
 def _to_tensor(arr, device) -> torch.Tensor:

@@ -7,6 +7,9 @@ B/C projections (1 group), causal depthwise conv front, gated output with
 RMS-style normalization. The prefill recurrence is `scan_core`'s
 `chunked_decay_scan`, i.e. the `wkv6` kernel, with the per-head decay and
 the shared B projection passed as broadcast views (no copy).
+`ssm_stacked` takes a leading client axis (training runs a client stack
+through it, prefill its G = 1 view), and gradients flow through it (the
+`wkv6` op is differentiable).
 
 `jax.nn.softplus` is exact (`logaddexp(x, 0)`); torch's `softplus` turns
 linear above 20, so `torch.logaddexp` stands in for it.
@@ -61,37 +64,31 @@ def init_ssm(generator: torch.Generator, d_model: int, cfg: SSMConfig,
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                  x_prev: torch.Tensor | None = None):
-    """Depthwise causal conv via shifted adds. x: (B,T,D); w: (K,D).
+    """Depthwise causal conv via shifted adds. x: (..., T, D); w: (..., K,
+    D) and b: (..., D), their leading axes broadcasting against x's
+    (serving: none; training: a client axis shaped to broadcast).
 
-    x_prev: (B, K-1, D) tail from the previous segment (decode), else zeros.
-    Returns (y, new_tail)."""
-    B, T, D = x.shape
+    x_prev: (..., K-1, D) tail from the previous segment (decode), else
+    zeros. Returns (y, new_tail)."""
+    T, D = x.shape[-2:]
     if x_prev is None:
-        x_prev = torch.zeros((B, CONV_K - 1, D), dtype=x.dtype,
+        x_prev = torch.zeros(x.shape[:-2] + (CONV_K - 1, D), dtype=x.dtype,
                              device=x.device)
-    xp = torch.cat([x_prev, x], dim=1)               # (B, T+K-1, D)
-    y = sum(xp[:, i:i + T, :] * w[i] for i in range(CONV_K)) + b
-    return F.silu(y), xp[:, -(CONV_K - 1):, :]
+    xp = torch.cat([x_prev, x], dim=-2)              # (..., T+K-1, D)
+    y = sum(xp[..., i:i + T, :] * w[..., i, :] for i in range(CONV_K)) + b
+    return F.silu(y), xp[..., -(CONV_K - 1):, :]
 
 
-def ssm_forward(p: dict, x: torch.Tensor, cfg: SSMConfig,
-                state=None, conv_tail=None, chunk: int = 64):
-    """x: (B,T,d_model) -> (y (B,T,d_model), (state, conv_tail))."""
-    B, T, d = x.shape
-    d_inner = cfg.expand * d
-    H = d_inner // cfg.head_dim
-    N = cfg.state_dim
+def _ssd(xh: torch.Tensor, dt: torch.Tensor, logw: torch.Tensor,
+         bt: torch.Tensor, ct: torch.Tensor, state: torch.Tensor,
+         chunk: int):
+    """The SSD heads' scan, mapped onto the scan core (`wkv6`).
 
-    xz = x @ p["in_proj"]
-    xs, z = xz.chunk(2, dim=-1)
-    xs, tail = _causal_conv(xs, p["conv_w"], p["conv_b"], conv_tail)
-    xh = xs.reshape(B, T, H, cfg.head_dim)
-
-    dt = _softplus((x @ p["dt_w"] + p["dt_b"]).float())
-    logw = -dt * torch.exp(p["a_log"])                   # (B,T,H) <= 0
-    bt = (x @ p["b_proj"]).float()                       # (B,T,N)
-    ct = (x @ p["c_proj"]).float()
-
+    xh (B, T, H, hd); dt, logw (B, T, H) and bt, ct (B, T, N) in f32;
+    state (B, H, N, hd) f32. Returns (o (B, T, H, hd) f32 without the D
+    skip, s_final)."""
+    B, T, H, _ = xh.shape
+    N = bt.shape[-1]
     # Map onto the scan core: r = C (.) w_t (decay includes current step),
     # k = B_t, v = dt * x_t; diagonal handled explicitly below. k and logw
     # are broadcast views (stride 0 over heads / the state dim).
@@ -99,18 +96,63 @@ def ssm_forward(p: dict, x: torch.Tensor, cfg: SSMConfig,
     k = bt[:, None, :, :].expand(B, H, T, N)
     v = (xh.float() * dt[..., None]).transpose(1, 2)     # (B,H,T,hd)
     lw = logw.transpose(1, 2)[..., None].expand(B, H, T, N)
-    if state is None:
-        state = torch.zeros((B, H, N, cfg.head_dim), dtype=torch.float32,
-                            device=x.device)
-    o, s_final = chunked_decay_scan(r, k, v, lw, state.float(), chunk=chunk)
+    o, s_final = chunked_decay_scan(r, k, v, lw, state, chunk=chunk)
     o = o.transpose(1, 2)                                # (B,T,H,hd)
-    # Diagonal (i == t): (C_t . B_t) dt x_t  + D skip.
+    # Diagonal (i == t): (C_t . B_t) dt x_t.
     diag = torch.einsum("btn,btn->bt", ct, bt)[..., None, None] \
         * v.transpose(1, 2)
-    o = o + diag
-    o = o + p["d_skip"][None, None, :, None] * xh.float()
-    y = o.reshape(B, T, d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), p["out_norm"])
+    return o + diag, s_final
+
+
+def ssm_forward(p: dict, x: torch.Tensor, cfg: SSMConfig,
+                state=None, conv_tail=None, chunk: int = 64):
+    """x: (B,T,d_model) -> (y (B,T,d_model), (state, conv_tail)): one
+    model, the G = 1 view of `ssm_stacked`."""
+    B, T, d = x.shape
+    y, (s_final, tail) = ssm_stacked(
+        {name: w[None] for name, w in p.items()}, x.reshape(1, B * T, d),
+        cfg, T, state, None if conv_tail is None else conv_tail[None], chunk)
+    return y.view(B, T, d), (s_final, tail[0])
+
+
+def ssm_stacked(p: dict, x: torch.Tensor, cfg: SSMConfig, seq_len: int,
+                state=None, conv_tail=None, chunk: int = 64):
+    """The SSD heads over a stack of clients: x (G, B*T, d_model) holds B
+    sequences of T = seq_len rows per client, and every leaf of `p` has a
+    leading (G,) axis. Projections are one batched product per client
+    ((G, B*T, d) @ (G, d, e)); the scan folds the clients into its batch,
+    (G*B, H, T, .): one `wkv6` launch for the whole stack. `state`
+    (G*B, H, N, hd) and `conv_tail` (G, B, K-1, d_inner) default to zeros.
+    Returns (y (G, B*T, d_model), (state in x's dtype, conv_tail))."""
+    G, n, d = x.shape
+    T = seq_len
+    B = n // T
+    d_inner = cfg.expand * d
+    H = d_inner // cfg.head_dim
+    N = cfg.state_dim
+    row = lambda t: t.unsqueeze(-2)                       # (G, e) -> (G, 1, e)
+
+    xz = x @ p["in_proj"]
+    xs, z = xz.chunk(2, dim=-1)
+    xs, tail = _causal_conv(xs.reshape(G, B, T, d_inner),
+                            p["conv_w"][:, None, None],
+                            p["conv_b"][:, None, None], conv_tail)
+    xh = xs.reshape(G * B, T, H, cfg.head_dim)
+    dt = _softplus((x @ p["dt_w"] + row(p["dt_b"])).float())
+    logw = -dt * torch.exp(row(p["a_log"]))              # (G, B*T, H) <= 0
+    bt = (x @ p["b_proj"]).float()
+    ct = (x @ p["c_proj"]).float()
+    fold = lambda t: t.reshape(G * B, T, t.shape[-1])
+    if state is None:
+        state = torch.zeros((G * B, H, N, cfg.head_dim), dtype=torch.float32,
+                            device=x.device)
+    o, s_final = _ssd(xh, fold(dt), fold(logw), fold(bt), fold(ct),
+                      state.float(), chunk)
+    o = o.view(G, B, T, H, cfg.head_dim) \
+        + p["d_skip"][:, None, None, :, None] \
+        * xh.float().view(G, B, T, H, cfg.head_dim)
+    y = o.reshape(G, n, d_inner).to(x.dtype)
+    y = rmsnorm(y * F.silu(z), row(p["out_norm"]))
     return y @ p["out_proj"], (s_final.to(x.dtype), tail)
 
 

@@ -12,9 +12,21 @@ views of its slice.
 
 Entry points:
   init_params(cfg, generator, device)           -> params
+  forward_train(cfg, params, tokens)            -> (logits, aux)
+  forward_train_stacked(cfg, params, tokens)    -> (logits, aux)
   prefill(cfg, params, tokens, max_seq)         -> (logits, cache)
   decode_step(cfg, params, token, cache)        -> (logits, cache)
   init_decode_cache(cfg, params, B, max_seq)    -> (logits, cache)
+
+`forward_train_stacked` is the training forward over a stack of clients
+(every param leaf with a leading (G,) client axis, tokens (G, B, S)): the
+projections are batched products per client, and attention and the SSD
+scan fold the clients into the kernels' batch, so one `flash_attention`
+(and one `wkv6`) launch serves a layer for the whole stack, forward and
+backward. `forward_train` is its single-client case (G = 1, the params
+as views). With `cfg.remat` each layer is recomputed in the backward
+(`torch.utils.checkpoint`), as the reference's `jax.checkpoint` of the
+scanned layer.
 
 The prefill attention is the `flash_attention` kernel and the SSD prefill
 scan the `wkv6` kernel (through `attention.attention_prefill` and
@@ -26,11 +38,12 @@ advanced: the reference returns new arrays instead.
 
 Not ported yet, each raising NotImplementedError: the `moe` and `rwkv`
 segment kinds, MLA attention, the encoder (enc-dec) and prefix
-embeddings (VLM), `forward_train`.
+embeddings (VLM).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models.lm.attention import (
@@ -47,7 +60,13 @@ from repro_torch.models.lm.layers import (
     rmsnorm,
 )
 from repro_torch.models.lm.params import map_tree
-from repro_torch.models.lm.ssm import CONV_K, init_ssm, ssm_forward, ssm_step
+from repro_torch.models.lm.ssm import (
+    CONV_K,
+    init_ssm,
+    ssm_forward,
+    ssm_stacked,
+    ssm_step,
+)
 
 _ROADMAP = {
     "moe": "MoE and MLA",
@@ -55,7 +74,6 @@ _ROADMAP = {
     "rwkv": "rwkv6 time-mix",
     "encoder": "Encoder and prefix embeddings",
     "prefix": "Encoder and prefix embeddings",
-    "train": "LM training with backward",
 }
 
 
@@ -318,6 +336,83 @@ def init_decode_cache(cfg: ModelConfig, params, B: int, max_seq: int,
                    enc_embeds=enc_embeds)
 
 
+# ======================================================================= #
+# Training forward (a leading client axis)
+# ======================================================================= #
+def _row(w: torch.Tensor) -> torch.Tensor:
+    """A (G, e) per-client vector, shaped to broadcast against (G, N, e)."""
+    return w.unsqueeze(-2)
+
+
+def _gqa_train(p, x, cfg: ModelConfig, positions, window, seq_len: int):
+    """GQA over a client stack: x (G, B*S, d), p's leaves (G, ...).
+    Clients fold into the kernel's batch: (G*B, H, S, D)."""
+    G, n, _ = x.shape
+    GB, hd = G * (n // seq_len), cfg.resolved_head_dim
+    q = x @ p["wq"]
+    k = x @ p["wk"]
+    v = x @ p["wv"]
+    if "bq" in p:
+        q, k, v = q + _row(p["bq"]), k + _row(p["bk"]), v + _row(p["bv"])
+    q = q.reshape(GB, seq_len, cfg.n_heads, hd)
+    k = k.reshape(GB, seq_len, cfg.n_kv_heads, hd)
+    v = v.reshape(GB, seq_len, cfg.n_kv_heads, hd)
+    if cfg.rope_theta:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    o = attention_prefill(q, k, v, window=window,
+                          softcap=cfg.attn_logit_softcap, causal=True)
+    return o.reshape(G, n, -1) @ p["wo"]
+
+
+def _apply_layer_train(cfg: ModelConfig, seg: Segment, lp: dict, x,
+                       positions, seq_len: int):
+    """One layer of the training forward (the reference's
+    `_apply_layer_train`) on x (G, B*S, d)."""
+    window = _seg_window(cfg, seg)
+    h = rmsnorm(x, _row(lp["norm1"]), cfg.norm_eps)
+    o = _gqa_train(lp["attn"], h, cfg, positions, window, seq_len)
+    if seg.kind == "hybrid":
+        s, _ = ssm_stacked(lp["ssm"], h, cfg.ssm, seq_len)
+        gate = lambda g: torch.exp(g)[:, None, None]
+        o = gate(lp["gate_attn"]) * o + gate(lp["gate_ssm"]) * s
+    x = x + o
+    h2 = rmsnorm(x, _row(lp["norm2"]), cfg.norm_eps)
+    return x + apply_mlp(lp["mlp"], h2, cfg.mlp)
+
+
+def forward_train_stacked(cfg: ModelConfig, params, tokens: torch.Tensor):
+    """Full-sequence forward of G clients at once: every leaf of `params`
+    has a leading (G,) axis, tokens (G, B, S) integer. Returns (logits
+    (G, B, S, V), {"moe_aux": 0-d zero})."""
+    _check_supported(cfg)
+    G, B, S = tokens.shape
+    embed = params["embed"]
+    clients = torch.arange(G, device=tokens.device)[:, None, None]
+    x = embed[clients, tokens].reshape(G, B * S, -1)
+    positions = torch.arange(S, device=tokens.device)
+    for seg, sp in zip(cfg.resolved_segments, params["segments"]):
+        for i in range(seg.n_layers):
+            lp = map_tree(lambda t: t[:, i], sp)
+            if cfg.remat:
+                x = checkpoint(_apply_layer_train, cfg, seg, lp, x,
+                               positions, S, use_reentrant=False)
+            else:
+                x = _apply_layer_train(cfg, seg, lp, x, positions, S)
+    h = rmsnorm(x, _row(params["final_norm"]), cfg.norm_eps)
+    logits = h @ (embed.transpose(-1, -2) if cfg.tie_embeddings
+                  else params["lm_head"])
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32,
+                                  device=tokens.device)}
+    return logits.reshape(G, B, S, -1), aux
+
+
 def forward_train(cfg: ModelConfig, params, tokens, prefix_embeds=None,
                   enc_embeds=None):
-    raise _not_ported("forward_train", "train")
+    """Full-sequence forward of one model. tokens (B, S) integer. Returns
+    (logits (B, S, V), {"moe_aux": 0-d zero}), as the reference (whose
+    `moe_aux` is the MoE layers' loss; the ported kinds have none)."""
+    _check_inputs(cfg, prefix_embeds, enc_embeds)
+    logits, aux = forward_train_stacked(
+        cfg, map_tree(lambda t: t.unsqueeze(0), params), tokens[None])
+    return logits[0], aux

@@ -5,8 +5,11 @@ them in one contiguous `(P,)` buffer — or `(C, P)` for a stack of clients —
 so a kernel sees a whole model (or a whole round's client stack) as one
 array: one `prox_sgd` launch per local step and one `fedagg` launch per
 aggregation, with no concatenation copy. Named per-leaf views are laid out
-in `jax.tree.leaves` order (sorted dict keys), which is also the order the
-reference's kernel wrappers flatten in.
+in `jax.tree.leaves` order (sorted dict keys, lists by index), which is
+also the order the reference's kernel wrappers flatten in. A list in the
+tree (the LM's `"segments"`) has its index as a path part ("segments/0/
+attn/wq"); `views` turns those parts back into a list, ordered by index
+as a number, never as a string (so "10" comes after "2").
 
 `params_from_jax` / `params_to_numpy` carry weights across the two
 packages as nested dicts of numpy arrays with the reference's leaf names
@@ -37,9 +40,27 @@ class ParamLayout:
     def size(self) -> int:
         return sum(self.sizes)
 
+    @classmethod
+    def of_tree(cls, tree) -> "ParamLayout":
+        """The layout of a tree of arrays or tensors (dicts and lists),
+        leaves in `jax.tree.leaves` order."""
+        return cls(tuple((path, tuple(leaf.shape))
+                         for path, leaf in leaves_with_paths(tree)))
+
+    def pack(self, tree) -> torch.Tensor:
+        """Flatten a tree of tensors (with an optional shared leading
+        client axis) into one contiguous float32 buffer on their device."""
+        parts = []
+        for path, shape in self.leaves:
+            leaf = _lookup(tree, path)
+            lead = leaf.shape[:leaf.dim() - len(shape)]
+            parts.append(leaf.float().reshape(lead + (-1,)))
+        return torch.cat(parts, dim=-1).contiguous()
+
     def views(self, flat: torch.Tensor) -> dict:
-        """Nested dict of views into `flat` ((P,) or (C, P)); each view
-        keeps any leading client axis. No copy: writes go to `flat`."""
+        """Nested dict (with lists where the tree had them) of views into
+        `flat` ((P,) or (C, P)); each view keeps any leading client axis.
+        No copy: writes go to `flat`."""
         if flat.shape[-1] != self.size:
             raise ValueError(f"flat params have {flat.shape[-1]} entries, "
                              f"layout expects {self.size}")
@@ -51,7 +72,7 @@ class ParamLayout:
             for p in parents:
                 node = node.setdefault(p, {})
             node[name] = piece.unflatten(-1, shape)
-        return out
+        return _listify(out)
 
     def from_tree(self, tree: dict, device=None) -> torch.Tensor:
         """Flatten a nested dict of arrays (optionally with a shared
@@ -60,10 +81,7 @@ class ParamLayout:
         device = resolve_device(device)
         parts = []
         for path, shape in self.leaves:
-            node = tree
-            for p in path.split("/"):
-                node = node[p]
-            arr = np.asarray(node, dtype=np.float32)
+            arr = np.asarray(_lookup(tree, path), dtype=np.float32)
             lead = arr.shape[:arr.ndim - len(shape)]
             if arr.shape[arr.ndim - len(shape):] != tuple(shape):
                 raise ValueError(f"leaf {path}: shape {arr.shape} does not "
@@ -79,9 +97,43 @@ class ParamLayout:
         return _map_tree(lambda v: v.numpy().copy(), views)
 
 
-def _map_tree(fn, tree: dict) -> dict:
-    return {k: _map_tree(fn, v) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_map_tree(fn, v) for v in tree]
+    return fn(tree)
+
+
+def leaves_with_paths(tree, prefix: str = ""):
+    """(path, leaf) in `jax.tree.leaves` order: dict keys sorted, lists by
+    index."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves_with_paths(tree[k], f"{prefix}{k}/")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from leaves_with_paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _lookup(tree, path: str):
+    for part in path.split("/"):
+        tree = tree[int(part)] if isinstance(tree, (list, tuple)) \
+            else tree[part]
+    return tree
+
+
+def _listify(tree):
+    """Dicts whose keys are all list indices ("0", "1", ...) become lists
+    in index order."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: _listify(v) for k, v in tree.items()}
+    if out and all(k.isdigit() for k in out):
+        return [out[k] for k in sorted(out, key=int)]
+    return out
 
 
 # 784 -> 56 -> 47 MLP (`repro.models.femnist_mlp`): P = 46,639.

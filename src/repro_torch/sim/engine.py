@@ -25,9 +25,10 @@ the two (`repro_torch.comms.codec`). Random draws (initial params,
 minibatch indices, the codec's stochastic-rounding uniforms) come from a
 `sampler`; the default `TorchSampler` holds one `torch.Generator`.
 
-The workloads are `femnist_mlp` and `femnist_cnn`. Not ported yet (each
-raises NotImplementedError naming its ROADMAP item): `execution="mesh"`
-(multi-device slice) and the LM workloads.
+The workloads are `femnist_mlp`, `femnist_cnn`, `lm_tiny` and
+`lm_hybrid_tiny`. Not ported yet (each raises NotImplementedError naming
+its ROADMAP item): `execution="mesh"` (multi-device slice), `lm_moe_tiny`
+and `lm_rwkv6_tiny`.
 """
 from __future__ import annotations
 
@@ -261,10 +262,15 @@ class ConstellationSim:
                     f"{constellation.n_sats} satellites")
             # The dataset lives on the device once; rounds gather their
             # clients by index there.
+            # Token shards (int32, as the reference stores them) are
+            # indices, which torch takes as int64.
             dev = self.device
-            self._x = torch.as_tensor(self.data.x, device=dev)
+            as_x = lambda a: (torch.as_tensor(a, device=dev).long()
+                              if np.issubdtype(a.dtype, np.integer)
+                              else torch.as_tensor(a, device=dev))
+            self._x = as_x(self.data.x)
             self._y = torch.as_tensor(self.data.y, device=dev).long()
-            self._x_eval = torch.as_tensor(self.data.x_eval, device=dev)
+            self._x_eval = as_x(self.data.x_eval)
             self._y_eval = torch.as_tensor(self.data.y_eval,
                                            device=dev).long()
 

@@ -1,20 +1,115 @@
-"""Prefill and serve steps for the LM architectures.
+"""Training / prefill / serve steps for the LM architectures.
 
-Port of `repro.train.step`'s two serving-step factories; the training step
-(`make_train_step`, the loss, the optimizer) waits for the training
-slice (ROADMAP queue item 'LM training with backward'). The reference
-jits the returned functions; here they run eagerly.
+Port of `repro.train.step`. `make_train_step(cfg)` builds the training
+step (AdamW on `lm_loss`); the same loss, over a stack of clients
+(`client_lm_losses`), is the LM workloads' client loss in the
+constellation (`repro_torch.core.workload.lm_workload`). The reference
+jits the returned functions; here they run eagerly, and gradients come
+from autograd through the port's kernels (`flash_attention` and `wkv6`
+have backward kernels).
+
+Decode shapes run `serve_step` — one token against a KV cache — and
+prefill shapes run `prefill_step`.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any
 
 import torch
 
 from repro_torch.models.lm.config import ModelConfig
-from repro_torch.models.lm.transformer import decode_step, prefill
+from repro_torch.models.lm.params import map_tree
+from repro_torch.models.lm.transformer import (
+    decode_step,
+    forward_train,
+    forward_train_stacked,
+    prefill,
+)
+from repro_torch.optim.adam import adam_init, adam_update
 
 Batch = dict[str, Any]
+
+
+def _ce_tokens(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token cross-entropy in f32, as the reference's `_ce` computes
+    it: the max (without gradient) taken out, log-sum-exp minus the
+    label's shifted logit (a gather, where the reference multiplies by a
+    one-hot to keep a vocab-sharded axis elementwise)."""
+    l32 = logits.float()
+    shifted = l32 - l32.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(shifted).sum(-1))
+    picked = shifted.gather(-1, labels[..., None].long())[..., 0]
+    return lse - picked
+
+
+def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy (the reference's `_ce`)."""
+    return _ce_tokens(logits, labels).mean()
+
+
+def lm_loss(cfg: ModelConfig, params, batch: Batch):
+    """Next-token CE (+ the MoE aux term, zero for the ported kinds).
+
+    batch: {"tokens": (B, S) integer}. Returns (loss, metrics) with the
+    reference's metric names ("ce", "moe_aux", "loss")."""
+    tokens = batch["tokens"]
+    logits, aux = forward_train(cfg, params, tokens,
+                                prefix_embeds=batch.get("prefix_embeds"),
+                                enc_embeds=batch.get("enc_embeds"))
+    loss = _ce(logits[:, :-1], tokens[:, 1:])
+    metrics = {"ce": loss}
+    loss = loss + aux["moe_aux"]
+    metrics["moe_aux"] = aux["moe_aux"]
+    metrics["loss"] = loss
+    return loss, metrics
+
+
+def client_lm_losses(cfg: ModelConfig, params, tokens: torch.Tensor
+                     ) -> torch.Tensor:
+    """`lm_loss` of each client of a stack at once: params' leaves (C,
+    ...), tokens (C, B, S) -> (C,) losses (one forward for the stack)."""
+    logits, aux = forward_train_stacked(cfg, params, tokens)
+    ce = _ce_tokens(logits[:, :, :-1], tokens[:, :, 1:]).mean((1, 2))
+    return ce + aux["moe_aux"]
+
+
+def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
+                    weight_decay: float = 0.0, remat: bool = True,
+                    replicate_weights: bool = False):
+    """Returns train_step(params, opt_state, batch) -> (params, opt,
+    metrics).
+
+    `remat` recomputes each layer in the backward (`torch.utils.
+    checkpoint`), the reference's per-layer `jax.checkpoint`.
+    `replicate_weights` is the reference's sharding hint (gather the
+    weights once per step on a mesh); on one device there is nothing to
+    gather, so it is accepted and changes nothing. Params and the
+    optimizer state are updated in place (`adam_update`) and returned.
+    """
+    del replicate_weights                # a no-op on one device
+    if remat:
+        cfg = dataclasses.replace(cfg, remat=True)
+
+    def train_step(params, opt_state, batch: Batch):
+        leaves: list[torch.Tensor] = []
+        map_tree(lambda p: leaves.append(p.requires_grad_(True)), params)
+        try:
+            loss, metrics = lm_loss(cfg, params, batch)
+            grads = iter(torch.autograd.grad(loss, leaves))
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        grads = map_tree(lambda _: next(grads), params)
+        params, opt_state = adam_update(params, grads, opt_state, lr=lr,
+                                        weight_decay=weight_decay)
+        return params, opt_state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
+
+
+def make_optimizer_state(params):
+    return adam_init(params)
 
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int):

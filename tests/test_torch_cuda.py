@@ -668,3 +668,158 @@ def test_reduced_lm_card_matches_cpu(dev, arch):
     assert out["card"][2]["wkv6"] == (cfg.n_layers if arch == "hymba-1.5b"
                                       else 0)
 
+
+
+# ------------------------------------------- LM training: backward kernels
+# The backward kernels against their plain backward (`ref.*_bwd_ref`, the
+# kernels' formulas in torch) on the same card inputs: f32 within 2e-5,
+# bf16 as the forward (FLASH_TOL: both sides round one f32 result, one
+# bf16 step apart at most). dlogw, a suffix sum over the whole sequence of
+# terms that cancel, is held to 2e-5 of the terms' scale (max |r dr| +
+# max |k dk|) besides its relative part.
+BWD_TOL = {torch.float32: (2e-5, 2e-5),
+           torch.bfloat16: FLASH_TOL[torch.bfloat16]}
+BWD_FLASH_CASES = [
+    # b, h, kv, s, d, dtype, causal, window, softcap
+    (64, 2, 2, 33, 32, torch.float32, True, None, None),    # lm_tiny
+    (64, 4, 4, 33, 64, torch.float32, True, 128, None),     # lm_hybrid_tiny
+    (2, 4, 2, 100, 64, torch.float32, True, 16, None),
+    (1, 2, 2, 70, 32, torch.float32, False, None, 30.0),
+    (1, 4, 1, 64, 128, torch.float32, True, None, None),
+    (1, 2, 1, 40, 256, torch.float32, True, None, 5.0),
+    (2, 25, 5, 2048, 64, torch.bfloat16, True, 1024, None),  # hymba-1.5b
+    (2, 25, 5, 2048, 64, torch.bfloat16, True, None, None),
+]
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dtype,causal,window,softcap",
+                         BWD_FLASH_CASES)
+def test_flash_attention_bwd_kernel_matches_plain(dev, b, h, kv, s, d, dtype,
+                                                  causal, window, softcap):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v = _flash_inputs(dev, b, h, kv, s, d, dtype)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o = ref.flash_attention_ref(q, k, v, **kw)
+    do = torch.randn(o.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(s), device=dev).to(dtype)
+    got = flash_attention_bwd(q, k, v, o, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    for a, b_, w in zip(got, again, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert torch.equal(a, b_)         # no atomics: the same bits
+        _close(a, w, *BWD_TOL[dtype])
+
+
+def test_flash_attention_op_backward_launches_the_kernel(dev):
+    """The op's backward on CUDA tensors is one `flash_attention_bwd`
+    launch, on the model's transposed (B, S, H, D) views."""
+    q, k, v = (t.transpose(1, 2).contiguous().transpose(1, 2)
+               .requires_grad_(True)
+               for t in _flash_inputs(dev, 4, 2, 2, 33, 32, torch.float32))
+    before = dict(ops.LAUNCHES)
+    o = ops.flash_attention_op(q, k, v)
+    g = torch.randn_like(o)
+    got = torch.autograd.grad(o, (q, k, v), g)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       o.detach(), g)
+    for a, w in zip(got, want):
+        _close(a, w, TOL[torch.float32])
+
+
+def test_flash_attention_head_dim_32(dev):
+    """D = 32 (lm_tiny) runs the f32 kernel; bf16 refuses it by name."""
+    q, k, v = _flash_inputs(dev, 64, 2, 2, 33, 32, torch.float32)
+    got = ops.flash_attention_op(q, k, v)
+    _close(got, ref.flash_attention_ref(q, k, v), *FLASH_TOL[torch.float32])
+    with pytest.raises(ValueError, match="head dim 32"):
+        ops.flash_attention_op(*(t.bfloat16() for t in (q, k, v)))
+
+
+BWD_WKV6_CASES = [
+    # b, h, t, k, v, decay, SSD views, end-state gradient
+    (128, 8, 33, 16, 64, "ssd", True, False),      # lm_hybrid_tiny
+    (2, 50, 2048, 16, 64, "ssd", True, False),     # hymba-1.5b
+    (2, 3, 100, 16, 64, "strong", False, True),
+    (1, 2, 200, 32, 32, "mixed", False, True),
+]
+
+
+@pytest.mark.parametrize("b,h,t,k,v,decay,views,end_grad", BWD_WKV6_CASES)
+def test_wkv6_bwd_kernel_matches_plain(dev, b, h, t, k, v, decay, views,
+                                       end_grad):
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+    g = torch.Generator(device=dev).manual_seed(b * t + k)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    r = rnd(b, h, t, k)
+    if views:
+        kk = rnd(b, 1, t, k).expand(b, h, t, k)
+        vv = rnd(b, t, h, v).transpose(1, 2)
+        lw = -0.3 * rnd(b, h, t, 1).abs().expand(b, h, t, k)
+    else:
+        kk, vv = rnd(b, h, t, k), rnd(b, h, t, v)
+        lw = torch.full((b, h, t, k), -5.0, device=dev) \
+            if decay == "strong" else -0.3 * rnd(b, h, t, k).abs()
+    s0, do = rnd(b, h, k, v), rnd(b, h, t, v)
+    ds = rnd(b, h, k, v) if end_grad else None
+    got = wkv6_bwd(r, kk, vv, lw, s0, do, ds)
+    again = wkv6_bwd(r, kk, vv, lw, s0, do, ds)
+    want = ref.wkv6_bwd_ref(r, kk, vv, lw, s0, do, ds)
+    torch.cuda.synchronize()
+    terms = float((r * want[0]).abs().max() + (kk * want[1]).abs().max())
+    for i, (a, b_, w) in enumerate(zip(got, again, want)):
+        assert a.shape == w.shape and torch.equal(a, b_)
+        _close(a, w, 2e-5, 2e-5 * terms if i == 3 else 2e-5)
+
+
+def test_wkv6_op_backward_launches_the_kernel(dev):
+    """Through the SSD heads' broadcast views: one `wkv6_bwd` launch, and
+    autograd sums its dense gradients back over the expanded axes."""
+    b, h, t, k, v = 4, 8, 33, 16, 64
+    gen = torch.Generator(device=dev).manual_seed(3)
+    r = torch.randn((b, h, t, k), generator=gen, device=dev)
+    kb = torch.randn((b, 1, t, k), generator=gen, device=dev)
+    vv = torch.randn((b, t, h, v), generator=gen, device=dev)
+    lwb = -0.3 * torch.randn((b, h, t, 1), generator=gen, device=dev).abs()
+    leaves = [x.requires_grad_(True) for x in (r, kb, vv, lwb)]
+    s0 = torch.zeros((b, h, k, v), device=dev)
+    before = ops.LAUNCHES["wkv6_bwd"]
+    o, _ = ops.wkv6_op(leaves[0], leaves[1].expand(b, h, t, k),
+                       leaves[2].transpose(1, 2),
+                       leaves[3].expand(b, h, t, k), s0)
+    got = torch.autograd.grad(o, leaves, torch.ones_like(o))
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["wkv6_bwd"] == before + 1
+    dense = ref.wkv6_bwd_ref(r.detach(), kb.detach().expand(b, h, t, k),
+                             vv.detach().transpose(1, 2),
+                             lwb.detach().expand(b, h, t, k), s0,
+                             torch.ones((b, h, t, v), device=dev))
+    want = (dense[0], dense[1].sum(1, keepdim=True),
+            dense[2].transpose(1, 2), dense[3].sum(-1, keepdim=True))
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        _close(a, w, 2e-5, 2e-5 * max(1.0, float(w.abs().max())))
+
+
+@pytest.mark.parametrize("workload", ["lm_tiny", "lm_hybrid_tiny"])
+def test_lm_workload_trains_on_the_card(dev, workload):
+    """fedprox on c2s2/g1: one prox_sgd launch a local step, and one
+    flash_attention (and wkv6) launch and backward a layer a local step
+    for the whole client stack."""
+    ops.reset_launches()
+    res = ConstellationSim(
+        WalkerStar(2, 2), station_subnetwork(1), ALGORITHMS["fedprox"],
+        cfg=SimConfig(max_rounds=2, horizon_s=2 * 86400.0, max_steps=4),
+        workload=workload, device=dev).run()
+    torch.cuda.synchronize()
+    steps = ops.LAUNCHES["prox_sgd"]
+    assert res.n_rounds == 2 and steps > 0
+    assert ops.LAUNCHES["flash_attention_bwd"] == 2 * steps
+    if workload == "lm_hybrid_tiny":
+        assert ops.LAUNCHES["wkv6_bwd"] == 2 * steps
+    assert all(math.isfinite(a) for *_, a in res.accuracy_curve)

@@ -86,7 +86,8 @@ def test_femnist_mlp_init_defaults_to_cuda(monkeypatch):
 
 def test_lm_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.configs import get_config
-    from repro_torch.launch import serve
+    from repro_torch.core import get_workload
+    from repro_torch.launch import serve, train
     from repro_torch.models.lm.attention import cache_positions
     from repro_torch.models.lm.layers import dense_init, init_mlp, rope_freqs
     from repro_torch.models.lm.params import lm_params_from_jax
@@ -104,7 +105,10 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
                  lambda: cache_positions(3, 4, 2),
                  lambda: lm_params_from_jax({}),
                  lambda: params_from_jax({}),
-                 lambda: serve.main(["--arch", "gemma-2b"])):
+                 lambda: serve.main(["--arch", "gemma-2b"]),
+                 lambda: train.main(["--arch", "hymba-1.5b", "--steps", "1"]),
+                 lambda: get_workload("lm_tiny").init_fn(gen, None),
+                 lambda: get_workload("lm_hybrid_tiny").init_fn(gen, None)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 

@@ -40,6 +40,7 @@ from repro_torch.models.lm.params import lm_params_from_jax, \
 from repro_torch.models.lm.transformer import (
     count_params,
     decode_step,
+    forward_train,
     init_decode_cache,
     init_params,
     prefill,
@@ -370,13 +371,23 @@ def test_every_arch_resolves():
     ("deepseek-v3-671b", "MLA attention"),
     ("rwkv6-1.6b", "segment kind 'rwkv'"),
     ("whisper-medium", "encoder"),
+    # The LM workloads of those kinds, each naming its own ROADMAP item.
+    ("lm_moe_tiny", r"item 5 \(MoE and MLA\)"),
+    ("lm_rwkv6_tiny", r"item 4 \(rwkv6 time-mix\)"),
 ])
 def test_unported_kinds_raise(arch, what):
+    if arch.startswith("lm_"):
+        from repro_torch.core import get_workload
+        with pytest.raises(NotImplementedError, match=what):
+            get_workload(arch)
+        return
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match=what):
         init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         prefill(cfg, {}, torch.zeros((1, 4), dtype=torch.int64), 8)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        forward_train(cfg, {}, torch.zeros((1, 4), dtype=torch.int64))
 
 
 def test_prefix_embeds_raise():
