@@ -10,7 +10,9 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              this checkout), ptxas's registers and spills per kernel and,
              from `cuobjdump -sass`, its tensor-core (HGMMA/HMMA) and
              asynchronous-copy (UTMALDG/LDGSTS) instructions; fails if a
-             bf16 flash_attention kernel has no tensor-core instruction;
+             bf16 flash_attention kernel, or one of the bf16
+             flash_attention_bwd dq and dk/dv kernels (D = 64, 128, 256),
+             has no tensor-core instruction;
   kernels    every CUDA kernel of the main path against its plain PyTorch
              version on the same inputs, in f32 (rtol = atol = 2e-5) and
              bf16 (2e-2), the tolerances of tests/test_kernels.py, with
@@ -112,12 +114,15 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
   lm_train_kernels  the two backward kernels against their plain
              backward (f32 rtol = atol = 2e-5, bf16 rtol 8e-3 + atol
              1e-3 as the forward; wkv6's dlogw
-             beside the scale of the terms its suffix sum adds) at the LM
-             cell's shapes and at full-width hymba-1.5b (bf16 attention
-             windowed and full causal, the SSD heads' f32 scan), two
-             launches giving the same bits, with device times, bounds
-             and, for flash, the backward of scaled_dot_product_attention
-             as the yardstick; the D = 32 forward (lm_tiny);
+             beside the scale of the terms its suffix sum adds), each fed
+             the forward's saved statistics (flash's lse, wkv6's chunk
+             states), at the LM cell's shapes, at full-width hymba-1.5b
+             (bf16 attention windowed and full causal, the SSD heads' f32
+             scan) and at rwkv6-1.6b's K = V = 64, two launches giving
+             the same bits, with device times, bounds and, for flash, the
+             backward of scaled_dot_product_attention as the yardstick and
+             the bf16 error with P and dS rounded once (no hi + lo); the
+             D = 32 forward (lm_tiny);
   lm_train   `repro_torch.launch.train.main` on full-width hymba-1.5b
              (bf16, batch 2 x 2048, 4 AdamW steps at the launcher's lr),
              launch counters zeroed just before and read just after: 32
@@ -256,6 +261,9 @@ def bound_ms(n_bytes: float, n_flops: float,
 
 
 # ------------------------------------------------------------------ card
+BF16_BWD_KERNELS = ("flash_bwd_dq_tc", "flash_bwd_dkdv_tc")
+
+
 def phase_card() -> dict:
     line = smi_line()
     print(line, flush=True)
@@ -285,6 +293,13 @@ def phase_card() -> dict:
                                      for r in bf16_flash),
             "a bf16 flash_attention kernel has no tensor-core instruction: "
             f"{bf16_flash}")
+    # The bf16 backward's dq and dk/dv kernels at D = 64, 128 and 256.
+    bf16_bwd = [r for r in resources
+                if any(n in r["kernel"] for n in BF16_BWD_KERNELS)]
+    require(len(bf16_bwd) == 3 * len(BF16_BWD_KERNELS)
+            and all(r.get("tensor_core_ops", 0) > 0 for r in bf16_bwd),
+            "a bf16 flash_attention_bwd kernel is missing or has no "
+            f"tensor-core instruction: {bf16_bwd}")
     return info
 
 
@@ -366,6 +381,8 @@ def _max_err(got, want, rtol: float, atol: float | None = None) -> float:
     atol + rtol * |want| (atol = rtol unless given)."""
     atol = rtol if atol is None else atol
     got, want = got.float(), want.float()
+    if got.numel() == 0:
+        return 0.0
     require(bool(torch.isfinite(got).all()), "kernel output not finite")
     err = (got - want).abs()
     ok = bool((err <= atol + rtol * want.abs()).all())
@@ -700,27 +717,36 @@ def check_lm_shape(dev, name: str, layouts: tuple, options: tuple) -> dict:
     `lm_kernels` and `lm_train_kernels`; no timing."""
     g = torch.Generator(device=dev).manual_seed(math.prod(layouts[0][0]))
     kw = dict(options)
-    # wkv6's fourth argument is logw, a log decay (<= 0).
-    t = [None if lay is None else _strided(
+    # wkv6's fourth argument is logw, a log decay (<= 0); the backward
+    # kernels' saved forward statistics (flash's lse, wkv6_bwd's chunk
+    # states) are made by the plain forward below, not drawn.
+    saved = {"flash_attention_bwd": 5, "wkv6_bwd": 7}.get(name)
+    t = [None if lay is None or i == saved else _strided(
              lay, g, dev, decay=name.startswith("wkv6") and i == 3)
          for i, lay in enumerate(layouts)]
     dtype = layouts[0][3]
     if name == "flash_attention":
         got = flash_attention(*t, **kw)
         want = ref.flash_attention_ref(*t, **kw)
-        errs = [_max_err(got, want, *FLASH_TOL[dtype])]
+        if kw.get("return_lse"):            # (o, lse): lse in f32
+            errs = [_max_err(got[0], want[0], *FLASH_TOL[dtype]),
+                    _max_err(got[1], want[1], *FLASH_TOL["float32"])]
+        else:
+            errs = [_max_err(got, want, *FLASH_TOL[dtype])]
     elif name == "flash_attention_bwd":
-        t[3].copy_(ref.flash_attention_ref(*t[:3], **kw))     # o
+        o, t[5] = ref.flash_attention_ref(*t[:3], return_lse=True, **kw)
+        t[3].copy_(o)
         got = flash_attention_bwd(*t, **kw)
-        want = ref.flash_attention_bwd_ref(*t, **kw)
+        want = ref.flash_attention_bwd_ref(*t[:5], lse=t[5], **kw)
         errs = [_max_err(a, w, *BWD_TOL[dtype]) for a, w in zip(got, want)]
     elif name == "wkv6":
         got = wkv6(*t, **kw)
         want = ref.wkv6_ref(*t, **kw)
         errs = [_max_err(a, w, WKV6_TOL) for a, w in zip(got, want)]
     else:
+        t[7] = ref.wkv6_ref(*t[:5], chunk=kw["chunk"], return_states=True)[2]
         got = wkv6_bwd(*t, **kw)
-        want = ref.wkv6_bwd_ref(*t, **kw)
+        want = ref.wkv6_bwd_ref(*t[:7], kw["chunk"], t[7])
         errs, _ = _wkv6_bwd_errs(t[0], t[1], got, want)
     torch.cuda.synchronize()
     return dict(name=name, label=_lm_label(name, layouts, options),
@@ -1934,25 +1960,41 @@ def _flash_bwd_inputs(dev, B, H, KV, S, D, dtype):
     return q, k, v, do
 
 
+def _tol_ratio(got, want, rtol: float, atol: float) -> float:
+    """max |got - want| / (atol + rtol |want|): at most 1 within the
+    tolerance (a reading, not a check)."""
+    got, want = got.double(), want.double()
+    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+
 def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
                     dtype: str, causal: bool = True,
                     window: int | None = None) -> dict:
-    """flash_attention_bwd against its plain backward; the yardstick is
-    the backward of scaled_dot_product_attention (is_causal, or the
-    window as an explicit mask), its forward run once outside the
-    timing."""
+    """flash_attention_bwd against its plain backward, both given the
+    plain forward's lse; the yardstick is the backward of
+    scaled_dot_product_attention (is_causal, or the window as an explicit
+    mask), its forward run once outside the timing. In bf16 also the
+    error with each of P (dv), dS (dk) and dS (dq) rounded to bf16 once
+    instead of split into hi + lo (`one_rounding_tol_ratio`, as a share
+    of the tolerance: above 1 misses it)."""
     q, k, v, do = _flash_bwd_inputs(dev, B, H, KV, S, D, dtype)
     kw = dict(causal=causal, window=window)
-    o = ref.flash_attention_ref(q, k, v, **kw)
-    got = flash_attention_bwd(q, k, v, o, do, **kw)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
-    again = flash_attention_bwd(q, k, v, o, do, **kw)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, lse, **kw)
     torch.cuda.synchronize()
     err = max(_max_err(a, w, *BWD_TOL[dtype]) for a, w in zip(got, want))
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"flash_attention_bwd {case}: two launches differ")
+    one = None
+    if dtype == "bfloat16":
+        single = flash_attention_bwd(q, k, v, o, do, lse, split=0, **kw)
+        one = {n: _tol_ratio(a, w, *BWD_TOL[dtype])
+               for n, a, w in zip(("dq", "dk", "dv"), single, want)}
     pairs = B * H * _flash_pairs(S, causal, window)
-    n_bytes = (4 * B * H * S * D + 4 * B * KV * S * D) * q.element_size()
+    n_bytes = ((4 * B * H * S * D + 4 * B * KV * S * D) * q.element_size()
+               + B * H * S * 4)                       # + lse
     b_ms, b_by = bound_ms(n_bytes, 2.5 * 4 * D * pairs,
                           BF16_FLOPS_PER_S if dtype == "bfloat16"
                           else F32_FLOPS_PER_S)
@@ -1971,10 +2013,10 @@ def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
         name="flash_attention_bwd", case=case, B=B, H=H, KV=KV, S=S, D=D,
         dtype=dtype, causal=causal, window=window, pairs=pairs,
         max_abs_err=err, rtol=BWD_TOL[dtype][0], atol=BWD_TOL[dtype][1],
-        deterministic=True,
-        ms=device_ms(lambda: flash_attention_bwd(q, k, v, o, do, **kw)),
-        plain_ms=device_ms(
-            lambda: ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)),
+        deterministic=True, one_rounding_tol_ratio=one,
+        ms=device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw)),
+        plain_ms=device_ms(lambda: ref.flash_attention_bwd_ref(
+            q, k, v, o, do, lse=lse, **kw)),
         library_ms=device_ms(library), bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1988,39 +2030,65 @@ def _wkv6_bwd_errs(r, k, got, want) -> tuple[list[float], float]:
 
 
 def check_wkv6_bwd(dev, case: str, B: int, H: int, T: int, K: int,
-                   V: int) -> dict:
-    """wkv6_bwd against its plain backward, inputs in the SSD heads'
-    layout (k broadcast over heads, logw over the state dim, v a
-    transposed view), as the training path passes them."""
+                   V: int, ssd_views: bool = True) -> dict:
+    """wkv6_bwd against its plain backward, both given the chunk states
+    of the kernel's forward; with `ssd_views` the inputs are in the SSD
+    heads' layout (k broadcast over heads, logw over the state dim, v a
+    transposed view), as the training path passes them, else dense with
+    a decay per state dim (rwkv6's time-mix)."""
     g = torch.Generator(device=dev).manual_seed(B * H * T + K + 1)
     rnd = lambda *shape: torch.randn(shape, generator=g, device=dev)
     r = rnd(B, H, T, K)
-    k = rnd(B, 1, T, K).expand(B, H, T, K)
-    v = rnd(B, T, H, V).transpose(1, 2)
-    lw = -0.3 * rnd(B, H, T, 1).abs().expand(B, H, T, K)
+    if ssd_views:
+        k = rnd(B, 1, T, K).expand(B, H, T, K)
+        v = rnd(B, T, H, V).transpose(1, 2)
+        lw = -0.3 * rnd(B, H, T, 1).abs().expand(B, H, T, K)
+    else:
+        k, v = rnd(B, H, T, K), rnd(B, H, T, V)
+        lw = -0.3 * rnd(B, H, T, K).abs()
     s0 = torch.zeros((B, H, K, V), device=dev)
     do = rnd(B, H, T, V)
-    args = (r, k, v, lw, s0, do)
+    states = wkv6(r, k, v, lw, s0, return_states=True)[2]
+    args = (r, k, v, lw, s0, do, None, states)
     got = wkv6_bwd(*args)
-    want = ref.wkv6_bwd_ref(*args)
+    want = ref.wkv6_bwd_ref(*args[:7], 64, states)
     again = wkv6_bwd(*args)
     torch.cuda.synchronize()
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"wkv6_bwd {case}: two launches differ")
     errs, terms = _wkv6_bwd_errs(r, k, got, want)
+    # Readings, not checks: each output's max error as a share of its
+    # tolerance, the kernel against the f32 plain version, and each of
+    # the two against the plain version in f64 (the exact gradient of the
+    # same f32 inputs and states): how much of the gap is f32 rounding
+    # that both share.
+    exact = ref.wkv6_bwd_ref(*(None if x is None else x.double()
+                               for x in args[:7]), 64, states.double())
+    names = ("dr", "dk", "dv", "dlogw", "ds0")
+    tols = [(BWD_TOL["float32"][0],
+             BWD_TOL["float32"][1] * (terms if i == 3 else 1.0))
+            for i in range(5)]
+    tol_ratio = {n: _tol_ratio(a, w, *t)
+                 for n, a, w, t in zip(names, got, want, tols)}
+    f64_tol_ratio = {n: dict(kernel=_tol_ratio(a, e, *t),
+                             plain=_tol_ratio(w, e, *t))
+                     for n, a, w, e, t in zip(names, got, want, exact, tols)}
+    del exact
     # Each input read once (a broadcast input's distinct elements), each
     # output (dense dr, dk, dv, dlogw, ds0) written once; operations: the
     # step-by-step recurrences, forward state (3 K V) and backward (dS 3,
     # dr 2, dk 2, dv 2, dlogw 2 K V).
-    n_in = sum(x.untyped_storage().nbytes() for x in args)
+    n_in = sum(x.untyped_storage().nbytes() for x in args if x is not None)
     n_out = (3 * B * H * T * K + B * H * T * V + B * H * K * V) * 4
     b_ms, b_by = bound_ms(n_in + n_out, 14 * B * H * T * K * V)
     return dict(
         name="wkv6_bwd", case=case, B=B, H=H, T=T, K=K, V=V, chunk=64,
-        ssd_views=True, max_abs_err=max(errs), dlogw_max_abs_err=errs[3],
-        dlogw_terms=terms, tol=BWD_TOL["float32"][0], deterministic=True,
+        ssd_views=ssd_views, max_abs_err=max(errs),
+        dlogw_max_abs_err=errs[3], dlogw_terms=terms,
+        tol=BWD_TOL["float32"][0], deterministic=True, tol_ratio=tol_ratio,
+        f64_tol_ratio=f64_tol_ratio,
         ms=device_ms(lambda: wkv6_bwd(*args)),
-        plain_ms=device_ms(lambda: ref.wkv6_bwd_ref(*args)),
+        plain_ms=device_ms(lambda: ref.wkv6_bwd_ref(*args[:7], 64, states)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -2038,8 +2106,18 @@ def phase_lm_train_kernels(dev) -> list[dict]:
                         "bfloat16", window=1024),
         check_flash_bwd(dev, "train_full", TRAIN_BATCH, 25, 5, TRAIN_SEQ, 64,
                         "bfloat16"),
+        # The bf16 kernels' other head dims at their configs' heads: 128
+        # (qwen, yi: 32 heads on 8, windowed here) and 256 (gemma-2b: 8
+        # heads on 1).
+        check_flash_bwd(dev, "d128", 1, 32, 8, TRAIN_SEQ // 2, 128,
+                        "bfloat16", window=512),
+        check_flash_bwd(dev, "gemma_d256", 1, 8, 1, TRAIN_SEQ, 256,
+                        "bfloat16"),
         check_wkv6_bwd(dev, "lm_hybrid_tiny", n, 8, 33, 16, 64),
-        check_wkv6_bwd(dev, "train", TRAIN_BATCH, 50, TRAIN_SEQ, 16, 64)]
+        check_wkv6_bwd(dev, "train", TRAIN_BATCH, 50, TRAIN_SEQ, 16, 64),
+        # rwkv6-1.6b's time-mix: 32 heads of K = V = 64 at chunk 64.
+        check_wkv6_bwd(dev, "rwkv6_k64", 1, 32, TRAIN_SEQ, 64, 64,
+                       ssd_views=False)]
     emit("lm_train_kernels", rows=rows)
     return rows
 

@@ -40,7 +40,12 @@
 // rounding hi and the rounding of P - hi, which carry P to about 2^-17.
 // The denominator sums the unrounded f32 P. Blocks are ordered so that the heaviest causal
 // query tiles start first and the `rep` heads that read one KV head run
-// next to one another (grid x = head), sharing its K and V in L2.
+// next to one another (grid x = head), sharing its K and V in L2. The
+// tensor-core helpers are shared with the backward (`wgmma.cuh`).
+//
+// Both kernels write each row's log-sum-exp, m + log(l), when given an
+// lse buffer (the autograd forward does, for the backward kernels;
+// serving passes none).
 //
 // f32 (`flash_f32_kernel`): CUDA cores, f32 FMAs (TF32 would not hold the
 // f32 tolerance). 8 warps, each owning 4 query rows; a key tile of 32
@@ -66,6 +71,8 @@
 #include <stdint.h>
 
 #include <atomic>
+
+#include "wgmma.cuh"
 
 namespace {
 
@@ -107,7 +114,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so, int rep,
+                 float* __restrict__ lse, Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so, int rep,
                  int S, float scale, int causal, int window, float softcap) {
   constexpr int KS = D + 4;             // padded K row stride (floats)
   constexpr int NC = D / 32;            // output columns per lane
@@ -224,6 +231,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lt = fmaxf(lt, 1e-30f);
     const int qi = row0 + r;
     if (qi < S) {
+      if (lse != nullptr && lane == 0)
+        lse[((long long)b * gridDim.y + h) * S + qi] = m[r] + logf(lt);
       float* orow = o + b * so.b + h * so.h + qi * so.s + lane;
 #pragma unroll
       for (int c = 0; c < NC; ++c) orow[32 * c] = acc[r][c] / lt;
@@ -236,11 +245,12 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ----------------------------------------------------------- bf16 kernel
 namespace tc {
 
+using namespace wg;
+
 constexpr int kBQ = 64;                 // query rows per block (wgmma M)
 constexpr int kBK = 64;                 // keys per tile
 constexpr int kThreads = 128;           // one warpgroup
 constexpr int kStages = 2;              // K/V ring in shared memory
-constexpr int kBlockBytes = 64 * 128;   // 64 rows x 64 bf16 columns
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Q, then kStages (K, V) pairs, each D / 64 column blocks; 1 KB of slack
@@ -250,134 +260,15 @@ constexpr int smem_bytes() {
   return (1 + 2 * kStages) * (D / 64) * kBlockBytes + 1024;
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Byte offset of 16-byte chunk c (elements 8c .. 8c + 7) of row r in a
-// 64-row tile: column block c / 8, then the 128-byte swizzle.
-__device__ __forceinline__ uint32_t swizzled(int r, int c) {
-  return (c >> 3) * kBlockBytes + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand whose
-// 8-row groups lie 1024 bytes apart (the leading offset is unused).
-__device__ __forceinline__ uint64_t descriptor(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-// Rows r0 .. r0 + 63 of a (S, D) bf16 matrix with row stride `ld` into a
-// swizzled tile with 16-byte `cp.async` copies (the caller commits and
-// waits); rows at or past S are zero. Every row must start on 16 bytes.
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst,
-                                          const __nv_bfloat16* src,
-                                          long long ld, int r0, int S,
-                                          int tid) {
-  constexpr int kChunks = kBQ * D / 8;   // a multiple of kThreads
-#pragma unroll
-  for (int n = 0; n < kChunks / kThreads; ++n) {
-    const int i = tid + n * kThreads, r = i / (D / 8), c = i % (D / 8);
-    const bool in = r0 + r < S;
-    const __nv_bfloat16* g = in ? src + (r0 + r) * ld + c * 8 : src;
-    const uint32_t s = dst + swizzled(r, c);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(g), "r"(in ? 16 : 0)
-                 : "memory");
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-// Make this thread's shared-memory writes visible to wgmma (async proxy).
-__device__ __forceinline__ void fence_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// Keep the compiler from moving reads or writes of accumulator registers
-// across a wgmma fence or wait.
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
-// d (64 x 64, f32) += A (64 x 16) B (16 x 64), A and B read from shared
-// memory through descriptors, both K-major (k contiguous).
-__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
-                                         uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
-}
-
-// d (64 x 64, f32) += A (64 x 16, bf16 pairs in registers) B (16 x 64),
-// B read from shared memory in its natural (key, column) layout, which is
-// MN-major for this product: hence the transpose flag.
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
-                  __nv_bfloat16* __restrict__ o, Strides3 sq, Strides3 sk,
-                  Strides3 sv, Strides3 so, int rep, int S, float scale,
-                  int causal, int window, float softcap) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so,
+                  int rep, int S, float scale, int causal, int window,
+                  float softcap) {
   constexpr int NB = D / 64;            // 64-column blocks of D
   constexpr int kTileBytes = NB * kBlockBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -400,9 +291,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   k_begin -= k_begin % kBK;
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
 
-  load_tile<D>(qs, qb, sq.s, q0, S, tid);
-  load_tile<D>(qs + kTileBytes, kb, sk.s, k_begin, S, tid);
-  load_tile<D>(qs + 2 * kTileBytes, vb, sv.s, k_begin, S, tid);
+  load_tile<D, kThreads>(qs, qb, sq.s, q0, S, tid);
+  load_tile<D, kThreads>(qs + kTileBytes, kb, sk.s, k_begin, S, tid);
+  load_tile<D, kThreads>(qs + 2 * kTileBytes, vb, sv.s, k_begin, S, tid);
   cp_async_commit();
 
   // Accumulator fragment of m64nNk16: register 4 i + e of this thread is
@@ -420,8 +311,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = k_begin + t * kBK;
     if (t + 1 < n_tiles) {              // prefetch the next tile
       const uint32_t nxt = qs + (1 + 2 * ((t + 1) & 1)) * kTileBytes;
-      load_tile<D>(nxt, kb, sk.s, k0 + kBK, S, tid);
-      load_tile<D>(nxt + kTileBytes, vb, sv.s, k0 + kBK, S, tid);
+      load_tile<D, kThreads>(nxt, kb, sk.s, k0 + kBK, S, tid);
+      load_tile<D, kThreads>(nxt + kTileBytes, vb, sv.s, k0 + kBK, S, tid);
       cp_async_commit();
       cp_async_wait<1>();               // this tile (and Q) has landed
     } else {
@@ -432,18 +323,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const uint32_t ks = qs + (1 + 2 * (t & 1)) * kTileBytes;
     const uint32_t vs = ks + kTileBytes;
 
-    // S = Q K^T over D in steps of 16: 32 bytes into a 128-byte row, the
-    // next column block every 4 steps.
+    // S = Q K^T over D in steps of 16.
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.0f;
     fence_regs(s);
     wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      const uint32_t off = (j >> 2) * kBlockBytes + (j & 3) * 32;
-      wgmma_ss(s, descriptor(qs + off), descriptor(ks + off));
-    }
+    wgmma_ss_tile<D>(s, qs, ks);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -486,17 +372,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       s[i] = p;
       l[(i >> 1) & 1] += p;
     }
-    // P as the A operand of m64nNk16, key step kk: registers 8 kk .. 8 kk
-    // + 7 of the S fragment, packed to bf16 pairs, split into a high part
-    // and the bf16 rounding of what it leaves (P = hi + lo to ~2^-16).
+    // P as the A operand of m64nNk16, split into bf16 hi + lo.
     uint32_t hi[16], lo[16];
-#pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const __nv_bfloat162 h2 = __floats2bfloat162_rn(s[2 * j], s[2 * j + 1]);
-      const float2 back = __bfloat1622float2(h2);
-      hi[j] = *reinterpret_cast<const uint32_t*>(&h2);
-      lo[j] = pack_bf16(s[2 * j] - back.x, s[2 * j + 1] - back.y);
-    }
+    split_bf16(s, hi, lo);
 #pragma unroll
     for (int c = 0; c < NB; ++c) {
 #pragma unroll
@@ -506,17 +384,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     // O += P V as hi V + lo V: V's rows of 16 keys lie 2048 bytes apart.
     wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < NB; ++c) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t dv = descriptor(vs + c * kBlockBytes + kk * 2048);
-        wgmma_rs(acc[c], hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
-                 hi[4 * kk + 3], dv);
-        wgmma_rs(acc[c], lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
-                 lo[4 * kk + 3], dv);
-      }
-    }
+    wgmma_rs_tile<NB>(acc, hi, lo, true, vs);
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -535,6 +403,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int r = 0; r < 2; ++r) {
     const int qi = row + 8 * r;
     if (qi >= S) continue;
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((long long)b * gridDim.x + h) * S + qi] = m[r] + logf(den[r]);
     __nv_bfloat16* orow = o + b * so.b + h * so.h + qi * so.s + col;
 #pragma unroll
     for (int c = 0; c < NB; ++c)
@@ -550,7 +420,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       const Strides3* st, int B, int H, int KV, int S,
+                       float* lse, const Strides3* st, int B, int H, int KV, int S,
                        float scale, int causal, int window, float softcap,
                        int device, cudaStream_t stream) {
   static_assert(f32::kRows == 4, "the P V loop reads 4 rows as one float4");
@@ -562,7 +432,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((S + f32::kBQ - 1) / f32::kBQ, H, B);
   f32::flash_f32_kernel<D><<<grid, f32::kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), st[0], st[1],
+      static_cast<const float*>(v), static_cast<float*>(o), lse, st[0], st[1],
       st[2], st[3], H / KV, S, scale, causal, window, softcap);
   return cudaGetLastError();
 }
@@ -571,7 +441,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 // when they do not).
 template <int D>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* o, const Strides3* st, int B, int H, int KV,
+                        void* o, float* lse, const Strides3* st, int B, int H, int KV,
                         int S, float scale, int causal, int window,
                         float softcap, int device, cudaStream_t stream) {
   static std::atomic<unsigned> configured{0};
@@ -584,14 +454,14 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(o), st[0], st[1], st[2], st[3], H / KV, S,
-      scale, causal, window, softcap);
+      static_cast<__nv_bfloat16*>(o), lse, st[0], st[1], st[2], st[3],
+      H / KV, S, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, void* o,
-           const int64_t* strides, int B, int H, int KV, int S, int D,
+           void* lse, const int64_t* strides, int B, int H, int KV, int S, int D,
            float scale, int causal, int window, float softcap, int device,
            void* stream) {
   // Launch on the tensors' device and give the calling thread back its
@@ -605,7 +475,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
   for (int i = 0; i < 4; ++i)
     st[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   auto run = [&](auto launch_d) {
-    return launch_d(q, k, v, o, st, B, H, KV, S, scale, causal, window,
+    return launch_d(q, k, v, o, static_cast<float*>(lse), st, B, H, KV, S, scale, causal, window,
                     softcap, device, s);
   };
   switch (D) {
@@ -632,24 +502,25 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // C entry points (bound with ctypes). strides: (b, h, s) of q, k, v, o in
-// elements; window 0 = none, softcap 0 = none. Return the launch's CUDA
-// error: 0 on success.
+// elements; window 0 = none, softcap 0 = none; lse, if not null, a dense
+// (B, H, S) f32 output of each row's log-sum-exp (what the backward
+// kernels read). Return the launch's CUDA error: 0 on success.
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* o,
+                                   const void* v, void* o, void* lse,
                                    const int64_t* strides, int B, int H,
                                    int KV, int S, int D, float scale,
                                    int causal, int window, float softcap,
                                    int device, void* stream) {
-  return launch<false>(q, k, v, o, strides, B, H, KV, S, D, scale, causal,
+  return launch<false>(q, k, v, o, lse, strides, B, H, KV, S, D, scale, causal,
                        window, softcap, device, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* o,
+                                    const void* v, void* o, void* lse,
                                     const int64_t* strides, int B, int H,
                                     int KV, int S, int D, float scale,
                                     int causal, int window, float softcap,
                                     int device, void* stream) {
-  return launch<true>(q, k, v, o, strides, B, H, KV, S, D, scale, causal,
+  return launch<true>(q, k, v, o, lse, strides, B, H, KV, S, D, scale, causal,
                       window, softcap, device, stream);
 }

@@ -1,7 +1,7 @@
 // flash_attention_bwd — the gradient of `flash_attention` (causal /
 // sliding-window / tanh-softcap GQA attention over positions 0..S-1):
-// dQ, dK, dV from Q, K, V, O and dO, recomputing the scores
-// (FlashAttention-2 style) instead of storing them.
+// dQ, dK, dV from Q, K, V, O, dO and the forward's log-sum-exp per row,
+// recomputing the scores (FlashAttention-2 style) instead of storing them.
 //
 //   s[q,k]  = softcap(q.k * scale), pair counted under the forward's masks
 //   p[q,k]  = exp(s[q,k] - lse[q]),            lse[q] = log sum_k exp(s[q,k])
@@ -13,35 +13,50 @@
 // The TPU has no such kernel: the reference trains through `jax.grad` of
 // its jnp attention (`repro/models/lm/attention.py::attention_prefill`).
 // This kernel is the backward of the port's CUDA forward
-// (`flash_attention.cu`), which stays as it is: the forward writes no
-// row statistics, so a pre-pass recomputes them.
+// (`flash_attention.cu`), which writes lse for it (the autograd forward
+// asks for it). Two kernels, launched in this order:
+//   dq    one block per (64 query rows, head, batch): delta = dO . O for
+//         its rows (written out for dkdv), then over the reachable key
+//         tiles S = Q K^T, dP = dO V^T and dQ += dS K;
+//   dkdv  one block per (64 keys, KV head, batch): loops over the rep
+//         query heads of its KV head and the query tiles that reach its
+//         keys, summing dK and dV.
+// One block owns each output row, so there are no atomics: two runs give
+// the same bits. The masks are the forward's, tile skipping included; a
+// masked pair's p is exactly 0 (never exp of an overflow).
 //
-// Three kernels, one launch each, all f32 arithmetic on the CUDA cores
-// over f32 or bf16 inputs (bf16 widened on load), outputs stored in the
-// input type:
-//   flash_bwd_rows  one block per (32 query rows, head, batch): lse by
-//          an online max/sum over the reachable key tiles, and delta;
-//   flash_bwd_dkdv  one block per (32 keys, KV head, batch): loops over
-//          the rep query heads of its KV head and over the query tiles
-//          that reach its keys, and sums dK and dV in registers. One block
-//          owns each output row, so no atomics: two runs give the same
-//          bits;
-//   flash_bwd_dq  one block per (32 query rows, head, batch): loops over
-//          the reachable key tiles and sums dQ in registers.
-// Tiles are 32 x 32 (query rows x keys) with 256 threads: a thread
-// computes 4 scores of one row (keys lane % 8 + 8 n) and owns D / 8
-// columns of one output row (columns lane % 8 + 8 c). Shared-memory rows
-// are padded to D + 1 floats, so the 8 rows a warp reads at once lie on
-// distinct banks. The masks are the forward's, tile skipping included:
-// a key tile no row of a query tile reaches is not visited. A masked
-// pair's p is set to exactly 0 (never exp of an overflow).
+// bf16, D in {64, 128, 256} (`tc::`): tensor cores. The products run on
+// `wgmma` m64n64k16, bf16 in and f32 accumulate, on tiles of 64 rows
+// stored and loaded as the forward's (`wgmma.cuh`: 128-byte swizzle,
+// 16-byte `cp.async` copies, a ring of two stages for the streamed
+// tiles). dq is one warpgroup: Q and dO staged once, K and V streamed;
+// S and dP from shared memory, dQ += dS K with dS from registers and K
+// read MN-major. dkdv is two warpgroups over one staged K and V tile, Q,
+// dO, lse and delta streamed: both compute S^T = K Q^T (from which
+// P^T); warpgroup 0 then sums dV += P^T dO, and warpgroup 1 computes
+// dP^T = V dO^T and sums dK += dS^T Q, so each holds one D-wide
+// accumulator (at D = 256, 128 registers a thread). That is 7 products of
+// a tile's size where the bound counts 5 (S twice, the forward's lse
+// saves a third). Scale, softcap, masks and lse are applied on the f32
+// accumulator fragment before P or dS is rounded to bf16. A bf16 operand
+// rounds P or dS by up to 2^-9 relative, which the bf16 tolerance does
+// not absorb where a row's few large terms cancel; as in the forward's
+// P V, each of P (dV), dS (dK) and dS (dQ) can go in as two bf16
+// products, its rounding hi and the rounding of what hi leaves, lo
+// (`split`, one bit each; the wrapper sets all three: PERF.md records
+// the error of each single rounding at the training shapes).
 //
-// Bound on the H100: operations. The pass does five products of the
-// forward's size (Q K^T, dO V^T, P^T dO, dS^T Q, dS K) where the forward
-// does two: 2.5 x its 4 D flops a counted pair. At the full-width
-// training shape (B=2, H=25, KV=5, S=2048, D=64, window 1024) that is
-// 0.05 TFLOP. This simple design recomputes Q K^T three times and dO V^T
-// twice, and runs on the f32 CUDA cores: tensor cores are a later step.
+// f32 (all D) and bf16 at D = 32 (`simt::`, which no path launches in
+// bf16) run on the CUDA cores, as the same two kernels: 32 x 32 tiles,
+// 256 threads, f32 FMAs over padded f32 shared tiles (bf16 widened on
+// load), lse from the forward and delta from the dq kernel.
+//
+// Bound on the H100: operations. Five products of the forward's size
+// (Q K^T, dO V^T, P^T dO, dS^T Q, dS K) where the forward does two: 2.5 x
+// its 4 D flops a counted pair. At the full-width training shape (B=2,
+// H=25, KV=5, S=2048, D=64, window 1024) that is 0.05 TFLOP, 0.051 ms
+// at the bf16 tensor-core rate; the bytes (q, k, v, o, dO, lse in and
+// dq, dk, dv out, 26 MB) take 0.008 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -50,11 +65,9 @@
 
 #include <atomic>
 
-namespace {
+#include "wgmma.cuh"
 
-constexpr float kNegInf = -1e30f;
-constexpr int kB = 32;                  // query rows and keys per tile
-constexpr int kThreads = 256;
+namespace {
 
 struct Strides3 {
   long long b, h, s;                    // in elements; the D axis is 1
@@ -79,20 +92,35 @@ struct Masks {
     *dscore = scale;
     return x;
   }
-  // Keys any query row of [q0, q0 + kB) reaches: [k_begin, k_end).
+  // Keys any query row of [q0, q0 + TB) reaches: [k_begin, k_end).
+  template <int TB>
   __device__ __forceinline__ void key_range(int q0, int* kb, int* ke) const {
-    const int q_last = min(q0 + kB, S) - 1;
+    const int q_last = min(q0 + TB, S) - 1;
     *ke = causal ? q_last + 1 : S;
     int b = window > 0 ? max(0, q0 - window + 1) : 0;
-    *kb = b - b % kB;
+    *kb = b - b % TB;
   }
-  // Query rows that reach any key of [k0, k0 + kB): [q_begin, q_end).
+  // Query rows that reach any key of [k0, k0 + TB): [q_begin, q_end).
+  template <int TB>
   __device__ __forceinline__ void query_range(int k0, int* qb, int* qe) const {
     const int b = causal ? k0 : 0;
-    *qb = b - b % kB;
-    *qe = window > 0 ? min(S, min(k0 + kB, S) - 1 + window) : S;
+    *qb = b - b % TB;
+    *qe = window > 0 ? min(S, min(k0 + TB, S) - 1 + window) : S;
+  }
+  // Whether a (TB query rows from q0) x (TB keys from k0) tile has a pair
+  // the masks drop: only such tiles run the mask arithmetic.
+  template <int TB>
+  __device__ __forceinline__ bool edge(int q0, int k0) const {
+    return k0 + TB > S || q0 + TB > S || (causal && k0 + TB - 1 > q0) ||
+           (window > 0 && q0 + TB - 1 - k0 >= window);
   }
 };
+
+// ------------------------------------------------ CUDA cores (f32, D 32)
+namespace simt {
+
+constexpr int kB = 32;                  // query rows and keys per tile
+constexpr int kThreads = 256;
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
@@ -121,8 +149,8 @@ constexpr int smem_floats() {
 }
 
 // Dots of row `qi` of `a` with rows kj = j0 + 8 n (n < 4) of `b`, both
-// padded tiles, and (if kTwo) of row `qi` of `c` with the same rows of `d`.
-template <int D, bool kTwo>
+// padded tiles, and of row `qi` of `c` with the same rows of `d`.
+template <int D>
 __device__ __forceinline__ void dots4(const float* a, const float* b,
                                       const float* c, const float* d, int qi,
                                       int j0, float (&ab)[4],
@@ -133,78 +161,12 @@ __device__ __forceinline__ void dots4(const float* a, const float* b,
   const float* cr = c + qi * (D + 1);
 #pragma unroll 8
   for (int x = 0; x < D; ++x) {
-    const float av = ar[x], cv = kTwo ? cr[x] : 0.0f;
+    const float av = ar[x], cv = cr[x];
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       ab[n] = fmaf(av, b[(j0 + 8 * n) * (D + 1) + x], ab[n]);
-      if (kTwo) cd[n] = fmaf(cv, d[(j0 + 8 * n) * (D + 1) + x], cd[n]);
+      cd[n] = fmaf(cv, d[(j0 + 8 * n) * (D + 1) + x], cd[n]);
     }
-  }
-}
-
-// --------------------------------------------------------------- rows
-template <int D, typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_rows_kernel(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ o, const T* __restrict__ dout,
-            float* __restrict__ lse, float* __restrict__ delta, Strides3 sq,
-            Strides3 sk, Strides3 so, Strides3 sd, int H, int rep, Masks mk) {
-  extern __shared__ float smem[];
-  float* qs = smem;                     // [kB][D + 1]
-  float* ks = qs + kB * (D + 1);        // [kB][D + 1]
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kB;
-  const int tid = threadIdx.x, row = tid >> 3, j0 = tid & 7;
-  const int qi = q0 + row;
-  const T* qb = q + b * sq.b + h * sq.h;
-  const T* kb = k + b * sk.b + (h / rep) * sk.h;
-  load_tile<D>(qs, qb, sq.s, q0, mk.S);
-
-  // delta = dO . O, eight lanes a row.
-  float dsum = 0.0f;
-  if (qi < mk.S) {
-    const T* orow = o + b * so.b + h * so.h + qi * so.s;
-    const T* grow = dout + b * sd.b + h * sd.h + qi * sd.s;
-    for (int x = j0; x < D; x += 8) dsum = fmaf(load(grow + x), load(orow + x),
-                                                dsum);
-  }
-#pragma unroll
-  for (int off = 1; off < 8; off <<= 1)
-    dsum += __shfl_xor_sync(0xffffffffu, dsum, off);
-
-  int k_begin, k_end;
-  mk.key_range(q0, &k_begin, &k_end);
-  float m = kNegInf, l = 0.0f;
-  for (int k0 = k_begin; k0 < k_end; k0 += kB) {
-    __syncthreads();
-    load_tile<D>(ks, kb, sk.s, k0, mk.S);
-    __syncthreads();
-    float s[4], unused[4];
-    dots4<D, false>(qs, ks, qs, ks, row, j0, s, unused);
-    float mx = kNegInf, dsc;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) {
-      const int kj = k0 + j0 + 8 * n;
-      s[n] = mk.ok(qi, kj) ? mk.score(s[n], &dsc) : kNegInf;
-      mx = fmaxf(mx, s[n]);
-    }
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_new = fmaxf(m, mx);
-    float part = 0.0f;
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-      if (s[n] > kNegInf) part += expf(s[n] - m_new);
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1)
-      part += __shfl_xor_sync(0xffffffffu, part, off);
-    l = l * expf(m - m_new) + part;
-    m = m_new;
-  }
-  if (j0 == 0 && qi < mk.S) {
-    const long long at = ((long long)b * H + h) * mk.S + qi;
-    lse[at] = m + logf(fmaxf(l, 1e-30f));
-    delta[at] = dsum;
   }
 }
 
@@ -217,7 +179,7 @@ __device__ __forceinline__ void probs(const float* qs, const float* ks,
                                       const Masks& mk, float* ps, float* dss) {
   const int row = threadIdx.x >> 3, j0 = threadIdx.x & 7;
   float s[4], dp[4];
-  dots4<D, true>(qs, ks, gs, vs, row, j0, s, dp);
+  dots4<D>(qs, ks, gs, vs, row, j0, s, dp);
 #pragma unroll
   for (int n = 0; n < 4; ++n) {
     const int j = j0 + 8 * n;
@@ -245,7 +207,6 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
   }
 }
 
-// --------------------------------------------------------------- dkdv
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -274,7 +235,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int c = 0; c < NC; ++c) acc_k[c] = acc_v[c] = 0.0f;
 
   int q_begin, q_end;
-  mk.query_range(k0, &q_begin, &q_end);
+  mk.query_range<kB>(k0, &q_begin, &q_end);
   for (int h = g * rep; h < (g + 1) * rep; ++h) {
     const long long at = ((long long)b * H + h) * mk.S;
     for (int q0 = q_begin; q0 < q_end; q0 += kB) {
@@ -307,14 +268,16 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// ----------------------------------------------------------------- dq
+// dQ of 32 query rows; first their delta = dO . O (eight lanes a row),
+// written out for the dkdv kernel.
 template <int D, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          T* __restrict__ dq, Strides3 sq, Strides3 sk, Strides3 sv,
-          Strides3 sd, Strides3 sdq, int H, int rep, Masks mk) {
+          const T* __restrict__ v, const T* __restrict__ o,
+          const T* __restrict__ dout, const float* __restrict__ lse,
+          float* __restrict__ delta, T* __restrict__ dq, Strides3 sq,
+          Strides3 sk, Strides3 sv, Strides3 so, Strides3 sd, Strides3 sdq,
+          int H, int rep, Masks mk) {
   constexpr int NC = D / 8;
   extern __shared__ float smem[];
   float* qs = smem;
@@ -328,18 +291,33 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kB;
   const int tid = threadIdx.x, row = tid >> 3, c0 = tid & 7;
+  const int qi = q0 + row;
+  const long long at = ((long long)b * H + h) * mk.S;
   const T* kb = k + b * sk.b + (h / rep) * sk.h;
   const T* vb = v + b * sv.b + (h / rep) * sv.h;
   load_tile<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, mk.S);
   load_tile<D>(gs, dout + b * sd.b + h * sd.h, sd.s, q0, mk.S);
-  load_rows(lse_s, delta_s, lse, delta, ((long long)b * H + h) * mk.S, q0,
-            mk.S);
+  float dsum = 0.0f;
+  if (qi < mk.S) {
+    const T* orow = o + b * so.b + h * so.h + qi * so.s;
+    const T* grow = dout + b * sd.b + h * sd.h + qi * sd.s;
+    for (int x = c0; x < D; x += 8)
+      dsum = fmaf(load(grow + x), load(orow + x), dsum);
+  }
+#pragma unroll
+  for (int off = 1; off < 8; off <<= 1)
+    dsum += __shfl_xor_sync(0xffffffffu, dsum, off);
+  if (c0 == 0) {
+    lse_s[row] = qi < mk.S ? lse[at + qi] : 0.0f;
+    delta_s[row] = dsum;
+    if (qi < mk.S) delta[at + qi] = dsum;
+  }
   float acc[NC];
 #pragma unroll
   for (int c = 0; c < NC; ++c) acc[c] = 0.0f;
 
   int k_begin, k_end;
-  mk.key_range(q0, &k_begin, &k_end);
+  mk.key_range<kB>(q0, &k_begin, &k_end);
   for (int k0 = k_begin; k0 < k_end; k0 += kB) {
     __syncthreads();
     load_tile<D>(ks, kb, sk.s, k0, mk.S);
@@ -355,12 +333,352 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         acc[c] = fmaf(ds, ks[j * (D + 1) + c0 + 8 * c], acc[c]);
     }
   }
-  if (q0 + row < mk.S) {
-    T* dqr = dq + b * sdq.b + h * sdq.h + (q0 + row) * sdq.s;
+  if (qi < mk.S) {
+    T* dqr = dq + b * sdq.b + h * sdq.h + qi * sdq.s;
 #pragma unroll
     for (int c = 0; c < NC; ++c) store(dqr + c0 + 8 * c, acc[c]);
   }
 }
+
+}  // namespace simt
+
+// ------------------------------------------------- tensor cores (bf16)
+namespace tc {
+
+using namespace wg;
+using bf16 = __nv_bfloat16;
+
+constexpr int kBM = 64;                 // rows of a tile: queries or keys
+constexpr int kStages = 2;              // ring of streamed tiles
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Bits of `split`: which bf16 operands go in as hi + lo.
+enum { kSplitP = 1, kSplitDsK = 2, kSplitDsQ = 4 };
+
+// Two staged tiles (Q and dO, or K and V), then kStages pairs streamed,
+// each D / 64 column blocks; 1 KB of slack to align the base to the 1 KB
+// period of the 128-byte swizzle.
+template <int D>
+constexpr int smem_bytes() {
+  return (2 + 2 * kStages) * (D / 64) * kBlockBytes + 1024;
+}
+
+// Accumulator fragment of m64nNk16: register 4 i + e of a thread is row
+// 16 warp + lane / 4 + 8 (e / 2), column 8 i + 2 (lane % 4) + e % 2 of
+// the warpgroup's tile.
+__device__ __forceinline__ int frag_row(int warp, int lane, int e) {
+  return warp * 16 + (lane >> 2) + 8 * (e >> 1);
+}
+__device__ __forceinline__ int frag_col(int lane, int i, int e) {
+  return 8 * i + 2 * (lane & 3) + (e & 1);
+}
+
+// p of one pair from its raw score x = q.k; `dsc` gets d score / d (q.k).
+__device__ __forceinline__ float prob(float x, float lse2, const Masks& mk,
+                                      float* dsc) {
+  float sc = x * mk.scale;
+  *dsc = mk.scale;
+  if (mk.softcap > 0.0f) {
+    const float t = tanhf(sc / mk.softcap);
+    sc = mk.softcap * t;
+    *dsc = (1.0f - t * t) * mk.scale;
+  }
+  return exp2f(fmaf(sc, kLog2e, -lse2));
+}
+
+// Rows of a dense (B H S) f32 vector into shared memory with 4-byte
+// `cp.async` copies, zero past S (the caller commits and waits).
+__device__ __forceinline__ void load_row_stats(float* dst, const float* src,
+                                               int q0, int S, int i) {
+  const bool in = q0 + i < S;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst + i)),
+               "l"(in ? src + q0 + i : src), "r"(in ? 4 : 0)
+               : "memory");
+}
+
+// Rows of a warpgroup's (64 x D) f32 accumulator to bf16 rows at `out`
+// (row stride `ld`), rows at or past `n_rows` skipped.
+template <int NB>
+__device__ __forceinline__ void store_rows(const float (&acc)[NB][32],
+                                           bf16* out, long long ld,
+                                           int n_rows, int warp, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = frag_row(warp, lane, 2 * r);
+    if (row >= n_rows) continue;
+    bf16* orow = out + row * ld + 2 * (lane & 3);
+#pragma unroll
+    for (int c = 0; c < NB; ++c)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 64 * c + 8 * i) =
+            __floats2bfloat162_rn(acc[c][4 * i + 2 * r],
+                                  acc[c][4 * i + 2 * r + 1]);
+  }
+}
+
+// dQ of 64 query rows of one (b, h): one warpgroup.
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ o,
+                const bf16* __restrict__ dout, const float* __restrict__ lse,
+                float* __restrict__ delta, bf16* __restrict__ dq,
+                Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so,
+                Strides3 sd, Strides3 sdq, int H, int rep, Masks mk,
+                int split) {
+  constexpr int NB = D / 64;
+  constexpr int kTileBytes = NB * kBlockBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float lse_s[kBM], delta_s[kBM];
+  const uint32_t qs = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t gs = qs + kTileBytes;
+  // Stage st: K at qs + (2 + 2 st) kTileBytes, V right after it.
+
+  // Grid: x = (batch, head), the rep heads of one KV head neighbours; y =
+  // query tile from the last, so the heaviest under a causal mask start
+  // first over every head and batch.
+  const int b = blockIdx.x / H, h = blockIdx.x % H, S = mk.S;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* kb = k + b * sk.b + (h / rep) * sk.h;
+  const bf16* vb = v + b * sv.b + (h / rep) * sv.h;
+  int k_begin, k_end;
+  mk.key_range<kBM>(q0, &k_begin, &k_end);
+  const int n_tiles = (k_end - k_begin + kBM - 1) / kBM;
+
+  load_tile<D, 128>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
+  load_tile<D, 128>(gs, dout + b * sd.b + h * sd.h, sd.s, q0, S, tid);
+  load_tile<D, 128>(qs + 2 * kTileBytes, kb, sk.s, k_begin, S, tid);
+  load_tile<D, 128>(qs + 3 * kTileBytes, vb, sv.s, k_begin, S, tid);
+  cp_async_commit();
+
+  // delta = dO . O of the block's rows, two threads a row (16-byte loads),
+  // kept for the products and written out for dkdv.
+  const long long at = ((long long)b * H + h) * S;
+  {
+    const int r = tid >> 1, qi = q0 + r;
+    float d = 0.0f;
+    if (qi < S) {
+      const bf16* orow = o + b * so.b + h * so.h + qi * so.s + (tid & 1) * 8;
+      const bf16* grow =
+          dout + b * sd.b + h * sd.h + qi * sd.s + (tid & 1) * 8;
+#pragma unroll
+      for (int c = 0; c < D; c += 16) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+        const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float2 a = __bfloat1622float2(o2[j]);
+          const float2 g = __bfloat1622float2(g2[j]);
+          d = fmaf(a.x, g.x, d);
+          d = fmaf(a.y, g.y, d);
+        }
+      }
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if ((tid & 1) == 0) {
+      delta_s[r] = d;
+      lse_s[r] = qi < S ? lse[at + qi] : 0.0f;
+      if (qi < S) delta[at + qi] = d;
+    }
+  }
+  __syncthreads();
+  float lse2[2], del[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse2[r] = lse_s[frag_row(warp, lane, 2 * r)] * kLog2e;
+    del[r] = delta_s[frag_row(warp, lane, 2 * r)];
+  }
+
+  float acc[NB][32];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = k_begin + t * kBM;
+    if (t + 1 < n_tiles) {              // prefetch the next tile
+      const uint32_t nxt = qs + (2 + 2 * ((t + 1) % kStages)) * kTileBytes;
+      load_tile<D, 128>(nxt, kb, sk.s, k0 + kBM, S, tid);
+      load_tile<D, 128>(nxt + kTileBytes, vb, sv.s, k0 + kBM, S, tid);
+      cp_async_commit();
+      cp_async_wait<1>();               // this tile (and Q, dO) landed
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+    const uint32_t ks = qs + (2 + 2 * (t % kStages)) * kTileBytes;
+    const uint32_t vs = ks + kTileBytes;
+
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    wgmma_ss_tile<D>(s, qs, ks);        // S = Q K^T
+    wgmma_ss_tile<D>(dp, gs, vs);       // dP = dO V^T
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool edge = mk.edge<kBM>(q0, k0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float dsc;
+        float p = prob(s[4 * i + e], lse2[e >> 1], mk, &dsc);
+        if (edge && !mk.ok(q0 + frag_row(warp, lane, e),
+                           k0 + frag_col(lane, i, e)))
+          p = 0.0f;
+        s[4 * i + e] = p * (dp[4 * i + e] - del[e >> 1]) * dsc;
+      }
+    }
+    uint32_t hi[16], lo[16];
+    split_bf16(s, hi, lo);
+    wgmma_fence();
+    wgmma_rs_tile<NB>(acc, hi, lo, split & kSplitDsQ, ks);   // dQ += dS K
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
+    __syncthreads();                    // this stage is free for reuse
+  }
+  store_rows<NB>(acc, dq + b * sdq.b + h * sdq.h + q0 * sdq.s, sdq.s, S - q0,
+                 warp, lane);
+}
+
+// dK and dV of 64 keys of one (b, KV head): warpgroup 0 sums dV,
+// warpgroup 1 dK. At D = 64 two blocks share an SM (128 registers).
+template <int D>
+__global__ void __launch_bounds__(256, D == 64 ? 2 : 1)
+flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dk,
+                  bf16* __restrict__ dv, Strides3 sq, Strides3 sk,
+                  Strides3 sv, Strides3 sd, Strides3 sdk, Strides3 sdv,
+                  int H, int rep, Masks mk, int split) {
+  constexpr int NB = D / 64;
+  constexpr int kTileBytes = NB * kBlockBytes;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ float lse_s[kStages][kBM], delta_s[kStages][kBM];
+  const uint32_t ks = (smem_addr(smem_raw) + 1023u) & ~1023u;
+  const uint32_t vs = ks + kTileBytes;
+  // Stage st: Q at ks + (2 + 2 st) kTileBytes, dO right after it.
+
+  // Grid: x = (batch, KV head); y = key tile from the first, so the
+  // heaviest under a causal mask start first over every head and batch.
+  const int KV = H / rep, b = blockIdx.x / KV;
+  const int g = blockIdx.x % KV, S = mk.S;
+  const int k0 = blockIdx.y * kBM;
+  const int tid = threadIdx.x, grp = tid >> 7, t128 = tid & 127;
+  const int warp = t128 >> 5, lane = tid & 31;
+  int q_begin, q_end;
+  mk.query_range<kBM>(k0, &q_begin, &q_end);
+  const int n_q = q_end > q_begin ? (q_end - q_begin + kBM - 1) / kBM : 0;
+  const int n_it = rep * n_q;
+
+  // Iteration it: query head g rep + it / n_q, tile q_begin + 64 (it % n_q).
+  auto prefetch = [&](int it) {
+    const int h = g * rep + it / n_q, q0 = q_begin + (it % n_q) * kBM;
+    const int st = it % kStages;
+    const uint32_t dst = ks + (2 + 2 * st) * kTileBytes;
+    load_tile<D, 256>(dst, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
+    load_tile<D, 256>(dst + kTileBytes, dout + b * sd.b + h * sd.h, sd.s, q0,
+                      S, tid);
+    const long long at = ((long long)b * H + h) * S;
+    if (tid < kBM) load_row_stats(lse_s[st], lse + at, q0, S, tid);
+    else if (tid < 2 * kBM)
+      load_row_stats(delta_s[st], delta + at, q0, S, tid - kBM);
+  };
+  load_tile<D, 256>(ks, k + b * sk.b + g * sk.h, sk.s, k0, S, tid);
+  load_tile<D, 256>(vs, v + b * sv.b + g * sv.h, sv.s, k0, S, tid);
+  if (n_it > 0) prefetch(0);
+  cp_async_commit();
+
+  float acc[NB][32];
+#pragma unroll
+  for (int c = 0; c < NB; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int q0 = q_begin + (it % n_q) * kBM;
+    if (it + 1 < n_it) {
+      prefetch(it + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    fence_async_shared();
+    __syncthreads();
+    const int st = it % kStages;
+    const uint32_t qs = ks + (2 + 2 * st) * kTileBytes;
+    const uint32_t gs = qs + kTileBytes;
+    const float* lse_t = lse_s[st];
+    const float* del_t = delta_s[st];
+
+    // Rows of these fragments are keys, columns queries.
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+    fence_regs(s);
+    fence_regs(dp);
+    wgmma_fence();
+    wgmma_ss_tile<D>(s, ks, qs);        // S^T = K Q^T
+    if (grp == 1) wgmma_ss_tile<D>(dp, vs, gs);   // dP^T = V dO^T
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(dp);
+
+    const bool edge = mk.edge<kBM>(q0, k0);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = frag_col(lane, i, e);
+        float dsc;
+        float p = prob(s[4 * i + e], lse_t[col] * kLog2e, mk, &dsc);
+        if (edge && !mk.ok(q0 + col, k0 + frag_row(warp, lane, e)))
+          p = 0.0f;
+        s[4 * i + e] =
+            grp == 0 ? p : p * (dp[4 * i + e] - del_t[col]) * dsc;
+      }
+    }
+    uint32_t hi[16], lo[16];
+    split_bf16(s, hi, lo);
+    wgmma_fence();
+    if (grp == 0)
+      wgmma_rs_tile<NB>(acc, hi, lo, split & kSplitP, gs);    // dV += P^T dO
+    else
+      wgmma_rs_tile<NB>(acc, hi, lo, split & kSplitDsK, qs);  // dK += dS^T Q
+    wgmma_commit();
+    wgmma_wait_all();
+#pragma unroll
+    for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
+    __syncthreads();                    // this stage is free for reuse
+  }
+  cp_async_wait<0>();                   // K and V, when no query reaches
+  if (grp == 0)
+    store_rows<NB>(acc, dv + b * sdv.b + g * sdv.h + k0 * sdv.s, sdv.s,
+                   S - k0, warp, lane);
+  else
+    store_rows<NB>(acc, dk + b * sdk.b + g * sdk.h + k0 * sdk.s, sdk.s,
+                   S - k0, warp, lane);
+}
+
+}  // namespace tc
 
 // Raise a kernel's dynamic shared-memory limit once per device.
 template <typename Kernel>
@@ -374,78 +692,106 @@ cudaError_t set_smem_once(Kernel kernel, int bytes, int device,
   return err;
 }
 
+struct Args {
+  const void *q, *k, *v, *o, *dout;
+  const float* lse;
+  void *dq, *dk, *dv;
+  float* delta;
+  Strides3 st[8];                       // q, k, v, o, dO, dQ, dK, dV
+  int B, H, KV, split;
+  Masks mk;
+};
+
 template <int D, typename T>
-cudaError_t launch_all(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, void* dq, void* dk,
-                       void* dv, float* lse, float* delta,
-                       const Strides3* st, int B, int H, int KV, Masks mk,
-                       int device, cudaStream_t stream) {
-  static std::atomic<unsigned> done_rows{0}, done_kv{0}, done_q{0};
+cudaError_t launch_simt(const Args& a, int device, cudaStream_t stream) {
+  using namespace simt;
+  static std::atomic<unsigned> done_kv{0}, done_q{0};
   const int bytes = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err;
-  if ((err = set_smem_once(flash_bwd_rows_kernel<D, T>, bytes, device,
-                           done_rows)) ||
-      (err = set_smem_once(flash_bwd_dkdv_kernel<D, T>, bytes, device,
+  if ((err = set_smem_once(flash_bwd_dkdv_kernel<D, T>, bytes, device,
                            done_kv)) ||
       (err = set_smem_once(flash_bwd_dq_kernel<D, T>, bytes, device,
                            done_q)))
     return err;
-  const int rep = H / KV, tiles = (mk.S + kB - 1) / kB;
-  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
-          *tv = static_cast<const T*>(v), *to = static_cast<const T*>(o),
-          *tg = static_cast<const T*>(dout);
-  // st: q, k, v, o, dO, dQ, dK, dV.
-  flash_bwd_rows_kernel<D, T><<<dim3(tiles, H, B), kThreads, bytes,
-                                 stream>>>(
-      tq, tk, to, tg, lse, delta, st[0], st[1], st[3], st[4], H, rep, mk);
-  if ((err = cudaGetLastError())) return err;
-  flash_bwd_dkdv_kernel<D, T><<<dim3(tiles, KV, B), kThreads, bytes,
-                                 stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      st[0], st[1], st[2], st[4], st[6], st[7], H, rep, mk);
-  if ((err = cudaGetLastError())) return err;
-  flash_bwd_dq_kernel<D, T><<<dim3(tiles, H, B), kThreads, bytes,
+  const int rep = a.H / a.KV, tiles = (a.mk.S + kB - 1) / kB;
+  const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
+          *v = static_cast<const T*>(a.v), *o = static_cast<const T*>(a.o),
+          *g = static_cast<const T*>(a.dout);
+  const Strides3* st = a.st;
+  flash_bwd_dq_kernel<D, T><<<dim3(tiles, a.H, a.B), kThreads, bytes,
                                stream>>>(
-      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), st[0], st[1], st[2],
-      st[4], st[5], H, rep, mk);
+      q, k, v, o, g, a.lse, a.delta, static_cast<T*>(a.dq), st[0], st[1],
+      st[2], st[3], st[4], st[5], a.H, rep, a.mk);
+  if ((err = cudaGetLastError())) return err;
+  flash_bwd_dkdv_kernel<D, T><<<dim3(tiles, a.KV, a.B), kThreads, bytes,
+                                 stream>>>(
+      q, k, v, g, a.lse, a.delta, static_cast<T*>(a.dk),
+      static_cast<T*>(a.dv), st[0], st[1], st[2], st[4], st[6], st[7], a.H,
+      rep, a.mk);
   return cudaGetLastError();
 }
 
-template <typename T>
+// q, k, v, o and dO must start every row on 16 bytes (the wrapper copies
+// them when they do not).
+template <int D>
+cudaError_t launch_tc(const Args& a, int device, cudaStream_t stream) {
+  using namespace tc;
+  static std::atomic<unsigned> done_kv{0}, done_q{0};
+  constexpr int bytes = smem_bytes<D>();
+  cudaError_t err;
+  if ((err = set_smem_once(flash_bwd_dkdv_tc<D>, bytes, device, done_kv)) ||
+      (err = set_smem_once(flash_bwd_dq_tc<D>, bytes, device, done_q)))
+    return err;
+  const int rep = a.H / a.KV, tiles = (a.mk.S + kBM - 1) / kBM;
+  const bf16 *q = static_cast<const bf16*>(a.q),
+             *k = static_cast<const bf16*>(a.k),
+             *v = static_cast<const bf16*>(a.v),
+             *o = static_cast<const bf16*>(a.o),
+             *g = static_cast<const bf16*>(a.dout);
+  const Strides3* st = a.st;
+  flash_bwd_dq_tc<D><<<dim3(a.B * a.H, tiles), 128, bytes, stream>>>(
+      q, k, v, o, g, a.lse, a.delta, static_cast<bf16*>(a.dq), st[0], st[1],
+      st[2], st[3], st[4], st[5], a.H, rep, a.mk, a.split);
+  if ((err = cudaGetLastError())) return err;
+  flash_bwd_dkdv_tc<D><<<dim3(a.B * a.KV, tiles), 256, bytes, stream>>>(
+      q, k, v, g, a.lse, a.delta, static_cast<bf16*>(a.dk),
+      static_cast<bf16*>(a.dv), st[0], st[1], st[2], st[4], st[6], st[7],
+      a.H, rep, a.mk, a.split);
+  return cudaGetLastError();
+}
+
+template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, void* lse,
+           const void* dout, const void* lse, void* dq, void* dk, void* dv,
            void* delta, const int64_t* strides, int B, int H, int KV, int S,
            int D, float scale, int causal, int window, float softcap,
-           int device, void* stream) {
+           int split, int device, void* stream) {
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  Strides3 st[8];
+  Args a{q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv,
+         static_cast<float*>(delta), {}, B, H, KV, split,
+         Masks{S, causal, window, scale, softcap}};
   for (int i = 0; i < 8; ++i)
-    st[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  const Masks mk{S, causal, window, scale, softcap};
+    a.st[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float *fl = static_cast<float*>(lse), *fd = static_cast<float*>(delta);
-  switch (D) {
-    case 32:
-      err = launch_all<32, T>(q, k, v, o, dout, dq, dk, dv, fl, fd, st, B, H,
-                              KV, mk, device, s);
-      break;
-    case 64:
-      err = launch_all<64, T>(q, k, v, o, dout, dq, dk, dv, fl, fd, st, B, H,
-                              KV, mk, device, s);
-      break;
-    case 128:
-      err = launch_all<128, T>(q, k, v, o, dout, dq, dk, dv, fl, fd, st, B,
-                               H, KV, mk, device, s);
-      break;
-    case 256:
-      err = launch_all<256, T>(q, k, v, o, dout, dq, dk, dv, fl, fd, st, B,
-                               H, KV, mk, device, s);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  if constexpr (kBf16) {
+    switch (D) {
+      case 32: err = launch_simt<32, __nv_bfloat16>(a, device, s); break;
+      case 64: err = launch_tc<64>(a, device, s); break;
+      case 128: err = launch_tc<128>(a, device, s); break;
+      case 256: err = launch_tc<256>(a, device, s); break;
+      default: err = cudaErrorInvalidValue;
+    }
+  } else {
+    switch (D) {
+      case 32: err = launch_simt<32, float>(a, device, s); break;
+      case 64: err = launch_simt<64, float>(a, device, s); break;
+      case 128: err = launch_simt<128, float>(a, device, s); break;
+      case 256: err = launch_simt<256, float>(a, device, s); break;
+      default: err = cudaErrorInvalidValue;
+    }
   }
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
@@ -454,24 +800,29 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // C entry points (bound with ctypes). strides: (b, h, s) of q, k, v, o,
-// dO, dQ, dK, dV in elements; lse and delta are (B, H, S) f32 scratch;
-// window 0 = none, softcap 0 = none. Return the launches' CUDA error.
+// dO, dQ, dK, dV in elements; lse the forward's dense (B, H, S) f32
+// log-sum-exp, delta (B, H, S) f32 scratch; window 0 = none, softcap 0 =
+// none; split: the bf16 operands that go in as hi + lo (bit 0 P for dV,
+// bit 1 dS for dK, bit 2 dS for dQ; f32 ignores it). Return the
+// launches' CUDA error.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
-    const int64_t* strides, int B, int H, int KV, int S, int D, float scale,
-    int causal, int window, float softcap, int device, void* stream) {
-  return launch<float>(q, k, v, o, dout, dq, dk, dv, lse, delta, strides, B,
-                       H, KV, S, D, scale, causal, window, softcap, device,
-                       stream);
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* delta, const int64_t* strides, int B, int H, int KV, int S, int D,
+    float scale, int causal, int window, float softcap, int split,
+    int device, void* stream) {
+  return launch<false>(q, k, v, o, dout, lse, dq, dk, dv, delta, strides, B,
+                       H, KV, S, D, scale, causal, window, softcap, split,
+                       device, stream);
 }
 
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* lse, void* delta,
-    const int64_t* strides, int B, int H, int KV, int S, int D, float scale,
-    int causal, int window, float softcap, int device, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, dout, dq, dk, dv, lse, delta,
-                               strides, B, H, KV, S, D, scale, causal, window,
-                               softcap, device, stream);
+    const void* dout, const void* lse, void* dq, void* dk, void* dv,
+    void* delta, const int64_t* strides, int B, int H, int KV, int S, int D,
+    float scale, int causal, int window, float softcap, int split,
+    int device, void* stream) {
+  return launch<true>(q, k, v, o, dout, lse, dq, dk, dv, delta, strides, B,
+                      H, KV, S, D, scale, causal, window, softcap, split,
+                      device, stream);
 }

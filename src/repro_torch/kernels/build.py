@@ -26,6 +26,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("prox_sgd.cu", "fedagg.cu", "flash_attention.cu", "wkv6.cu",
            "flash_attention_bwd.cu", "wkv6_bwd.cu")
+# Included by the sources: hashed with them, so an edit rebuilds.
+HEADERS = ("wgmma.cuh",)
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -57,27 +59,30 @@ _SIGNATURES = {
                            _vp],
     "fedagg_batched_bf16": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _i32,
                             _vp],
-    # q, k, v, o, strides[4][3] (b, h, s of q, k, v, o), B, H, KV, S, D,
-    # scale, causal, window (0 = none), softcap (0 = none), device, stream
-    "flash_attention_f32": [_vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
-                            _i32, _i32, _f32, _i32, _i32, _f32, _i32, _vp],
-    "flash_attention_bf16": [_vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
-                             _i32, _i32, _f32, _i32, _i32, _f32, _i32, _vp],
+    # q, k, v, o, lse (or null), strides[4][3] (b, h, s of q, k, v, o), B,
+    # H, KV, S, D, scale, causal, window (0 = none), softcap (0 = none),
+    # device, stream
+    "flash_attention_f32": [_vp] * 5 + [_i64p, _i32, _i32, _i32, _i32, _i32,
+                                        _f32, _i32, _i32, _f32, _i32, _vp],
+    "flash_attention_bf16": [_vp] * 5 + [_i64p, _i32, _i32, _i32, _i32,
+                                         _i32, _f32, _i32, _i32, _f32, _i32,
+                                         _vp],
     # r, k, v, logw, s0, o, s_final, strides[7][4], B, H, T, K, V, chunk,
     # states, flags, device, stream
     "wkv6_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
                  _i32, _i32, _i32, _vp, _vp, _i32, _vp],
-    # q, k, v, o, dO, dQ, dK, dV, lse, delta, strides[8][3] (b, h, s), B,
-    # H, KV, S, D, scale, causal, window, softcap, device, stream
+    # q, k, v, o, dO, lse, dQ, dK, dV, delta, strides[8][3] (b, h, s), B,
+    # H, KV, S, D, scale, causal, window, softcap, split, device, stream
     "flash_attention_bwd_f32": [_vp] * 10 + [_i64p, _i32, _i32, _i32, _i32,
                                              _i32, _f32, _i32, _i32, _f32,
-                                             _i32, _vp],
+                                             _i32, _i32, _vp],
     "flash_attention_bwd_bf16": [_vp] * 10 + [_i64p, _i32, _i32, _i32, _i32,
                                               _i32, _f32, _i32, _i32, _f32,
-                                              _i32, _vp],
+                                              _i32, _i32, _vp],
     # r, k, v, logw, s0, dO, dS_T (or null), dr, dk, dv, dlogw, ds0,
-    # states, strides[7][4], B, H, T, K, V, chunk, device, stream
-    "wkv6_bwd_f32": [_vp] * 13 + [_i64p, _i32, _i32, _i32, _i32, _i32, _i32,
+    # states, xfer, flags, strides[7][4], B, H, T, K, V, chunk, device,
+    # stream
+    "wkv6_bwd_f32": [_vp] * 15 + [_i64p, _i32, _i32, _i32, _i32, _i32, _i32,
                                   _i32, _vp],
 }
 
@@ -100,7 +105,7 @@ def find_nvcc() -> str:
 def _digest(nvcc: str) -> str:
     h = hashlib.sha256()
     h.update(" ".join([nvcc] + FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

@@ -15,9 +15,11 @@ transposed views, and the output keeps q's memory layout
 (`torch.empty_like`). The bf16 kernel loads rows with 16-byte copies, so
 a bf16 input whose rows do not start on 16 bytes is copied first.
 
-`flash_attention_bwd` launches the gradient's kernels
-(`repro_torch/csrc/flash_attention_bwd.cu`): dq, dk, dv from q, k, v, the
-forward's output and its gradient, with the same masks and strides.
+`flash_attention(..., return_lse=True)` also returns each row's
+log-sum-exp, which `flash_attention_bwd` takes to launch the gradient's
+kernels (`repro_torch/csrc/flash_attention_bwd.cu`): dq, dk, dv from q,
+k, v, the forward's output, its lse and the output's gradient, with the
+same masks and strides.
 """
 from __future__ import annotations
 
@@ -35,34 +37,40 @@ _DTYPES = {torch.float32: "flash_attention_f32",
 HEAD_DIMS = {torch.float32: (32, 64, 128, 256),
              torch.bfloat16: (64, 128, 256)}
 BWD_HEAD_DIMS = (32, 64, 128, 256)
+# The bf16 backward's operands that go in as two bf16 products (hi + lo)
+# rather than one rounding: bit 0 P (for dV), bit 1 dS (dK), bit 2 dS (dQ).
+SPLIT_ALL = 0b111
 _BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
                 torch.bfloat16: "flash_attention_bwd_bf16"}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
-                    softcap: float | None = None) -> torch.Tensor:
+                    softcap: float | None = None, return_lse: bool = False):
     """Launch the kernel on CUDA tensors. q: (B, H, S, D); k/v:
     (B, KV, S, D) with H % KV == 0; one dtype, f32 or bf16; D in
     HEAD_DIMS of that dtype. A (q, k) pair counts if `kpos <= qpos`
     (causal) and `qpos - kpos < window`. Returns (B, H, S, D) in q's
-    dtype and memory layout."""
+    dtype and memory layout; with `return_lse`, also each row's
+    log-sum-exp, a dense (B, H, S) float32 tensor."""
     B, H, S, D, KV = _check(q, k, v, HEAD_DIMS.get(q.dtype, ()),
                             window, softcap, "flash_attention")
     out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    if q.dtype == torch.bfloat16:
-        q, k, v = (t if _rows_aligned(t) else t.clone(
-            memory_format=torch.contiguous_format) for t in (q, k, v))
-    strides = (ctypes.c_int64 * 12)(*(
-        s for t in (q, k, v, out) for s in t.stride()[:3]))
-    fn = build.entry(_DTYPES[q.dtype])
-    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                   strides, B, H, KV, S, D, float(D ** -0.5), int(causal),
-                   int(window or 0), float(softcap or 0.0), q.device.index,
-                   current_stream(q.device.index)), "flash_attention")
-    return out
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
+        if return_lse else None
+    if out.numel() > 0:
+        if q.dtype == torch.bfloat16:
+            q, k, v = (_aligned(t) for t in (q, k, v))
+        strides = (ctypes.c_int64 * 12)(*(
+            s for t in (q, k, v, out) for s in t.stride()[:3]))
+        fn = build.entry(_DTYPES[q.dtype])
+        build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       out.data_ptr(), None if lse is None else lse.data_ptr(),
+                       strides, B, H, KV, S, D, float(D ** -0.5),
+                       int(causal), int(window or 0), float(softcap or 0.0),
+                       q.device.index, current_stream(q.device.index)),
+                    "flash_attention")
+    return (out, lse) if return_lse else out
 
 
 def _check(q, k, v, head_dims, window, softcap, what: str):
@@ -97,15 +105,16 @@ def _check(q, k, v, head_dims, window, softcap, what: str):
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        o: torch.Tensor, do: torch.Tensor, *,
-                        causal: bool = True, window: int | None = None,
-                        softcap: float | None = None
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True, window: int | None = None,
+                        softcap: float | None = None, split: int = SPLIT_ALL
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels (`csrc/flash_attention_bwd.cu`) on CUDA
-    tensors: q, k, v as for `flash_attention`, o its output and do the
-    gradient of o (both (B, H, S, D), q's dtype). Returns (dq, dk, dv) in
-    the input dtype, each in its input's memory layout. D in
-    BWD_HEAD_DIMS for both dtypes."""
+    tensors: q, k, v as for `flash_attention`, o its output, do the
+    gradient of o (both (B, H, S, D), q's dtype) and lse the forward's
+    (`return_lse`; dense (B, H, S) float32). Returns (dq, dk, dv) in the
+    input dtype, each in its input's memory layout. D in BWD_HEAD_DIMS
+    for both dtypes; `split` (bf16 only) as SPLIT_ALL's bits."""
     B, H, S, D, KV = _check(q, k, v, BWD_HEAD_DIMS, window, softcap,
                             "flash_attention_bwd")
     for name, t in (("o", o), ("do", do)):
@@ -114,26 +123,33 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"flash_attention_bwd: {name} must match q "
                              f"({tuple(q.shape)}, {q.dtype}, {q.device}) "
                              "with a contiguous last axis")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
+                         f"({B}, {H}, {S}) float32 tensor on {q.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    # Row statistics (log-sum-exp and dO . O), recomputed by the kernel's
-    # pre-pass.
-    lse, delta = (torch.empty((B, H, S), dtype=torch.float32,
-                              device=q.device) for _ in range(2))
+    if q.dtype == torch.bfloat16 and D > 32:
+        q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
+    # dO . O per row: computed by the dq kernel, read by the dk/dv kernel.
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(*(
         s for t in (q, k, v, o, do, dq, dk, dv) for s in t.stride()[:3]))
     fn = build.entry(_BWD_ENTRIES[q.dtype])
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                   do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                   lse.data_ptr(), delta.data_ptr(), strides, B, H, KV, S, D,
-                   float(D ** -0.5), int(causal), int(window or 0),
-                   float(softcap or 0.0), q.device.index,
-                   current_stream(q.device.index)), "flash_attention_bwd")
+                   do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                   dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), strides,
+                   B, H, KV, S, D, float(D ** -0.5), int(causal),
+                   int(window or 0), float(softcap or 0.0), int(split),
+                   q.device.index, current_stream(q.device.index)),
+                "flash_attention_bwd")
     return dq, dk, dv
 
 
-def _rows_aligned(t: torch.Tensor) -> bool:
-    """Whether every (b, h, s) row of t starts on 16 bytes."""
-    return (t.data_ptr() % 16 == 0
-            and all(st % 8 == 0 for st in t.stride()[:3]))
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a dense copy where a (b, h, s) row of t does not start on 16
+    bytes (the bf16 tensor-core kernels load rows with 16-byte copies)."""
+    if t.data_ptr() % 16 == 0 and all(st % 8 == 0 for st in t.stride()[:3]):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)

@@ -12,8 +12,11 @@ kernels (`fedagg`, `prox_sgd`) and the LM's two (`flash_attention`,
 (`torch.autograd.Function`): their backward is a kernel too
 (`flash_attention_bwd`, `wkv6_bwd`, counted under those names), or on
 the CPU the plain backward of `ref`, the kernel's own formulas written
-out (not autograd of the plain forward). The reference has no backward
-kernel: it differentiates its jnp attention and scan.
+out (not autograd of the plain forward). Where a gradient is wanted the
+forward keeps what the backward would otherwise recompute: each
+attention row's log-sum-exp, and each scan chunk's start state. The
+reference has no backward kernel: it differentiates its jnp attention
+and scan.
 """
 from __future__ import annotations
 
@@ -71,28 +74,32 @@ def prox_sgd_op(w: torch.Tensor, g: torch.Tensor, w0: torch.Tensor,
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
+        keep = any(ctx.needs_input_grad[:3])     # lse, for the backward
         if q.device.type == "cpu":
-            o = ref.flash_attention_ref(q, k, v, causal, window, softcap)
+            out = ref.flash_attention_ref(q, k, v, causal, window, softcap,
+                                          return_lse=keep)
         else:
-            o = flash_attention(q, k, v, causal=causal, window=window,
-                                softcap=softcap)
+            out = flash_attention(q, k, v, causal=causal, window=window,
+                                  softcap=softcap, return_lse=keep)
             LAUNCHES["flash_attention"] += 1
-        ctx.save_for_backward(q, k, v, o)
+        o, lse = out if keep else (out, None)
+        ctx.save_for_backward(q, k, v, o, lse)
         ctx.masks = (causal, window, softcap)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, o = ctx.saved_tensors
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, softcap = ctx.masks
         if q.device.type == "cpu":
             dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, do,
-                                                     *ctx.masks)
+                                                     *ctx.masks, lse=lse)
         else:
-            causal, window, softcap = ctx.masks
             if do.stride(-1) != 1:
                 do = do.contiguous()
-            dq, dk, dv = flash_attention_bwd(q, k, v, o, do, causal=causal,
-                                             window=window, softcap=softcap)
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse,
+                                             causal=causal, window=window,
+                                             softcap=softcap)
             LAUNCHES["flash_attention_bwd"] += 1
         return dq, dk, dv, None, None, None
 
@@ -109,26 +116,30 @@ def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 class _Wkv6(torch.autograd.Function):
     @staticmethod
     def forward(ctx, r, k, v, logw, s0, chunk):
+        # Each chunk's start state, for the backward (13 MB a layer at
+        # full-width hymba-1.5b, batch 2 x 2048).
+        keep = any(ctx.needs_input_grad[:5])
         if r.device.type == "cpu":
-            o, s_final = ref.wkv6_ref(r, k, v, logw, s0, chunk)
+            out = ref.wkv6_ref(r, k, v, logw, s0, chunk, return_states=keep)
         else:
-            o, s_final = wkv6(r, k, v, logw, s0, chunk=chunk)
+            out = wkv6(r, k, v, logw, s0, chunk=chunk, return_states=keep)
             LAUNCHES["wkv6"] += 1
-        ctx.save_for_backward(r, k, v, logw, s0)
+        o, s_final, *states = out
+        ctx.save_for_backward(r, k, v, logw, s0, *states)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
         return o, s_final
 
     @staticmethod
     def backward(ctx, do, ds_final):
-        r, k, v, logw, s0 = ctx.saved_tensors
+        r, k, v, logw, s0, states = ctx.saved_tensors
         if do is None:
             do = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
         if r.device.type == "cpu":
             grads = ref.wkv6_bwd_ref(r, k, v, logw, s0, do, ds_final,
-                                     ctx.chunk)
+                                     ctx.chunk, states)
         else:
-            grads = wkv6_bwd(r, k, v, logw, s0, do, ds_final,
+            grads = wkv6_bwd(r, k, v, logw, s0, do, ds_final, states,
                              chunk=ctx.chunk)
             LAUNCHES["wkv6_bwd"] += 1
         return (*grads, None)

@@ -70,13 +70,37 @@ def fedagg_batched_ref(x: torch.Tensor, w: torch.Tensor,
                    scale_of(s)) for s in range(x.shape[0])])
 
 
+def _pair_mask(S: int, causal: bool, window: int | None,
+               device) -> torch.Tensor:
+    """(S, S) bool: whether query qpos attends to key kpos."""
+    qpos = torch.arange(S, device=device)[:, None]
+    kpos = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    return mask
+
+
+def _row_lse(s: torch.Tensor) -> torch.Tensor:
+    """log sum exp over the last axis of masked scores, the sum clamped at
+    1e-30 as the kernels' denominator, without the last axis."""
+    m = s.amax(-1, keepdim=True)
+    return (m + torch.log(torch.clamp(torch.exp(s - m).sum(-1, keepdim=True),
+                                      min=1e-30)))[..., 0]
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int | None = None,
-                        softcap: float | None = None) -> torch.Tensor:
+                        softcap: float | None = None,
+                        return_lse: bool = False):
     """q: (B,H,S,D), k/v: (B,KV,S,D) -> (B,H,S,D) in q.dtype. Naive
     softmax in f32 over positions 0..S-1; query head h reads KV head
     h // (H / KV). A pair counts if `kpos <= qpos` (causal) and
-    `qpos - kpos < window`."""
+    `qpos - kpos < window`. With `return_lse`, also each row's
+    log-sum-exp over its counted pairs, (B,H,S) float32, as the kernel
+    writes it for the backward."""
     B, H, S, D = q.shape
     rep = H // k.shape[1]
     k = k.repeat_interleave(rep, dim=1)
@@ -84,23 +108,20 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
-    s = torch.where(mask, s, -1e30)
+    s = torch.where(_pair_mask(S, causal, window, q.device), s, -1e30)
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+    return (o, _row_lse(s)) if return_lse else o
 
 
 def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             logw: torch.Tensor, s0: torch.Tensor,
-             chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+             logw: torch.Tensor, s0: torch.Tensor, chunk: int = 64,
+             return_states: bool = False) -> tuple[torch.Tensor, ...]:
     """Strict-past chunked decay scan, f32. r/k/logw: (B,H,T,K); v:
-    (B,H,T,V); s0: (B,H,K,V) -> (o (B,H,T,V), s_final (B,H,K,V)).
+    (B,H,T,V); s0: (B,H,K,V) -> (o (B,H,T,V), s_final (B,H,K,V)); with
+    `return_states`, also the start states of chunks 1 .. n - 1,
+    (n - 1, B,H,K,V) for n = ceil(T / chunk) chunks, as the kernel keeps
+    them for the backward.
 
     T is zero-padded to a multiple of `chunk` (zero r/k/v with logw = 0
     leave the state unchanged). Per chunk, with logc the inclusive and
@@ -116,8 +137,10 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), diagonal=-1)
     s = s0.float()
-    outs = []
+    outs, states = [], []
     for c in range(0, T + pad, chunk):
+        if c:
+            states.append(s)
         rc, kc, vc, wc = (x[:, :, c:c + chunk] for x in (r, k, v, logw))
         logc = torch.cumsum(wc, dim=2)
         logb = logc - wc
@@ -131,22 +154,28 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kd = kc * torch.exp(total - logc)
         s = s * torch.exp(total[:, :, 0, :, None]) \
             + torch.einsum("bhik,bhiv->bhkv", kd, vc)
-    return torch.cat(outs, dim=2)[:, :, :T], s
+    o = torch.cat(outs, dim=2)[:, :, :T]
+    if not return_states:
+        return o, s
+    return o, s, (torch.stack(states) if states else
+                  s.new_empty((0, *s.shape)))
 
 
 def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             v: torch.Tensor, o: torch.Tensor,
                             do: torch.Tensor, causal: bool = True,
                             window: int | None = None,
-                            softcap: float | None = None
+                            softcap: float | None = None,
+                            lse: torch.Tensor | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The backward kernel's formulas (`csrc/flash_attention_bwd.cu`), in
     f32: q (B,H,S,D), k/v (B,KV,S,D), o the forward's output and do its
     gradient (B,H,S,D) -> (dq, dk, dv) in the input dtypes.
 
-    Row statistics first (the kernel's pre-pass): lse = log sum_k exp(s)
-    over the counted pairs and delta = sum_d do o. Then
+    Row statistics first: lse = log sum_k exp(s) over the counted pairs
+    (the forward's, `flash_attention_ref(..., return_lse=True)`, when
+    given; else recomputed the same way) and delta = sum_d do o. Then
       p  = exp(s - lse) (exactly 0 where masked),
       dv = sum over the KV head's query heads of p^T do,
       ds = p (do v^T - delta) softcap'(raw) scale,
@@ -165,17 +194,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         t = torch.tanh(s / softcap)
         s = softcap * t
         dscore = (1.0 - t * t) * scale
-    qpos = torch.arange(S, device=q.device)[:, None]
-    kpos = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qpos >= kpos
-    if window is not None:
-        mask &= (qpos - kpos) < window
+    mask = _pair_mask(S, causal, window, q.device)
     s = torch.where(mask, s, -1e30)
-    m = s.amax(-1, keepdim=True)
-    lse = m + torch.log(torch.clamp(torch.exp(s - m).sum(-1, keepdim=True),
-                                    min=1e-30))
+    lse = (_row_lse(s) if lse is None else lse.float())[..., None]
     delta = (dof * of).sum(-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - lse), 0.0)
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
@@ -188,17 +209,21 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
 
 def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  logw: torch.Tensor, s0: torch.Tensor, do: torch.Tensor,
-                 ds_final: torch.Tensor | None = None, chunk: int = 64
+                 ds_final: torch.Tensor | None = None, chunk: int = 64,
+                 states: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, ...]:
-    """The backward kernel's formulas (`csrc/wkv6_bwd.cu`), in f32: the
-    inputs of `wkv6_ref`, do (B,H,T,V) the gradient of o and ds_final
-    (B,H,K,V) that of the end state (None: zero) -> (dr, dk, dv, dlogw,
-    ds0).
+    """The backward kernel's formulas (`csrc/wkv6_bwd.cu`), in f32 (in
+    f64 when r is f64: the exact gradient the card checks read the
+    roundings of both against): the inputs of `wkv6_ref`, do (B,H,T,V)
+    the gradient of o and ds_final (B,H,K,V) that of the end state
+    (None: zero) -> (dr, dk, dv, dlogw, ds0).
 
-    A forward pass recomputes each chunk's start state S (never dividing
-    by the decay). Then, from the last chunk back, with dS the gradient of
-    the chunk's end state, logc / logb the inclusive / exclusive
-    cumulative log decay and e[t,i,k] = exp(min(logb[t,k] - logc[i,k], 0)):
+    Each chunk's start state S is s0 or, for chunk c > 0, `states[c - 1]`
+    (the forward's, `wkv6_ref(..., return_states=True)`); without
+    `states` a forward pass recomputes them (never dividing by the
+    decay). Then, from the last chunk back, with dS the gradient of the
+    chunk's end state, logc / logb the inclusive / exclusive cumulative
+    log decay and e[t,i,k] = exp(min(logb[t,k] - logc[i,k], 0)):
       A[t,i] = sum_k r[t,k] k[i,k] e[t,i,k],  dA[t,i] = do[t] . v[i]
                (both for i < t, else 0)
       dv[i]  = sum_{t>i} A[t,i] do[t] + (k[i] exp(logc[-1] - logc[i]))^T dS
@@ -209,22 +234,29 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and dlogw[s] = sum_{t>=s} (q_t - p_t) - q_s + sum_v dS_T S_T over the
     whole sequence, with q = r dr and p = k dk."""
     B, H, T, K = r.shape
+    dt = torch.float64 if r.dtype == torch.float64 else torch.float32
     pad = (-T) % chunk
-    r, k, v, logw, do = (F.pad(x.float(), (0, 0, 0, pad))
+    r, k, v, logw, do = (F.pad(x.to(dt), (0, 0, 0, pad))
                          for x in (r, k, v, logw, do))
     n = (T + pad) // chunk
     seg = lambda x, c: x[:, :, c * chunk:(c + 1) * chunk]
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=r.device), diagonal=-1)
-    s = s0.float()
-    starts = []
-    for c in range(n):
-        starts.append(s)
+
+    def carry_past(s, c):
         kc, vc, logc = seg(k, c), seg(v, c), torch.cumsum(seg(logw, c), 2)
         total = logc[:, :, -1:, :]
-        s = s * torch.exp(total[:, :, 0, :, None]) + torch.einsum(
+        return s * torch.exp(total[:, :, 0, :, None]) + torch.einsum(
             "bhik,bhiv->bhkv", kc * torch.exp(total - logc), vc)
-    ds = (torch.zeros_like(s) if ds_final is None else ds_final.float())
+
+    if states is None:
+        starts = [s0.to(dt)]
+        for c in range(n - 1):
+            starts.append(carry_past(starts[-1], c))
+    else:
+        starts = [s0.to(dt), *states.to(dt)]
+    s = carry_past(starts[-1], n - 1)                    # the end state
+    ds = (torch.zeros_like(s) if ds_final is None else ds_final.to(dt))
     carry = (ds * s).sum(-1)                              # (B, H, K)
     grads = []
     for c in reversed(range(n)):

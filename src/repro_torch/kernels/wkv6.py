@@ -17,11 +17,13 @@ The kernel takes all four strides of every input, so broadcast views
 where they lie. `o` keeps v's memory layout where v is dense
 (`torch.empty_like`).
 
-`wkv6_bwd` launches the gradient's kernel (`repro_torch/csrc/wkv6_bwd.cu`,
-one block per (b, h), the chunk-start states recomputed into a scratch
-buffer allocated here): dr, dk, dv, dlogw and ds0 from the inputs, the
-gradient of o and (optionally) that of the end state. Its outputs are
-dense, whatever the inputs' strides.
+`wkv6(..., return_states=True)` also returns the chunk start states the
+kernel hands from block to block, which `wkv6_bwd` takes to launch the
+gradient's kernel (`repro_torch/csrc/wkv6_bwd.cu`, one block per (b, h,
+chunk) again, the gradient of each chunk's end state handed back from
+block to block): dr, dk, dv, dlogw and ds0 from the inputs, the gradient
+of o and (optionally) that of the end state. Its outputs are dense,
+whatever the inputs' strides.
 """
 from __future__ import annotations
 
@@ -34,15 +36,19 @@ from repro_torch.kernels.stream import current_stream
 
 # Shared memory a block may use on the H100 (227 KB).
 MAX_SMEM_BYTES = 232_448
+# The backward kernel's register tiles: K, V and the chunk multiples of 4,
+# at most 64.
+BWD_MAX_DIM = 64
 
 
 def bwd_smem_bytes(K: int, V: int, chunk: int) -> int:
-    """Shared memory of one backward block (`wkv6_bwd.cu`): eight (L, K)
-    tiles, two (L, V), two (L, L), two (K, V) states, each row padded by
-    one float, and two (K) vectors."""
+    """Shared memory of one backward block (`wkv6_bwd.cu`): six (L, K)
+    tiles, two (L, V), the (K, V) start state, two (L, L) (the first also
+    holding dS later), each row padded by 4 floats, and five (K)
+    vectors."""
     L = chunk
-    return 4 * (8 * L * (K + 1) + 2 * L * (V + 1) + 2 * L * (L + 1)
-                + 2 * K * (V + 1) + 2 * K)
+    return 4 * (6 * L * (K + 4) + 2 * L * (V + 4) + K * (V + 4)
+                + max(L * (L + 4), K * (V + 4)) + L * (L + 4) + 5 * K)
 
 
 def _round4(n: int) -> int:
@@ -62,11 +68,13 @@ def smem_bytes(K: int, V: int, chunk: int) -> int:
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         logw: torch.Tensor, s0: torch.Tensor, *,
-         chunk: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
+         logw: torch.Tensor, s0: torch.Tensor, *, chunk: int = 64,
+         return_states: bool = False) -> tuple[torch.Tensor, ...]:
     """Launch the kernel on CUDA f32 tensors. r/k/logw: (B, H, T, K); v:
     (B, H, T, V); s0: (B, H, K, V); logw <= 0. Returns (o (B, H, T, V),
-    s_final (B, H, K, V))."""
+    s_final (B, H, K, V)); with `return_states`, also the start states of
+    chunks 1 .. n - 1 of the n = ceil(T / chunk), a dense
+    (n - 1, B, H, K, V) tensor (`wkv6_bwd` takes it)."""
     B, H, T, K, V = _check(r, k, v, logw, s0, "wkv6")
     if chunk < 1 or smem_bytes(K, V, chunk) > MAX_SMEM_BYTES:
         raise ValueError(f"wkv6: (K={K}, V={V}, chunk={chunk}) needs "
@@ -74,13 +82,15 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"a block has {MAX_SMEM_BYTES}")
     o = torch.empty_like(v)
     s_final = torch.empty((B, H, K, V), dtype=torch.float32, device=r.device)
-    if B * H == 0 or K * V == 0:
-        return o, s_final
-    # Each chunk's end state, and the flags that publish them (zero on
-    # entry), then the kernel's ticket counter.
+    # The end state of every chunk but the last (the next one's start), and
+    # the flags that publish them (zero on entry), then the kernel's ticket
+    # counter.
     n_chunks = -(-T // chunk)
-    states = torch.empty((B * H * n_chunks * K * V,), dtype=torch.float32,
-                         device=r.device)
+    states = torch.empty((max(n_chunks - 1, 0), B, H, K, V),
+                         dtype=torch.float32, device=r.device)
+    out = (o, s_final, states) if return_states else (o, s_final)
+    if B * H == 0 or K * V == 0:
+        return out
     flags = torch.zeros((B * H * n_chunks + 1,), dtype=torch.int32,
                         device=r.device)
     strides = (ctypes.c_int64 * 28)(*(
@@ -91,7 +101,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    s_final.data_ptr(), strides, B, H, T, K, V, chunk,
                    states.data_ptr(), flags.data_ptr(), r.device.index,
                    current_stream(r.device.index)), "wkv6")
-    return o, s_final
+    return out
 
 
 def _check(r, k, v, logw, s0, what: str, extra=()):
@@ -119,12 +129,14 @@ def _check(r, k, v, logw, s0, what: str, extra=()):
 
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              logw: torch.Tensor, s0: torch.Tensor, do: torch.Tensor,
-             ds_final: torch.Tensor | None = None, *, chunk: int = 64
-             ) -> tuple[torch.Tensor, ...]:
+             ds_final: torch.Tensor | None, states: torch.Tensor, *,
+             chunk: int = 64) -> tuple[torch.Tensor, ...]:
     """Launch the backward kernel on CUDA f32 tensors: the inputs of
     `wkv6`, do (B, H, T, V) the gradient of o, ds_final (B, H, K, V) that
-    of the end state or None (zero). Returns dense (dr, dk, dv, dlogw,
-    ds0)."""
+    of the end state or None (zero), and the forward's chunk start
+    states (`wkv6(..., return_states=True)`). K, V and the chunk are
+    multiples of 4, at most BWD_MAX_DIM. Returns dense (dr, dk, dv,
+    dlogw, ds0)."""
     extra = (("do", do),) + (() if ds_final is None
                              else (("ds_final", ds_final),))
     B, H, T, K, V = _check(r, k, v, logw, s0, "wkv6_bwd", extra)
@@ -132,19 +144,32 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                and ds_final.shape != s0.shape):
         raise ValueError(f"wkv6_bwd: do must be {tuple(v.shape)} and "
                          f"ds_final {tuple(s0.shape)}")
-    if chunk < 1 or bwd_smem_bytes(K, V, chunk) > MAX_SMEM_BYTES:
-        raise ValueError(f"wkv6_bwd: (K={K}, V={V}, chunk={chunk}) needs "
-                         f"{bwd_smem_bytes(K, V, chunk)} B of shared "
-                         f"memory; a block has {MAX_SMEM_BYTES}")
+    if any(n % 4 or not 0 < n <= BWD_MAX_DIM for n in (K, V, chunk)):
+        raise ValueError(f"wkv6_bwd: K={K}, V={V} and chunk={chunk} must "
+                         f"be multiples of 4 in [4, {BWD_MAX_DIM}]")
+    n_chunks = -(-T // chunk)
+    want = (max(n_chunks - 1, 0), B, H, K, V)
+    if states.shape != want or not states.is_contiguous() \
+            or states.dtype != torch.float32 or states.device != r.device:
+        raise ValueError(f"wkv6_bwd: states must be a dense float32 {want} "
+                         f"tensor on {r.device}, got {tuple(states.shape)} "
+                         f"{states.dtype} on {states.device}")
     dev = r.device
     dr, dk, dlogw = (torch.empty((B, H, T, K), dtype=torch.float32,
                                  device=dev) for _ in range(3))
     dv = torch.empty((B, H, T, V), dtype=torch.float32, device=dev)
     ds0 = torch.empty((B, H, K, V), dtype=torch.float32, device=dev)
+    if T == 0:                           # no step: ds0 is ds_final
+        return dr, dk, dv, dlogw, (ds0.zero_() if ds_final is None
+                                   else ds0.copy_(ds_final))
     if B * H == 0 or K * V == 0:
         return dr, dk, dv, dlogw, ds0
-    states = torch.empty((B * H * -(-T // chunk) * K * V,),
-                         dtype=torch.float32, device=dev)
+    # The (dS, dlogw carry) each chunk hands to the one before it, the
+    # flags that publish them (zero on entry), then the ticket counter.
+    xfer = torch.empty(((n_chunks - 1) * B * H * (K * V + K),),
+                       dtype=torch.float32, device=dev)
+    flags = torch.zeros((B * H * n_chunks + 1,), dtype=torch.int32,
+                        device=dev)
     # Without an end-state gradient the kernel gets a null pointer, and
     # s0's strides fill its slot.
     ds_t = s0 if ds_final is None else ds_final
@@ -156,6 +181,6 @@ def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    None if ds_final is None else ds_final.data_ptr(),
                    dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                    dlogw.data_ptr(), ds0.data_ptr(), states.data_ptr(),
-                   strides, B, H, T, K, V, chunk, dev.index,
-                   current_stream(dev.index)), "wkv6_bwd")
+                   xfer.data_ptr(), flags.data_ptr(), strides, B, H, T, K, V,
+                   chunk, dev.index, current_stream(dev.index)), "wkv6_bwd")
     return dr, dk, dv, dlogw, ds0

@@ -689,6 +689,17 @@ BWD_FLASH_CASES = [
     (1, 2, 1, 40, 256, torch.float32, True, None, 5.0),
     (2, 25, 5, 2048, 64, torch.bfloat16, True, 1024, None),  # hymba-1.5b
     (2, 25, 5, 2048, 64, torch.bfloat16, True, None, None),
+    # The bf16 tensor-core kernels' tiles: D = 128 and 256, softcap,
+    # non-causal, S not a multiple of 64, rep = 1 (and D = 32 in bf16,
+    # which keeps the CUDA-core kernels).
+    (1, 8, 2, 1024, 128, torch.bfloat16, True, 512, None),
+    (1, 8, 1, 300, 256, torch.bfloat16, True, None, None),
+    (1, 4, 2, 256, 64, torch.bfloat16, True, None, 30.0),
+    (1, 2, 2, 200, 64, torch.bfloat16, False, None, None),
+    (2, 4, 2, 1000, 64, torch.bfloat16, True, 100, None),
+    (1, 4, 4, 333, 64, torch.bfloat16, True, 128, None),
+    (1, 4, 4, 33, 128, torch.bfloat16, False, 8, 50.0),
+    (2, 2, 1, 70, 32, torch.bfloat16, True, None, None),
 ]
 
 
@@ -699,12 +710,12 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, b, h, kv, s, d, dtype,
     from repro_torch.kernels.flash_attention import flash_attention_bwd
     q, k, v = _flash_inputs(dev, b, h, kv, s, d, dtype)
     kw = dict(causal=causal, window=window, softcap=softcap)
-    o = ref.flash_attention_ref(q, k, v, **kw)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     do = torch.randn(o.shape, generator=torch.Generator(device=dev)
                      .manual_seed(s), device=dev).to(dtype)
-    got = flash_attention_bwd(q, k, v, o, do, **kw)
-    again = flash_attention_bwd(q, k, v, o, do, **kw)
-    want = ref.flash_attention_bwd_ref(q, k, v, o, do, **kw)
+    got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
     torch.cuda.synchronize()
     for a, b_, w in zip(got, again, want):
         assert a.dtype == dtype and a.shape == w.shape
@@ -732,6 +743,52 @@ def test_flash_attention_op_backward_launches_the_kernel(dev):
         _close(a, w, TOL[torch.float32])
 
 
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_bwd_reads_the_model_views(dev, d):
+    """bf16 through the op on the model's transposed (B, S, H, D) views:
+    one launch each way, the saved lse, gradients in the views' layout
+    within the bf16 tolerance of the plain backward, the same bits
+    twice."""
+    b, s, h, kv = 2, 200, 8, 2
+    g = torch.Generator(device=dev).manual_seed(d)
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device=dev)
+               .to(torch.bfloat16).transpose(1, 2).requires_grad_(True)
+               for n in (h, kv, kv))
+    do = torch.randn((b, h, s, d), generator=g, device=dev).to(torch.bfloat16)
+    grads = []
+    for _ in range(2):
+        before = dict(ops.LAUNCHES)
+        o = ops.flash_attention_op(q, k, v, window=64)
+        grads.append(torch.autograd.grad(o, (q, k, v), do))
+        assert ops.LAUNCHES["flash_attention_bwd"] == \
+            before["flash_attention_bwd"] + 1
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       o.detach(), do, window=64)
+    for a, b_, w, x in zip(*grads, want, (q, k, v)):
+        assert a.stride() == x.stride() and torch.equal(a, b_)
+        _close(a, w, *BWD_TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_op_saved_lse_matches_recomputed(dev, dtype):
+    """The op's backward reads the kernel forward's lse; the backward
+    kernel given lse recomputed by the plain forward agrees within the
+    tolerance."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    leaves = [t.requires_grad_(True)
+              for t in _flash_inputs(dev, 2, 4, 2, 300, 64, dtype)]
+    o = ops.flash_attention_op(*leaves, window=100)
+    do = torch.randn_like(o)
+    got = torch.autograd.grad(o, leaves, do)
+    q, k, v = (t.detach() for t in leaves)
+    lse = ref.flash_attention_ref(q, k, v, window=100, return_lse=True)[1]
+    want = flash_attention_bwd(q, k, v, o.detach(), do, lse, window=100)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        _close(a, w, *BWD_TOL[dtype])
+
+
 def test_flash_attention_head_dim_32(dev):
     """D = 32 (lm_tiny) runs the f32 kernel; bf16 refuses it by name."""
     q, k, v = _flash_inputs(dev, 64, 2, 2, 33, 32, torch.float32)
@@ -747,6 +804,8 @@ BWD_WKV6_CASES = [
     (2, 50, 2048, 16, 64, "ssd", True, False),     # hymba-1.5b
     (2, 3, 100, 16, 64, "strong", False, True),
     (1, 2, 200, 32, 32, "mixed", False, True),
+    (1, 32, 2048, 64, 64, "mixed", False, True),   # rwkv6: K = V = 64
+    (2, 4, 1000, 16, 64, "ssd", True, True),       # 16 chunks, ragged tail
 ]
 
 
@@ -767,9 +826,10 @@ def test_wkv6_bwd_kernel_matches_plain(dev, b, h, t, k, v, decay, views,
             if decay == "strong" else -0.3 * rnd(b, h, t, k).abs()
     s0, do = rnd(b, h, k, v), rnd(b, h, t, v)
     ds = rnd(b, h, k, v) if end_grad else None
-    got = wkv6_bwd(r, kk, vv, lw, s0, do, ds)
-    again = wkv6_bwd(r, kk, vv, lw, s0, do, ds)
-    want = ref.wkv6_bwd_ref(r, kk, vv, lw, s0, do, ds)
+    states = ref.wkv6_ref(r, kk, vv, lw, s0, return_states=True)[2]
+    got = wkv6_bwd(r, kk, vv, lw, s0, do, ds, states)
+    again = wkv6_bwd(r, kk, vv, lw, s0, do, ds, states)
+    want = ref.wkv6_bwd_ref(r, kk, vv, lw, s0, do, ds, 64, states)
     torch.cuda.synchronize()
     terms = float((r * want[0]).abs().max() + (kk * want[1]).abs().max())
     for i, (a, b_, w) in enumerate(zip(got, again, want)):
@@ -804,6 +864,41 @@ def test_wkv6_op_backward_launches_the_kernel(dev):
     for a, w in zip(got, want):
         assert a.shape == w.shape
         _close(a, w, 2e-5, 2e-5 * max(1.0, float(w.abs().max())))
+
+
+def test_wkv6_op_saved_states_match_recomputed(dev):
+    """The op's backward reads the kernel forward's chunk states; the
+    plain backward recomputing them agrees within the tolerance."""
+    b, h, t, k, v = 2, 4, 300, 16, 64
+    gen = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=dev)
+    x = [rnd(b, h, t, k), rnd(b, h, t, k), rnd(b, h, t, v),
+         -0.3 * rnd(b, h, t, k).abs(), rnd(b, h, k, v)]
+    leaves = [y.requires_grad_(True) for y in x]
+    o, s_final = ops.wkv6_op(*leaves)
+    do, ds = torch.randn_like(o), torch.randn_like(s_final)
+    got = torch.autograd.grad((o, s_final), leaves, (do, ds))
+    want = ref.wkv6_bwd_ref(*(y.detach() for y in x), do, ds)
+    torch.cuda.synchronize()
+    terms = float((x[0] * want[0]).abs().max() + (x[1] * want[1]).abs().max())
+    for i, (a, w) in enumerate(zip(got, want)):
+        _close(a, w, 2e-5, 2e-5 * terms if i == 3 else 2e-5)
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take(dev):
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+    q, k, v = _flash_inputs(dev, 1, 2, 1, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd(q, k, v, q, q, torch.zeros((1, 2, 63),
+                                                       device=dev))
+    r, kk, vv, lw, s0 = _wkv6_inputs(dev, 1, 1, 100, 16, 64)
+    states = ref.wkv6_ref(r, kk, vv, lw, s0, return_states=True)[2]
+    with pytest.raises(ValueError, match="states"):
+        wkv6_bwd(r, kk, vv, lw, s0, torch.zeros_like(vv), None, states[:0])
+    r, kk, vv, lw, s0 = _wkv6_inputs(dev, 1, 1, 100, 18, 64)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        wkv6_bwd(r, kk, vv, lw, s0, torch.zeros_like(vv), None, states)
 
 
 @pytest.mark.parametrize("workload", ["lm_tiny", "lm_hybrid_tiny"])

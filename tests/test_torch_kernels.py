@@ -213,15 +213,21 @@ def test_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 def test_build_sources_exist_and_hash_changes_with_source(tmp_path,
                                                           monkeypatch):
-    for name in build.SOURCES:
+    files = build.SOURCES + build.HEADERS
+    for name in files:
         assert (build.CSRC / name).is_file()
     before = build._digest("nvcc")
-    for name in build.SOURCES:
+    for name in files:
         (tmp_path / name).write_bytes((build.CSRC / name).read_bytes())
     monkeypatch.setattr(build, "CSRC", tmp_path)
     assert build._digest("nvcc") == before
-    (tmp_path / build.SOURCES[0]).write_text("// edited\n")
-    assert build._digest("nvcc") != before
+    # An edit to a source or to a header the sources include rebuilds.
+    for name in (build.SOURCES[0], build.HEADERS[0]):
+        kept = (tmp_path / name).read_bytes()
+        (tmp_path / name).write_text("// edited\n")
+        assert build._digest("nvcc") != before
+        (tmp_path / name).write_bytes(kept)
+    assert build._digest("nvcc") == before
 
 
 _PTXAS_LOG = """\

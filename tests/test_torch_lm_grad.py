@@ -93,6 +93,46 @@ def test_flash_plain_backward_matches_jax_grad(b, h, kv, s, d, causal,
         _close(a.numpy(), np.asarray(w).transpose(0, 2, 1, 3), 1e-5, 1e-4)
 
 
+@pytest.mark.parametrize("b,h,kv,s,d,causal,window,softcap", FLASH_CASES)
+def test_flash_plain_backward_with_saved_lse_matches_recomputing(
+        b, h, kv, s, d, causal, window, softcap):
+    """Fed the plain forward's lse (as the autograd forward saves it),
+    the plain backward gives the bits of the one that recomputes lse, and
+    stays within tolerance of `jax.grad`."""
+    q, k, v, g = _flash_inputs(b, h, kv, s, d)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = ref.flash_attention_ref(_t(q), _t(k), _t(v), return_lse=True,
+                                     **kw)
+    assert lse.shape == (b, h, s) and lse.dtype == torch.float32
+    saved = ref.flash_attention_bwd_ref(_t(q), _t(k), _t(v), o, _t(g),
+                                        lse=lse, **kw)
+    again = ref.flash_attention_bwd_ref(_t(q), _t(k), _t(v), o, _t(g), **kw)
+    assert all(torch.equal(a, w) for a, w in zip(saved, again))
+    pos = jnp.arange(s)
+    tr = lambda a: jnp.asarray(a).transpose(0, 2, 1, 3)
+    want = jax.grad(lambda *x: jnp.sum(jax_attention(
+        *x, pos, pos, window=window, softcap=softcap, causal=causal)
+        * tr(g)), argnums=(0, 1, 2))(tr(q), tr(k), tr(v))
+    for a, w in zip(saved, want):
+        _close(a.numpy(), np.asarray(w).transpose(0, 2, 1, 3), 1e-5, 1e-4)
+
+
+def test_backward_wrappers_raise_on_cpu_tensors():
+    """The backward kernels' wrappers take CUDA tensors only (the op
+    sends CPU tensors to the plain backward), and say so."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    from repro_torch.kernels.wkv6 import wkv6_bwd
+    q, k, v, g = (_t(a) for a in _flash_inputs(1, 2, 1, 33, 32))
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        flash_attention_bwd(q, k, v, o, g, lse)
+    r, kk, vv, lw, s0, g, _ = (_t(a) for a in _wkv6_inputs(1, 2, 70, 8, 8,
+                                                            "mixed"))
+    states = ref.wkv6_ref(r, kk, vv, lw, s0, 16, return_states=True)[2]
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        wkv6_bwd(r, kk, vv, lw, s0, g, None, states, chunk=16)
+
+
 def test_flash_op_backward_is_the_plain_backward_on_cpu():
     """On CPU tensors the op's backward is `flash_attention_bwd_ref`, and
     it counts no kernel launch."""
@@ -183,6 +223,49 @@ def test_wkv6_plain_backward_matches_jax_grad(b, h, t, k, v, chunk, decay,
                 r, kk, 1e-5, 1e-4)
 
 
+@pytest.mark.parametrize("b,h,t,k,v,chunk,decay,end_grad", WKV6_CASES)
+def test_wkv6_plain_backward_with_saved_states_matches_recomputing(
+        b, h, t, k, v, chunk, decay, end_grad):
+    """Fed the plain forward's chunk start states (as the autograd
+    forward saves them), the plain backward gives the bits of the one
+    that recomputes them, and stays within tolerance of `jax.grad`."""
+    r, kk, vv, lw, s0, g, gs = _wkv6_inputs(b, h, t, k, v, decay)
+    x = [_t(a) for a in (r, kk, vv, lw, s0)]
+    o, s_final, states = ref.wkv6_ref(*x, chunk, return_states=True)
+    n = -(-t // chunk)
+    assert states.shape == (n - 1, b, h, k, v)
+    ds = _t(gs) if end_grad else None
+    saved = ref.wkv6_bwd_ref(*x, _t(g), ds, chunk, states)
+    again = ref.wkv6_bwd_ref(*x, _t(g), ds, chunk)
+    assert all(torch.equal(a, w) for a, w in zip(saved, again))
+
+    def f(*xs):
+        o, s_final = jax_scan(*xs, chunk=chunk)
+        out = jnp.sum(o * g)
+        return out + jnp.sum(s_final * gs) if end_grad else out
+
+    want = jax.grad(f, argnums=(0, 1, 2, 3, 4))(
+        *(jnp.asarray(a) for a in (r, kk, vv, lw, s0)))
+    _close_wkv6([a.numpy() for a in saved], [np.asarray(w) for w in want],
+                r, kk, 1e-5, 1e-4)
+
+
+def test_wkv6_bwd_block_fits_rwkv6_at_chunk_64():
+    """rwkv6's time-mix (K = V = 64) trains through the backward kernel
+    at the forward's chunk of 64: its block fits the card's shared
+    memory (it did not before the chunk-parallel layout)."""
+    from repro_torch.kernels.wkv6 import (
+        BWD_MAX_DIM,
+        MAX_SMEM_BYTES,
+        bwd_smem_bytes,
+    )
+    assert bwd_smem_bytes(64, 64, 64) <= MAX_SMEM_BYTES
+    assert bwd_smem_bytes(BWD_MAX_DIM, BWD_MAX_DIM, BWD_MAX_DIM) \
+        <= MAX_SMEM_BYTES
+    # The SSD heads' (16, 64, 64): two blocks an SM.
+    assert 2 * bwd_smem_bytes(16, 64, 64) <= MAX_SMEM_BYTES
+
+
 def _step_oracle(r, k, v, logw, s0):
     """The recurrence o_t = r_t S_{t-1}, S_t = w_t S_{t-1} + k_t v_t^T one
     step at a time (no chunks, no clamps)."""
@@ -211,6 +294,29 @@ def test_wkv6_plain_backward_at_decay_ties_is_exact():
     want = torch.autograd.grad(o, x64, torch.as_tensor(g, dtype=torch.float64))
     got = ref.wkv6_bwd_ref(*(_t(a) for a in (r, kk, vv, lw, s0, g)), None, 16)
     _close_wkv6([x.numpy() for x in got], [x.numpy() for x in want],
+                r, kk, 1e-5, 1e-5)
+
+
+def test_wkv6_plain_backward_in_float64_is_the_exact_gradient():
+    """Given float64 inputs the plain backward computes in float64 (the
+    card checks read both f32 roundings against it): it matches autograd
+    of the float64 step-by-step recurrence to float64 precision, and the
+    f32 plain backward to f32 precision."""
+    r, kk, vv, lw, s0, g, gs = _wkv6_inputs(1, 2, 70, 8, 8, "mixed")
+    x64 = [torch.as_tensor(a, dtype=torch.float64).requires_grad_(True)
+           for a in (r, kk, vv, lw, s0)]
+    o, s_final = _step_oracle(*x64)
+    want = torch.autograd.grad(
+        (o, s_final), x64, (torch.as_tensor(g, dtype=torch.float64),
+                            torch.as_tensor(gs, dtype=torch.float64)))
+    got = ref.wkv6_bwd_ref(*(x.detach() for x in x64),
+                           torch.as_tensor(g, dtype=torch.float64),
+                           torch.as_tensor(gs, dtype=torch.float64), 16)
+    assert all(a.dtype == torch.float64 for a in got)
+    _close_wkv6([a.numpy() for a in got], [w.numpy() for w in want],
+                r, kk, 1e-10, 1e-10)
+    f32 = ref.wkv6_bwd_ref(*(_t(a) for a in (r, kk, vv, lw, s0, g, gs)), 16)
+    _close_wkv6([a.numpy() for a in f32], [a.numpy() for a in got],
                 r, kk, 1e-5, 1e-5)
 
 
