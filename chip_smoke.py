@@ -1960,23 +1960,13 @@ def _flash_bwd_inputs(dev, B, H, KV, S, D, dtype):
     return q, k, v, do
 
 
-def _tol_ratio(got, want, rtol: float, atol: float) -> float:
-    """max |got - want| / (atol + rtol |want|): at most 1 within the
-    tolerance (a reading, not a check)."""
-    got, want = got.double(), want.double()
-    return float(((got - want).abs() / (atol + rtol * want.abs())).max())
-
-
 def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
                     dtype: str, causal: bool = True,
                     window: int | None = None) -> dict:
     """flash_attention_bwd against its plain backward, both given the
     plain forward's lse; the yardstick is the backward of
     scaled_dot_product_attention (is_causal, or the window as an explicit
-    mask), its forward run once outside the timing. In bf16 also the
-    error with each of P (dv), dS (dk) and dS (dq) rounded to bf16 once
-    instead of split into hi + lo (`one_rounding_tol_ratio`, as a share
-    of the tolerance: above 1 misses it)."""
+    mask), its forward run once outside the timing."""
     q, k, v, do = _flash_bwd_inputs(dev, B, H, KV, S, D, dtype)
     kw = dict(causal=causal, window=window)
     o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
@@ -1987,11 +1977,6 @@ def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
     err = max(_max_err(a, w, *BWD_TOL[dtype]) for a, w in zip(got, want))
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"flash_attention_bwd {case}: two launches differ")
-    one = None
-    if dtype == "bfloat16":
-        single = flash_attention_bwd(q, k, v, o, do, lse, split=0, **kw)
-        one = {n: _tol_ratio(a, w, *BWD_TOL[dtype])
-               for n, a, w in zip(("dq", "dk", "dv"), single, want)}
     pairs = B * H * _flash_pairs(S, causal, window)
     n_bytes = ((4 * B * H * S * D + 4 * B * KV * S * D) * q.element_size()
                + B * H * S * 4)                       # + lse
@@ -2013,7 +1998,7 @@ def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
         name="flash_attention_bwd", case=case, B=B, H=H, KV=KV, S=S, D=D,
         dtype=dtype, causal=causal, window=window, pairs=pairs,
         max_abs_err=err, rtol=BWD_TOL[dtype][0], atol=BWD_TOL[dtype][1],
-        deterministic=True, one_rounding_tol_ratio=one,
+        deterministic=True,
         ms=device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw)),
         plain_ms=device_ms(lambda: ref.flash_attention_bwd_ref(
             q, k, v, o, do, lse=lse, **kw)),
@@ -2031,8 +2016,9 @@ def _wkv6_bwd_errs(r, k, got, want) -> tuple[list[float], float]:
 
 def check_wkv6_bwd(dev, case: str, B: int, H: int, T: int, K: int,
                    V: int, ssd_views: bool = True) -> dict:
-    """wkv6_bwd against its plain backward, both given the chunk states
-    of the kernel's forward; with `ssd_views` the inputs are in the SSD
+    """wkv6_bwd against its plain backward, both given the plain
+    forward's chunk states (which the kernel's forward must match within
+    WKV6_TOL); with `ssd_views` the inputs are in the SSD
     heads' layout (k broadcast over heads, logw over the state dim, v a
     transposed view), as the training path passes them, else dense with
     a decay per state dim (rwkv6's time-mix)."""
@@ -2048,7 +2034,9 @@ def check_wkv6_bwd(dev, case: str, B: int, H: int, T: int, K: int,
         lw = -0.3 * rnd(B, H, T, K).abs()
     s0 = torch.zeros((B, H, K, V), device=dev)
     do = rnd(B, H, T, V)
-    states = wkv6(r, k, v, lw, s0, return_states=True)[2]
+    states = ref.wkv6_ref(r, k, v, lw, s0, return_states=True)[2]
+    states_err = _max_err(wkv6(r, k, v, lw, s0, return_states=True)[2],
+                          states, WKV6_TOL)
     args = (r, k, v, lw, s0, do, None, states)
     got = wkv6_bwd(*args)
     want = ref.wkv6_bwd_ref(*args[:7], 64, states)
@@ -2057,36 +2045,24 @@ def check_wkv6_bwd(dev, case: str, B: int, H: int, T: int, K: int,
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"wkv6_bwd {case}: two launches differ")
     errs, terms = _wkv6_bwd_errs(r, k, got, want)
-    # Readings, not checks: each output's max error as a share of its
-    # tolerance, the kernel against the f32 plain version, and each of
-    # the two against the plain version in f64 (the exact gradient of the
-    # same f32 inputs and states): how much of the gap is f32 rounding
-    # that both share.
-    exact = ref.wkv6_bwd_ref(*(None if x is None else x.double()
-                               for x in args[:7]), 64, states.double())
-    names = ("dr", "dk", "dv", "dlogw", "ds0")
-    tols = [(BWD_TOL["float32"][0],
-             BWD_TOL["float32"][1] * (terms if i == 3 else 1.0))
-            for i in range(5)]
-    tol_ratio = {n: _tol_ratio(a, w, *t)
-                 for n, a, w, t in zip(names, got, want, tols)}
-    f64_tol_ratio = {n: dict(kernel=_tol_ratio(a, e, *t),
-                             plain=_tol_ratio(w, e, *t))
-                     for n, a, w, e, t in zip(names, got, want, exact, tols)}
-    del exact
-    # Each input read once (a broadcast input's distinct elements), each
-    # output (dense dr, dk, dv, dlogw, ds0) written once; operations: the
-    # step-by-step recurrences, forward state (3 K V) and backward (dS 3,
-    # dr 2, dk 2, dv 2, dlogw 2 K V).
-    n_in = sum(x.untyped_storage().nbytes() for x in args if x is not None)
+    # Each input of the gradient read once (a broadcast input's distinct
+    # elements), each output (dense dr, dk, dv, dlogw, ds0) written once;
+    # the forward's chunk states are not counted, since the gradient can
+    # recompute them from r, k, v and logw (`states_bytes`, the kernel's
+    # choice to read them instead). Operations: the step-by-step
+    # recurrences, forward state (3 K V) and backward (dS 3, dr 2, dk 2,
+    # dv 2, dlogw 2 K V).
+    n_in = sum(x.untyped_storage().nbytes() for x in args[:7]
+               if x is not None)
     n_out = (3 * B * H * T * K + B * H * T * V + B * H * K * V) * 4
     b_ms, b_by = bound_ms(n_in + n_out, 14 * B * H * T * K * V)
     return dict(
         name="wkv6_bwd", case=case, B=B, H=H, T=T, K=K, V=V, chunk=64,
         ssd_views=ssd_views, max_abs_err=max(errs),
         dlogw_max_abs_err=errs[3], dlogw_terms=terms,
-        tol=BWD_TOL["float32"][0], deterministic=True, tol_ratio=tol_ratio,
-        f64_tol_ratio=f64_tol_ratio,
+        tol=BWD_TOL["float32"][0], deterministic=True,
+        states_max_abs_err=states_err,
+        states_bytes=states.untyped_storage().nbytes(),
         ms=device_ms(lambda: wkv6_bwd(*args)),
         plain_ms=device_ms(lambda: ref.wkv6_bwd_ref(*args[:7], 64, states)),
         library_ms=None, bound_ms=b_ms, bound_by=b_by)

@@ -384,7 +384,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
     // O += P V as hi V + lo V: V's rows of 16 keys lie 2048 bytes apart.
     wgmma_fence();
-    wgmma_rs_tile<NB>(acc, hi, lo, true, vs);
+    wgmma_rs_tile<NB>(acc, hi, lo, vs);
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll

@@ -25,7 +25,7 @@
 // the same bits. The masks are the forward's, tile skipping included; a
 // masked pair's p is exactly 0 (never exp of an overflow).
 //
-// bf16, D in {64, 128, 256} (`tc::`): tensor cores. The products run on
+// bf16 (D in {64, 128, 256}, `tc::`): tensor cores. The products run on
 // `wgmma` m64n64k16, bf16 in and f32 accumulate, on tiles of 64 rows
 // stored and loaded as the forward's (`wgmma.cuh`: 128-byte swizzle,
 // 16-byte `cp.async` copies, a ring of two stages for the streamed
@@ -40,16 +40,14 @@
 // saves a third). Scale, softcap, masks and lse are applied on the f32
 // accumulator fragment before P or dS is rounded to bf16. A bf16 operand
 // rounds P or dS by up to 2^-9 relative, which the bf16 tolerance does
-// not absorb where a row's few large terms cancel; as in the forward's
-// P V, each of P (dV), dS (dK) and dS (dQ) can go in as two bf16
-// products, its rounding hi and the rounding of what hi leaves, lo
-// (`split`, one bit each; the wrapper sets all three: PERF.md records
-// the error of each single rounding at the training shapes).
+// not absorb where a row's few large terms cancel (one rounding misses
+// it by 3-8x at the training shapes, PERF.md); as in the forward's P V,
+// each of P (dV), dS (dK) and dS (dQ) goes in as two bf16 products, its
+// rounding hi and the rounding of what hi leaves, lo.
 //
-// f32 (all D) and bf16 at D = 32 (`simt::`, which no path launches in
-// bf16) run on the CUDA cores, as the same two kernels: 32 x 32 tiles,
-// 256 threads, f32 FMAs over padded f32 shared tiles (bf16 widened on
-// load), lse from the forward and delta from the dq kernel.
+// f32 (D in {32, 64, 128, 256}, `simt::`) runs on the CUDA cores, as the
+// same two kernels: 32 x 32 tiles, 256 threads, f32 FMAs over padded f32
+// shared tiles, lse from the forward and delta from the dq kernel.
 //
 // Bound on the H100: operations. Five products of the forward's size
 // (Q K^T, dO V^T, P^T dO, dS^T Q, dS K) where the forward does two: 2.5 x
@@ -116,20 +114,14 @@ struct Masks {
   }
 };
 
-// ------------------------------------------------ CUDA cores (f32, D 32)
+// ------------------------------------------------------ CUDA cores (f32)
 namespace simt {
 
 constexpr int kB = 32;                  // query rows and keys per tile
 constexpr int kThreads = 256;
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // Rows r0 .. r0 + kB - 1 of a (S, D) matrix with row stride `ld` into a
 // padded f32 tile [kB][D + 1]; rows at or past S are zero.
@@ -352,9 +344,6 @@ constexpr int kBM = 64;                 // rows of a tile: queries or keys
 constexpr int kStages = 2;              // ring of streamed tiles
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Bits of `split`: which bf16 operands go in as hi + lo.
-enum { kSplitP = 1, kSplitDsK = 2, kSplitDsQ = 4 };
-
 // Two staged tiles (Q and dO, or K and V), then kStages pairs streamed,
 // each D / 64 column blocks; 1 KB of slack to align the base to the 1 KB
 // period of the 128-byte swizzle.
@@ -426,8 +415,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ dout, const float* __restrict__ lse,
                 float* __restrict__ delta, bf16* __restrict__ dq,
                 Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so,
-                Strides3 sd, Strides3 sdq, int H, int rep, Masks mk,
-                int split) {
+                Strides3 sd, Strides3 sdq, int H, int rep, Masks mk) {
   constexpr int NB = D / 64;
   constexpr int kTileBytes = NB * kBlockBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -545,7 +533,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t hi[16], lo[16];
     split_bf16(s, hi, lo);
     wgmma_fence();
-    wgmma_rs_tile<NB>(acc, hi, lo, split & kSplitDsQ, ks);   // dQ += dS K
+    wgmma_rs_tile<NB>(acc, hi, lo, ks);   // dQ += dS K
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -566,7 +554,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const float* __restrict__ delta, bf16* __restrict__ dk,
                   bf16* __restrict__ dv, Strides3 sq, Strides3 sk,
                   Strides3 sv, Strides3 sd, Strides3 sdk, Strides3 sdv,
-                  int H, int rep, Masks mk, int split) {
+                  int H, int rep, Masks mk) {
   constexpr int NB = D / 64;
   constexpr int kTileBytes = NB * kBlockBytes;
   extern __shared__ uint8_t smem_raw[];
@@ -660,9 +648,9 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     split_bf16(s, hi, lo);
     wgmma_fence();
     if (grp == 0)
-      wgmma_rs_tile<NB>(acc, hi, lo, split & kSplitP, gs);    // dV += P^T dO
+      wgmma_rs_tile<NB>(acc, hi, lo, gs);    // dV += P^T dO
     else
-      wgmma_rs_tile<NB>(acc, hi, lo, split & kSplitDsK, qs);  // dK += dS^T Q
+      wgmma_rs_tile<NB>(acc, hi, lo, qs);    // dK += dS^T Q
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -698,7 +686,7 @@ struct Args {
   void *dq, *dk, *dv;
   float* delta;
   Strides3 st[8];                       // q, k, v, o, dO, dQ, dK, dV
-  int B, H, KV, split;
+  int B, H, KV;
   Masks mk;
 };
 
@@ -751,12 +739,12 @@ cudaError_t launch_tc(const Args& a, int device, cudaStream_t stream) {
   const Strides3* st = a.st;
   flash_bwd_dq_tc<D><<<dim3(a.B * a.H, tiles), 128, bytes, stream>>>(
       q, k, v, o, g, a.lse, a.delta, static_cast<bf16*>(a.dq), st[0], st[1],
-      st[2], st[3], st[4], st[5], a.H, rep, a.mk, a.split);
+      st[2], st[3], st[4], st[5], a.H, rep, a.mk);
   if ((err = cudaGetLastError())) return err;
   flash_bwd_dkdv_tc<D><<<dim3(a.B * a.KV, tiles), 256, bytes, stream>>>(
       q, k, v, g, a.lse, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), st[0], st[1], st[2], st[4], st[6], st[7],
-      a.H, rep, a.mk, a.split);
+      a.H, rep, a.mk);
   return cudaGetLastError();
 }
 
@@ -765,20 +753,19 @@ int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dq, void* dk, void* dv,
            void* delta, const int64_t* strides, int B, int H, int KV, int S,
            int D, float scale, int causal, int window, float softcap,
-           int split, int device, void* stream) {
+           int device, void* stream) {
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Args a{q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv,
-         static_cast<float*>(delta), {}, B, H, KV, split,
+         static_cast<float*>(delta), {}, B, H, KV,
          Masks{S, causal, window, scale, softcap}};
   for (int i = 0; i < 8; ++i)
     a.st[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if constexpr (kBf16) {
     switch (D) {
-      case 32: err = launch_simt<32, __nv_bfloat16>(a, device, s); break;
       case 64: err = launch_tc<64>(a, device, s); break;
       case 128: err = launch_tc<128>(a, device, s); break;
       case 256: err = launch_tc<256>(a, device, s); break;
@@ -802,27 +789,26 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // C entry points (bound with ctypes). strides: (b, h, s) of q, k, v, o,
 // dO, dQ, dK, dV in elements; lse the forward's dense (B, H, S) f32
 // log-sum-exp, delta (B, H, S) f32 scratch; window 0 = none, softcap 0 =
-// none; split: the bf16 operands that go in as hi + lo (bit 0 P for dV,
-// bit 1 dS for dK, bit 2 dS for dQ; f32 ignores it). Return the
-// launches' CUDA error.
+// none; D in {32, 64, 128, 256} for f32, {64, 128, 256} for bf16. Return
+// the launches' CUDA error.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* delta, const int64_t* strides, int B, int H, int KV, int S, int D,
-    float scale, int causal, int window, float softcap, int split,
-    int device, void* stream) {
+    float scale, int causal, int window, float softcap, int device,
+    void* stream) {
   return launch<false>(q, k, v, o, dout, lse, dq, dk, dv, delta, strides, B,
-                       H, KV, S, D, scale, causal, window, softcap, split,
-                       device, stream);
+                       H, KV, S, D, scale, causal, window, softcap, device,
+                       stream);
 }
 
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* delta, const int64_t* strides, int B, int H, int KV, int S, int D,
-    float scale, int causal, int window, float softcap, int split,
-    int device, void* stream) {
+    float scale, int causal, int window, float softcap, int device,
+    void* stream) {
   return launch<true>(q, k, v, o, dout, lse, dq, dk, dv, delta, strides, B,
-                      H, KV, S, D, scale, causal, window, softcap, split,
-                      device, stream);
+                      H, KV, S, D, scale, causal, window, softcap, device,
+                      stream);
 }

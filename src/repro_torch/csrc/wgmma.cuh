@@ -158,13 +158,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
 }
 
 // d += A B over a k-extent of 64, A the 64 x 64 fragment in registers
-// (hi, and lo when `with_lo`), B a swizzled tile at `b` read MN-major,
+// as hi + lo (two products), B a swizzled tile at `b` read MN-major,
 // column block c of B into d[c].
 template <int NB>
 __device__ __forceinline__ void wgmma_rs_tile(float (&d)[NB][32],
                                               const uint32_t (&hi)[16],
                                               const uint32_t (&lo)[16],
-                                              bool with_lo, uint32_t b) {
+                                              uint32_t b) {
 #pragma unroll
   for (int c = 0; c < NB; ++c) {
 #pragma unroll
@@ -172,9 +172,8 @@ __device__ __forceinline__ void wgmma_rs_tile(float (&d)[NB][32],
       const uint64_t db = descriptor(b + c * kBlockBytes + kk * 2048);
       wgmma_rs(d[c], hi[4 * kk], hi[4 * kk + 1], hi[4 * kk + 2],
                hi[4 * kk + 3], db);
-      if (with_lo)
-        wgmma_rs(d[c], lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
-                 lo[4 * kk + 3], db);
+      wgmma_rs(d[c], lo[4 * kk], lo[4 * kk + 1], lo[4 * kk + 2],
+               lo[4 * kk + 3], db);
     }
   }
 }

@@ -62,11 +62,13 @@
 //
 // Bound on the H100: bytes. At the full-width training shape (B=2, H=50,
 // T=2048, K=16, V=64) the SSD heads pass k and logw as broadcast views,
-// and the inputs and outputs (with the forward's chunk states) are ~0.24
-// GB: ~0.07 ms at 3.35 TB/s. A chunk's work is ~1.4 M flops and ~0.1 M
-// decays (each pair's taken three times, for A, dr and dk), issued from
-// shared-memory tiles: that, not the 32-hop hand-off chain, bounds it in
-// practice (a launch of as many blocks without the chain takes as long).
+// and the gradient's inputs and outputs are ~0.22 GB: ~0.067 ms at 3.35
+// TB/s (the forward's chunk states, 12.7 MB, are read rather than
+// recomputed, which is this kernel's choice, not the bound's). A chunk's
+// work is ~1.4 M flops and ~0.1 M decays (each pair's taken three times,
+// for A, dr and dk), issued from shared-memory tiles: that, not the
+// 32-hop hand-off chain, bounds it in practice (a launch of as many
+// blocks without the chain takes as long).
 
 #include <cuda_runtime.h>
 #include <math.h>

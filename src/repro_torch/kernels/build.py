@@ -72,13 +72,13 @@ _SIGNATURES = {
     "wkv6_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
                  _i32, _i32, _i32, _vp, _vp, _i32, _vp],
     # q, k, v, o, dO, lse, dQ, dK, dV, delta, strides[8][3] (b, h, s), B,
-    # H, KV, S, D, scale, causal, window, softcap, split, device, stream
+    # H, KV, S, D, scale, causal, window, softcap, device, stream
     "flash_attention_bwd_f32": [_vp] * 10 + [_i64p, _i32, _i32, _i32, _i32,
                                              _i32, _f32, _i32, _i32, _f32,
-                                             _i32, _i32, _vp],
+                                             _i32, _vp],
     "flash_attention_bwd_bf16": [_vp] * 10 + [_i64p, _i32, _i32, _i32, _i32,
                                               _i32, _f32, _i32, _i32, _f32,
-                                              _i32, _i32, _vp],
+                                              _i32, _vp],
     # r, k, v, logw, s0, dO, dS_T (or null), dr, dk, dv, dlogw, ds0,
     # states, xfer, flags, strides[7][4], B, H, T, K, V, chunk, device,
     # stream

@@ -32,14 +32,11 @@ from repro_torch.kernels.stream import current_stream
 
 _DTYPES = {torch.float32: "flash_attention_f32",
            torch.bfloat16: "flash_attention_bf16"}
-# Head dims per input type: the bf16 kernel's wgmma tiles are 64 columns
-# wide, so D = 32 (lm_tiny) takes the f32 kernel only.
+# Head dims per input type, forward and backward: the bf16 kernels' wgmma
+# tiles are 64 columns wide, so D = 32 (lm_tiny) takes the f32 kernels
+# only.
 HEAD_DIMS = {torch.float32: (32, 64, 128, 256),
              torch.bfloat16: (64, 128, 256)}
-BWD_HEAD_DIMS = (32, 64, 128, 256)
-# The bf16 backward's operands that go in as two bf16 products (hi + lo)
-# rather than one rounding: bit 0 P (for dV), bit 1 dS (dK), bit 2 dS (dQ).
-SPLIT_ALL = 0b111
 _BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
                 torch.bfloat16: "flash_attention_bwd_bf16"}
 
@@ -107,16 +104,16 @@ def _check(q, k, v, head_dims, window, softcap, what: str):
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
                         *, causal: bool = True, window: int | None = None,
-                        softcap: float | None = None, split: int = SPLIT_ALL
+                        softcap: float | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels (`csrc/flash_attention_bwd.cu`) on CUDA
     tensors: q, k, v as for `flash_attention`, o its output, do the
     gradient of o (both (B, H, S, D), q's dtype) and lse the forward's
     (`return_lse`; dense (B, H, S) float32). Returns (dq, dk, dv) in the
-    input dtype, each in its input's memory layout. D in BWD_HEAD_DIMS
-    for both dtypes; `split` (bf16 only) as SPLIT_ALL's bits."""
-    B, H, S, D, KV = _check(q, k, v, BWD_HEAD_DIMS, window, softcap,
-                            "flash_attention_bwd")
+    input dtype, each in its input's memory layout. D in HEAD_DIMS of
+    that dtype."""
+    B, H, S, D, KV = _check(q, k, v, HEAD_DIMS.get(q.dtype, ()), window,
+                            softcap, "flash_attention_bwd")
     for name, t in (("o", o), ("do", do)):
         if t.shape != q.shape or t.dtype != q.dtype \
                 or t.device != q.device or t.stride(-1) != 1:
@@ -130,7 +127,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0:
         return dq, dk, dv
-    if q.dtype == torch.bfloat16 and D > 32:
+    if q.dtype == torch.bfloat16:
         q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     # dO . O per row: computed by the dq kernel, read by the dk/dv kernel.
     delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
@@ -141,8 +138,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), strides,
                    B, H, KV, S, D, float(D ** -0.5), int(causal),
-                   int(window or 0), float(softcap or 0.0), int(split),
-                   q.device.index, current_stream(q.device.index)),
+                   int(window or 0), float(softcap or 0.0), q.device.index, current_stream(q.device.index)),
                 "flash_attention_bwd")
     return dq, dk, dv
 

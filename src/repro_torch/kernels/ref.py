@@ -212,11 +212,10 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  ds_final: torch.Tensor | None = None, chunk: int = 64,
                  states: torch.Tensor | None = None
                  ) -> tuple[torch.Tensor, ...]:
-    """The backward kernel's formulas (`csrc/wkv6_bwd.cu`), in f32 (in
-    f64 when r is f64: the exact gradient the card checks read the
-    roundings of both against): the inputs of `wkv6_ref`, do (B,H,T,V)
-    the gradient of o and ds_final (B,H,K,V) that of the end state
-    (None: zero) -> (dr, dk, dv, dlogw, ds0).
+    """The backward kernel's formulas (`csrc/wkv6_bwd.cu`), in f32: the
+    inputs of `wkv6_ref`, do (B,H,T,V) the gradient of o and ds_final
+    (B,H,K,V) that of the end state (None: zero) -> (dr, dk, dv, dlogw,
+    ds0).
 
     Each chunk's start state S is s0 or, for chunk c > 0, `states[c - 1]`
     (the forward's, `wkv6_ref(..., return_states=True)`); without
@@ -234,9 +233,8 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and dlogw[s] = sum_{t>=s} (q_t - p_t) - q_s + sum_v dS_T S_T over the
     whole sequence, with q = r dr and p = k dk."""
     B, H, T, K = r.shape
-    dt = torch.float64 if r.dtype == torch.float64 else torch.float32
     pad = (-T) % chunk
-    r, k, v, logw, do = (F.pad(x.to(dt), (0, 0, 0, pad))
+    r, k, v, logw, do = (F.pad(x.float(), (0, 0, 0, pad))
                          for x in (r, k, v, logw, do))
     n = (T + pad) // chunk
     seg = lambda x, c: x[:, :, c * chunk:(c + 1) * chunk]
@@ -250,13 +248,13 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "bhik,bhiv->bhkv", kc * torch.exp(total - logc), vc)
 
     if states is None:
-        starts = [s0.to(dt)]
+        starts = [s0.float()]
         for c in range(n - 1):
             starts.append(carry_past(starts[-1], c))
     else:
-        starts = [s0.to(dt), *states.to(dt)]
+        starts = [s0.float(), *states.float()]
     s = carry_past(starts[-1], n - 1)                    # the end state
-    ds = (torch.zeros_like(s) if ds_final is None else ds_final.to(dt))
+    ds = (torch.zeros_like(s) if ds_final is None else ds_final.float())
     carry = (ds * s).sum(-1)                              # (B, H, K)
     grads = []
     for c in reversed(range(n)):

@@ -690,8 +690,7 @@ BWD_FLASH_CASES = [
     (2, 25, 5, 2048, 64, torch.bfloat16, True, 1024, None),  # hymba-1.5b
     (2, 25, 5, 2048, 64, torch.bfloat16, True, None, None),
     # The bf16 tensor-core kernels' tiles: D = 128 and 256, softcap,
-    # non-causal, S not a multiple of 64, rep = 1 (and D = 32 in bf16,
-    # which keeps the CUDA-core kernels).
+    # non-causal, S not a multiple of 64, rep = 1.
     (1, 8, 2, 1024, 128, torch.bfloat16, True, 512, None),
     (1, 8, 1, 300, 256, torch.bfloat16, True, None, None),
     (1, 4, 2, 256, 64, torch.bfloat16, True, None, 30.0),
@@ -699,7 +698,6 @@ BWD_FLASH_CASES = [
     (2, 4, 2, 1000, 64, torch.bfloat16, True, 100, None),
     (1, 4, 4, 333, 64, torch.bfloat16, True, 128, None),
     (1, 4, 4, 33, 128, torch.bfloat16, False, 8, 50.0),
-    (2, 2, 1, 70, 32, torch.bfloat16, True, None, None),
 ]
 
 
@@ -891,6 +889,11 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(dev):
     q, k, v = _flash_inputs(dev, 1, 2, 1, 64, 64, torch.bfloat16)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd(q, k, v, q, q, torch.zeros((1, 2, 63),
+                                                       device=dev))
+    # bf16 takes the forward's head dims: D = 32 is f32 only.
+    q, k, v = _flash_inputs(dev, 1, 2, 1, 64, 32, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 32"):
+        flash_attention_bwd(q, k, v, q, q, torch.zeros((1, 2, 64),
                                                        device=dev))
     r, kk, vv, lw, s0 = _wkv6_inputs(dev, 1, 1, 100, 16, 64)
     states = ref.wkv6_ref(r, kk, vv, lw, s0, return_states=True)[2]

@@ -297,29 +297,6 @@ def test_wkv6_plain_backward_at_decay_ties_is_exact():
                 r, kk, 1e-5, 1e-5)
 
 
-def test_wkv6_plain_backward_in_float64_is_the_exact_gradient():
-    """Given float64 inputs the plain backward computes in float64 (the
-    card checks read both f32 roundings against it): it matches autograd
-    of the float64 step-by-step recurrence to float64 precision, and the
-    f32 plain backward to f32 precision."""
-    r, kk, vv, lw, s0, g, gs = _wkv6_inputs(1, 2, 70, 8, 8, "mixed")
-    x64 = [torch.as_tensor(a, dtype=torch.float64).requires_grad_(True)
-           for a in (r, kk, vv, lw, s0)]
-    o, s_final = _step_oracle(*x64)
-    want = torch.autograd.grad(
-        (o, s_final), x64, (torch.as_tensor(g, dtype=torch.float64),
-                            torch.as_tensor(gs, dtype=torch.float64)))
-    got = ref.wkv6_bwd_ref(*(x.detach() for x in x64),
-                           torch.as_tensor(g, dtype=torch.float64),
-                           torch.as_tensor(gs, dtype=torch.float64), 16)
-    assert all(a.dtype == torch.float64 for a in got)
-    _close_wkv6([a.numpy() for a in got], [w.numpy() for w in want],
-                r, kk, 1e-10, 1e-10)
-    f32 = ref.wkv6_bwd_ref(*(_t(a) for a in (r, kk, vv, lw, s0, g, gs)), 16)
-    _close_wkv6([a.numpy() for a in f32], [a.numpy() for a in got],
-                r, kk, 1e-5, 1e-5)
-
-
 def test_wkv6_op_backward_sums_broadcast_views():
     """The SSD heads pass k broadcast over heads and logw over the state
     dim (stride-0 views): the op's backward (the plain backward on the
