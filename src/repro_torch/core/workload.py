@@ -17,12 +17,13 @@ Ported: `femnist_mlp`, the paper's sweep model, whose cost numbers are
 pinned to the paper's section-5 constants (so
 `HardwareModel.for_workload("femnist_mlp") == HardwareModel()`);
 `femnist_cnn`, the paper's headline 47k-parameter CNN, whose cost is
-derived from its conv/dense dims; and the LM workloads `lm_tiny` and
-`lm_hybrid_tiny` (`lm_workload`: any ported LM config federated over
-token shards). An LM client stack is one (C, P) float32 buffer laid out
-as the config's param tree (`ParamLayout.of_tree`), trained by one
-forward and backward for the whole stack (`client_lm_losses`). Not
-ported: `lm_moe_tiny` and `lm_rwkv6_tiny` (their ROADMAP items).
+derived from its conv/dense dims; and the LM workloads `lm_tiny`,
+`lm_hybrid_tiny` and `lm_rwkv6_tiny` (`lm_workload`: any ported LM
+config federated over token shards). An LM client stack is one (C, P)
+float32 buffer laid out as the config's param tree
+(`ParamLayout.of_tree`), trained by one forward and backward for the
+whole stack (`client_lm_losses`). Not ported: `lm_moe_tiny` (its ROADMAP
+item: it is a reduced deepseek-v3, with MLA and an MTP head).
 """
 from __future__ import annotations
 
@@ -42,8 +43,7 @@ EXECUTION_MODES = ("host", "mesh")
 
 # Reference workloads still to port, with the ROADMAP item that brings each.
 _NOT_PORTED = {
-    "lm_moe_tiny": "ROADMAP queue item 5 (MoE and MLA)",
-    "lm_rwkv6_tiny": "ROADMAP queue item 4 (rwkv6 time-mix)",
+    "lm_moe_tiny": "ROADMAP queue item 5 (MLA, MTP and lm_moe_tiny)",
 }
 
 
@@ -290,6 +290,16 @@ def _lm_tiny() -> Workload:
                        samples_per_client=32, eval_samples=8)
 
 
+def _lm_rwkv6_tiny() -> Workload:
+    """Reduced RWKV6 (Finch): 2 attention-free time-mix/channel-mix
+    layers. Fully dense per token: only the untied embedding gather
+    separates activated from total parameters."""
+    from repro_torch.configs import get_config
+    return lm_workload(get_config("rwkv6-1.6b").reduced(),
+                       name="lm_rwkv6_tiny", seq_len=32,
+                       samples_per_client=32, eval_samples=8)
+
+
 def _lm_hybrid_tiny() -> Workload:
     """Reduced Hymba: 2 hybrid layers (parallel sliding-window attention
     + SSD heads; the first is a full-attention anchor)."""
@@ -305,6 +315,7 @@ _BUILDERS: dict[str, Callable[[], Workload]] = {
     "femnist_mlp": _femnist_mlp,
     "femnist_cnn": _femnist_cnn,
     "lm_tiny": _lm_tiny,
+    "lm_rwkv6_tiny": _lm_rwkv6_tiny,
     "lm_hybrid_tiny": _lm_hybrid_tiny,
 }
 _CACHE: dict[str, Workload] = {}

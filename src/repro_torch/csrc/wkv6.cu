@@ -41,10 +41,11 @@
 // through the last row of each 4-row key block (both exponents <= 0), so
 // they take 4 exps per state row of a 4 x 4 tile instead of 16. The
 // cumulative logs are summed in order, as the reference does: their
-// differences then cancel the same rounding. The serving shape (K, V, L)
-// = (16, 64, 64) is compiled with fixed sizes, which turns index
-// arithmetic into shifts; others take the same code with sizes from the
-// arguments.
+// differences then cancel the same rounding. The SSD heads' shape (K, V,
+// L) = (16, 64, 64) and RWKV6's time mix (64, 64, 64) are compiled with
+// fixed sizes, which turns index arithmetic into shifts; others take the
+// same code with sizes from the arguments (`wkv6_generic_f32` takes that
+// generic build at every shape, to compare the two).
 //
 // Bound on the H100: bytes. At the serving shape (B=4, H=50, T=2048,
 // K=16, V=64) the inputs and outputs are 0.29 GB against about 5 K V
@@ -494,20 +495,13 @@ cudaError_t launch(const void* r, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-}  // namespace
-
-// C entry point (bound with ctypes). strides: (b, h, t, x) of r, k, v,
-// logw, s0, o, s_final in elements (for s0 and s_final: b, h, K, V).
-// states: B H nc K V floats, nc = ceil(T / L), each chunk's end state;
-// flags: B H nc + 1 ints, zero on entry (the published flags, then the
-// ticket counter). One launch; returns its CUDA error: 0 on success.
-extern "C" int wkv6_f32(const void* r, const void* k, const void* v,
-                        const void* w, const void* s0, void* o, void* sT,
-                        const int64_t* st, int B, int H, int T, int K, int V,
-                        int L, void* states, void* flags, int device,
-                        void* stream) {
-  // Launch on the tensors' device and give the calling thread back its
-  // current device, which PyTorch reads for its own defaults.
+// Launch on the tensors' device (fixed: take a build fixed at the shape
+// where there is one) and give the calling thread back its current
+// device, which PyTorch reads for its own defaults.
+int run(const void* r, const void* k, const void* v, const void* w,
+        const void* s0, void* o, void* sT, const int64_t* st, int B, int H,
+        int T, int K, int V, int L, void* states, void* flags, int device,
+        void* stream, bool fixed) {
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
@@ -521,12 +515,44 @@ extern "C" int wkv6_f32(const void* r, const void* k, const void* v,
                   (rows_vec(w, s[3], K) ? kVecW : 0) |
                   (rows_vec(o, s[5], V) ? kVecO : 0);
   cudaStream_t cs = static_cast<cudaStream_t>(stream);
-  if (K == 16 && V == 64 && L == 64)          // hymba's SSD heads
+  if (fixed && K == 16 && V == 64 && L == 64)          // hymba's SSD heads
     err = launch<16, 64, 64>(r, k, v, w, s0, o, sT, s, B, H, T, K, V, L,
+                             states, flags, vec, device, cs);
+  else if (fixed && K == 64 && V == 64 && L == 64)     // rwkv6's time mix
+    err = launch<64, 64, 64>(r, k, v, w, s0, o, sT, s, B, H, T, K, V, L,
                              states, flags, vec, device, cs);
   else
     err = launch<0, 0, 0>(r, k, v, w, s0, o, sT, s, B, H, T, K, V, L,
                           states, flags, vec, device, cs);
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
+}
+
+}  // namespace
+
+// C entry point (bound with ctypes). strides: (b, h, t, x) of r, k, v,
+// logw, s0, o, s_final in elements (for s0 and s_final: b, h, K, V).
+// states: B H nc K V floats, nc = ceil(T / L), each chunk's end state;
+// flags: B H nc + 1 ints, zero on entry (the published flags, then the
+// ticket counter). One launch; returns its CUDA error: 0 on success.
+// The serving and training shapes (K, V, L) = (16, 64, 64) and
+// (64, 64, 64) take builds fixed at them.
+extern "C" int wkv6_f32(const void* r, const void* k, const void* v,
+                        const void* w, const void* s0, void* o, void* sT,
+                        const int64_t* st, int B, int H, int T, int K, int V,
+                        int L, void* states, void* flags, int device,
+                        void* stream) {
+  return run(r, k, v, w, s0, o, sT, st, B, H, T, K, V, L, states, flags,
+             device, stream, true);
+}
+
+// The same launch through the generic build at every shape (sizes from
+// the arguments), to hold the fixed builds against it.
+extern "C" int wkv6_generic_f32(const void* r, const void* k, const void* v,
+                                const void* w, const void* s0, void* o,
+                                void* sT, const int64_t* st, int B, int H,
+                                int T, int K, int V, int L, void* states,
+                                void* flags, int device, void* stream) {
+  return run(r, k, v, w, s0, o, sT, st, B, H, T, K, V, L, states, flags,
+             device, stream, false);
 }

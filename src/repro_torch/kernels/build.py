@@ -71,6 +71,8 @@ _SIGNATURES = {
     # states, flags, device, stream
     "wkv6_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i32, _i32, _i32,
                  _i32, _i32, _i32, _vp, _vp, _i32, _vp],
+    "wkv6_generic_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i32,
+                         _i32, _i32, _i32, _i32, _i32, _vp, _vp, _i32, _vp],
     # q, k, v, o, dO, lse, dQ, dK, dV, delta, strides[8][3] (b, h, s), B,
     # H, KV, S, D, scale, causal, window, softcap, device, stream
     "flash_attention_bwd_f32": [_vp] * 10 + [_i64p, _i32, _i32, _i32, _i32,

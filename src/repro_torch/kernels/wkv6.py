@@ -69,12 +69,16 @@ def smem_bytes(K: int, V: int, chunk: int) -> int:
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
          logw: torch.Tensor, s0: torch.Tensor, *, chunk: int = 64,
-         return_states: bool = False) -> tuple[torch.Tensor, ...]:
+         return_states: bool = False,
+         generic: bool = False) -> tuple[torch.Tensor, ...]:
     """Launch the kernel on CUDA f32 tensors. r/k/logw: (B, H, T, K); v:
     (B, H, T, V); s0: (B, H, K, V); logw <= 0. Returns (o (B, H, T, V),
     s_final (B, H, K, V)); with `return_states`, also the start states of
     chunks 1 .. n - 1 of the n = ceil(T / chunk), a dense
-    (n - 1, B, H, K, V) tensor (`wkv6_bwd` takes it)."""
+    (n - 1, B, H, K, V) tensor (`wkv6_bwd` takes it). (K, V, chunk) =
+    (16, 64, 64) and (64, 64, 64) launch builds fixed at those sizes;
+    `generic` takes the build with sizes from the arguments there too
+    (to compare the two)."""
     B, H, T, K, V = _check(r, k, v, logw, s0, "wkv6")
     if chunk < 1 or smem_bytes(K, V, chunk) > MAX_SMEM_BYTES:
         raise ValueError(f"wkv6: (K={K}, V={V}, chunk={chunk}) needs "
@@ -95,7 +99,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         device=r.device)
     strides = (ctypes.c_int64 * 28)(*(
         s for t in (r, k, v, logw, s0, o, s_final) for s in t.stride()))
-    fn = build.entry("wkv6_f32")
+    fn = build.entry("wkv6_generic_f32" if generic else "wkv6_f32")
     build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                    logw.data_ptr(), s0.data_ptr(), o.data_ptr(),
                    s_final.data_ptr(), strides, B, H, T, K, V, chunk,

@@ -1,8 +1,10 @@
-"""The LM stack for serving: GQA attention and hybrid (attention + SSD)
-layers.
+"""The LM stack: GQA attention, routed-expert, RWKV6 and hybrid
+(attention + SSD) layers.
 
 Port of `repro.models.lm.transformer` for the segment kinds
   attn    — GQA attention + dense MLP
+  moe     — GQA attention + routed experts (+ shared), row-local dispatch
+  rwkv    — RWKV6 time mix + channel mix
   hybrid  — parallel GQA attention + SSD heads, then dense MLP
 with the reference's parameter tree: `params["segments"]` is a list of
 dicts, one per `cfg.resolved_segments` entry, whose leaves carry the
@@ -28,17 +30,23 @@ as views). With `cfg.remat` each layer is recomputed in the backward
 (`torch.utils.checkpoint`), as the reference's `jax.checkpoint` of the
 scanned layer.
 
-The prefill attention is the `flash_attention` kernel and the SSD prefill
-scan the `wkv6` kernel (through `attention.attention_prefill` and
-`scan_core.chunked_decay_scan`). The decode cache is the reference's, per
+The prefill attention is the `flash_attention` kernel, and the SSD and
+RWKV6 prefill scans the `wkv6` kernel (through `attention.attention_prefill`
+and `scan_core.chunked_decay_scan`). The decode cache is the reference's, per
 segment with a leading layer axis, plus `cache["pos"]`, a Python int
 (one position for the whole batch, kept on the host). `decode_step`
 updates the cache's tensors in place and returns the cache with `pos`
-advanced: the reference returns new arrays instead.
+advanced: the reference returns new arrays instead. An `rwkv` layer's
+cache is O(1) in the sequence: the last inputs of both mixes and the
+(H, hd, hd) scan state, in the model's dtype.
 
-Not ported yet, each raising NotImplementedError: the `moe` and `rwkv`
-segment kinds, MLA attention, the encoder (enc-dec) and prefix
-embeddings (VLM).
+The MoE layers' aux loss is per client in `forward_train_stacked`
+(`moe_aux` of shape (G,), each client's over its own tokens), so that
+`client_lm_losses` adds each client its own; `forward_train` returns it
+0-d, as the reference.
+
+Not ported yet, each raising NotImplementedError: MLA attention and the
+MTP head, the encoder (enc-dec) and prefix embeddings (VLM).
 """
 from __future__ import annotations
 
@@ -59,7 +67,17 @@ from repro_torch.models.lm.layers import (
     init_mlp,
     rmsnorm,
 )
+from repro_torch.models.lm.moe import apply_moe, apply_moe_stacked, init_moe
 from repro_torch.models.lm.params import map_tree
+from repro_torch.models.lm.rwkv import (
+    init_rwkv_channel_mix,
+    init_rwkv_time_mix,
+    rwkv_channel_mix,
+    rwkv_channel_mix_stacked,
+    rwkv_time_mix,
+    rwkv_time_mix_stacked,
+    rwkv_time_mix_step,
+)
 from repro_torch.models.lm.ssm import (
     CONV_K,
     init_ssm,
@@ -69,9 +87,7 @@ from repro_torch.models.lm.ssm import (
 )
 
 _ROADMAP = {
-    "moe": "MoE and MLA",
-    "mla": "MoE and MLA",
-    "rwkv": "rwkv6 time-mix",
+    "mla": "MLA, MTP and lm_moe_tiny",
     "encoder": "Encoder and prefix embeddings",
     "prefix": "Encoder and prefix embeddings",
 }
@@ -87,11 +103,10 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.encoder is not None:
         raise _not_ported(f"{cfg.name}: the encoder (enc-dec)", "encoder")
     for seg in cfg.resolved_segments:
-        if seg.kind in ("moe", "rwkv"):
-            raise _not_ported(f"{cfg.name}: segment kind '{seg.kind}'",
-                              seg.kind)
-        if cfg.mla is not None and seg.kind == "attn":
+        if cfg.mla is not None and seg.kind in ("attn", "moe"):
             raise _not_ported(f"{cfg.name}: MLA attention", "mla")
+    if cfg.mtp:
+        raise _not_ported(f"{cfg.name}: the MTP head", "mla")
 
 
 # ======================================================================= #
@@ -119,15 +134,27 @@ def _init_segment(cfg: ModelConfig, seg: Segment, generator, device,
     lead = (seg.n_layers,)
     zeros = lambda *shape: torch.zeros(lead + shape, dtype=dtype,
                                        device=device)
-    p: dict = {"norm1": zeros(cfg.d_model), "norm2": zeros(cfg.d_model),
-               "attn": _init_gqa(generator, cfg, lead, device, dtype)}
+    p: dict = {"norm1": zeros(cfg.d_model), "norm2": zeros(cfg.d_model)}
+    if seg.kind == "rwkv":
+        p["tm"] = init_rwkv_time_mix(generator, cfg.d_model,
+                                     cfg.resolved_head_dim, lead, device,
+                                     dtype)
+        p["cm"] = init_rwkv_channel_mix(generator, cfg.d_model, cfg.d_ff,
+                                        lead, device, dtype)
+        return p
+    p["attn"] = _init_gqa(generator, cfg, lead, device, dtype)
     if seg.kind == "hybrid":
         p["ssm"] = init_ssm(generator, cfg.d_model, cfg.ssm, lead, device,
                             dtype)
         p["gate_attn"] = zeros()
         p["gate_ssm"] = zeros()
-    p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff,
-                        cfg.mlp in ("swiglu", "geglu"), lead, device, dtype)
+    if seg.kind == "moe":
+        p["moe"] = init_moe(generator, cfg.d_model, cfg.moe, cfg.mlp, lead,
+                            device, dtype)
+    else:
+        p["mlp"] = init_mlp(generator, cfg.d_model, cfg.d_ff,
+                            cfg.mlp in ("swiglu", "geglu"), lead, device,
+                            dtype)
     return p
 
 
@@ -215,6 +242,10 @@ def _init_segment_cache(cfg: ModelConfig, seg: Segment, B: int,
     slots = min(max_seq, window) if window else max_seq
     zeros = lambda *shape: torch.zeros((seg.n_layers, B) + shape, dtype=dt,
                                        device=device)
+    if seg.kind == "rwkv":
+        H = cfg.d_model // hd
+        return {"tm_x": zeros(cfg.d_model), "cm_x": zeros(cfg.d_model),
+                "s": zeros(H, hd, hd)}
     c = {"k": zeros(slots, cfg.n_kv_heads, hd),
          "v": zeros(slots, cfg.n_kv_heads, hd)}
     if seg.kind == "hybrid":
@@ -228,6 +259,16 @@ def _init_segment_cache(cfg: ModelConfig, seg: Segment, B: int,
 def _apply_layer_prefill(cfg: ModelConfig, seg: Segment, lp: dict, x,
                          positions, cache: dict):
     """Returns x; fills this layer's `cache` views in place."""
+    if seg.kind == "rwkv":
+        h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        o, (tm_x, s) = rwkv_time_mix(lp["tm"], h, cfg.resolved_head_dim)
+        x = x + o
+        h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        o, cm_x = rwkv_channel_mix(lp["cm"], h2)
+        cache["tm_x"].copy_(tm_x)
+        cache["cm_x"].copy_(cm_x)
+        cache["s"].copy_(s)
+        return x + o
     S = x.shape[1]
     window = _seg_window(cfg, seg)
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
@@ -248,12 +289,32 @@ def _apply_layer_prefill(cfg: ModelConfig, seg: Segment, lp: dict, x,
         cache["conv_tail"].copy_(tail)
     x = x + o
     h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
-    return x + apply_mlp(lp["mlp"], h2, cfg.mlp)
+    return x + _ffn(cfg, seg, lp, h2)
+
+
+def _ffn(cfg: ModelConfig, seg: Segment, lp: dict, h2):
+    """The layer's feed-forward piece on one model: routed experts (their
+    aux loss dropped, as the reference's prefill and decode drop it) or
+    the dense MLP."""
+    if seg.kind == "moe":
+        return apply_moe(lp["moe"], h2, cfg.moe, cfg.mlp)[0]
+    return apply_mlp(lp["mlp"], h2, cfg.mlp)
 
 
 def _apply_layer_decode(cfg: ModelConfig, seg: Segment, lp: dict, x,
                         cache: dict, pos: int):
     """Returns x; updates this layer's `cache` views in place."""
+    if seg.kind == "rwkv":
+        h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
+        o, (tm_x, s) = rwkv_time_mix_step(lp["tm"], h[:, 0], cache["tm_x"],
+                                          cache["s"], cfg.resolved_head_dim)
+        x = x + o[:, None, :]
+        h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
+        o2, cm_x = rwkv_channel_mix(lp["cm"], h2, x_prev=cache["cm_x"])
+        cache["tm_x"].copy_(tm_x)
+        cache["cm_x"].copy_(cm_x)
+        cache["s"].copy_(s)
+        return x + o2
     window = _seg_window(cfg, seg)
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
     o = _gqa_step(lp["attn"], h, cfg, cache["k"], cache["v"], pos, window)
@@ -265,7 +326,7 @@ def _apply_layer_decode(cfg: ModelConfig, seg: Segment, lp: dict, x,
         cache["conv_tail"].copy_(tail)
     x = x + o
     h2 = rmsnorm(x, lp["norm2"], cfg.norm_eps)
-    return x + apply_mlp(lp["mlp"], h2, cfg.mlp)
+    return x + _ffn(cfg, seg, lp, h2)
 
 
 # ======================================================================= #
@@ -368,7 +429,17 @@ def _gqa_train(p, x, cfg: ModelConfig, positions, window, seq_len: int):
 def _apply_layer_train(cfg: ModelConfig, seg: Segment, lp: dict, x,
                        positions, seq_len: int):
     """One layer of the training forward (the reference's
-    `_apply_layer_train`) on x (G, B*S, d)."""
+    `_apply_layer_train`) on x (G, B*S, d). Returns (x, the layer's MoE
+    aux loss per client (G,), or None for the other kinds)."""
+    if seg.kind == "rwkv":
+        hd = cfg.resolved_head_dim
+        o, _ = rwkv_time_mix_stacked(
+            lp["tm"], rmsnorm(x, _row(lp["norm1"]), cfg.norm_eps), hd,
+            seq_len)
+        x = x + o
+        o, _ = rwkv_channel_mix_stacked(
+            lp["cm"], rmsnorm(x, _row(lp["norm2"]), cfg.norm_eps), seq_len)
+        return x + o, None
     window = _seg_window(cfg, seg)
     h = rmsnorm(x, _row(lp["norm1"]), cfg.norm_eps)
     o = _gqa_train(lp["attn"], h, cfg, positions, window, seq_len)
@@ -378,41 +449,46 @@ def _apply_layer_train(cfg: ModelConfig, seg: Segment, lp: dict, x,
         o = gate(lp["gate_attn"]) * o + gate(lp["gate_ssm"]) * s
     x = x + o
     h2 = rmsnorm(x, _row(lp["norm2"]), cfg.norm_eps)
-    return x + apply_mlp(lp["mlp"], h2, cfg.mlp)
+    if seg.kind == "moe":
+        o, aux = apply_moe_stacked(lp["moe"], h2, cfg.moe, cfg.mlp, seq_len)
+        return x + o, aux["load_balance"] + aux["router_z"]
+    return x + apply_mlp(lp["mlp"], h2, cfg.mlp), None
 
 
 def forward_train_stacked(cfg: ModelConfig, params, tokens: torch.Tensor):
     """Full-sequence forward of G clients at once: every leaf of `params`
     has a leading (G,) axis, tokens (G, B, S) integer. Returns (logits
-    (G, B, S, V), {"moe_aux": 0-d zero})."""
+    (G, B, S, V), {"moe_aux": (G,) f32}), each client's MoE aux loss
+    summed over its layers (zero without MoE layers)."""
     _check_supported(cfg)
     G, B, S = tokens.shape
     embed = params["embed"]
     clients = torch.arange(G, device=tokens.device)[:, None, None]
     x = embed[clients, tokens].reshape(G, B * S, -1)
     positions = torch.arange(S, device=tokens.device)
+    moe_aux = torch.zeros((G,), dtype=torch.float32, device=tokens.device)
     for seg, sp in zip(cfg.resolved_segments, params["segments"]):
         for i in range(seg.n_layers):
             lp = map_tree(lambda t: t[:, i], sp)
             if cfg.remat:
-                x = checkpoint(_apply_layer_train, cfg, seg, lp, x,
-                               positions, S, use_reentrant=False)
+                x, aux = checkpoint(_apply_layer_train, cfg, seg, lp, x,
+                                    positions, S, use_reentrant=False)
             else:
-                x = _apply_layer_train(cfg, seg, lp, x, positions, S)
+                x, aux = _apply_layer_train(cfg, seg, lp, x, positions, S)
+            if aux is not None:
+                moe_aux = moe_aux + aux
     h = rmsnorm(x, _row(params["final_norm"]), cfg.norm_eps)
     logits = h @ (embed.transpose(-1, -2) if cfg.tie_embeddings
                   else params["lm_head"])
-    aux = {"moe_aux": torch.zeros((), dtype=torch.float32,
-                                  device=tokens.device)}
-    return logits.reshape(G, B, S, -1), aux
+    return logits.reshape(G, B, S, -1), {"moe_aux": moe_aux}
 
 
 def forward_train(cfg: ModelConfig, params, tokens, prefix_embeds=None,
                   enc_embeds=None):
     """Full-sequence forward of one model. tokens (B, S) integer. Returns
-    (logits (B, S, V), {"moe_aux": 0-d zero}), as the reference (whose
-    `moe_aux` is the MoE layers' loss; the ported kinds have none)."""
+    (logits (B, S, V), {"moe_aux": 0-d}), as the reference: the MoE
+    layers' aux loss, zero without them."""
     _check_inputs(cfg, prefix_embeds, enc_embeds)
     logits, aux = forward_train_stacked(
         cfg, map_tree(lambda t: t.unsqueeze(0), params), tokens[None])
-    return logits[0], aux
+    return logits[0], {"moe_aux": aux["moe_aux"][0]}

@@ -39,6 +39,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert len(_modules()) >= 30
+    assert {"repro_torch.models.lm.rwkv", "repro_torch.models.lm.moe"} \
+        <= set(_modules())
 
 
 _FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b|"
@@ -90,7 +92,10 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
     from repro_torch.launch import serve, train
     from repro_torch.models.lm.attention import cache_positions
     from repro_torch.models.lm.layers import dense_init, init_mlp, rope_freqs
+    from repro_torch.models.lm.moe import init_moe
     from repro_torch.models.lm.params import lm_params_from_jax
+    from repro_torch.models.lm.rwkv import init_rwkv_channel_mix, \
+        init_rwkv_time_mix
     from repro_torch.models.lm.ssm import init_ssm
     from repro_torch.models.lm.transformer import init_params
     from repro_torch.params import params_from_jax
@@ -101,6 +106,10 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
                  lambda: dense_init(gen, (4, 8)),
                  lambda: init_mlp(gen, 4, 8, True),
                  lambda: init_ssm(gen, cfg.d_model, cfg.ssm),
+                 lambda: init_rwkv_time_mix(gen, 128, 64),
+                 lambda: init_rwkv_channel_mix(gen, 128, 256),
+                 lambda: init_moe(gen, 64, get_config("grok-1-314b")
+                                  .reduced().moe, "gelu"),
                  lambda: rope_freqs(8, 1e4),
                  lambda: cache_positions(3, 4, 2),
                  lambda: lm_params_from_jax({}),
@@ -108,7 +117,8 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
                  lambda: serve.main(["--arch", "gemma-2b"]),
                  lambda: train.main(["--arch", "hymba-1.5b", "--steps", "1"]),
                  lambda: get_workload("lm_tiny").init_fn(gen, None),
-                 lambda: get_workload("lm_hybrid_tiny").init_fn(gen, None)):
+                 lambda: get_workload("lm_hybrid_tiny").init_fn(gen, None),
+                 lambda: get_workload("lm_rwkv6_tiny").init_fn(gen, None)):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
 

@@ -219,7 +219,8 @@ def _leaves(tree, prefix=""):
     return {prefix: tree}
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "gemma-2b"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "gemma-2b", "rwkv6-1.6b",
+                                  "grok-1-314b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lm_params_round_trip(arch, dtype):
     tree = _jax_init(arch, dtype)
@@ -254,6 +255,22 @@ def test_init_params_draws_the_reference_distributions():
     ssm_p = p["segments"][0]["ssm"]
     assert torch.equal(ssm_p["dt_b"], torch.full_like(ssm_p["dt_b"], -2.0))
     assert torch.equal(ssm_p["d_skip"], torch.ones_like(ssm_p["d_skip"]))
+    # rwkv6: the time mix's LoRAs at std 0.01, its constant leaves.
+    tm = init_params(get_config("rwkv6-1.6b").reduced(),
+                     torch.Generator().manual_seed(0),
+                     "cpu")["segments"][0]["tm"]
+    assert float(tm["tm_w2"].abs().max()) <= 0.02
+    assert abs(float(tm["tm_w2"].std()) / (0.87962566 * 0.01) - 1) < 0.02
+    assert torch.equal(tm["mu"], torch.full_like(tm["mu"], 0.5))
+    assert torch.equal(tm["u"], torch.full_like(tm["u"], 0.1))
+    # grok-1: the router at std d_model^-1/2, the experts at fan-in.
+    moe_p = init_params(get_config("grok-1-314b").reduced(),
+                        torch.Generator().manual_seed(0),
+                        "cpu")["segments"][0]["moe"]
+    for name, fan_in in (("router", 256), ("w1", 256), ("w2", 256)):
+        w, std = moe_p[name], fan_in ** -0.5
+        assert float(w.abs().max()) <= 2 * std
+        assert abs(float(w.std()) / (0.87962566 * std) - 1) < 0.02, name
 
 
 # ----------------------------------------------------------- whole model
@@ -367,13 +384,10 @@ def test_every_arch_resolves():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("grok-1-314b", "segment kind 'moe'"),
     ("deepseek-v3-671b", "MLA attention"),
-    ("rwkv6-1.6b", "segment kind 'rwkv'"),
     ("whisper-medium", "encoder"),
-    # The LM workloads of those kinds, each naming its own ROADMAP item.
-    ("lm_moe_tiny", r"item 5 \(MoE and MLA\)"),
-    ("lm_rwkv6_tiny", r"item 4 \(rwkv6 time-mix\)"),
+    # The LM workload of the MLA kind, naming its ROADMAP item.
+    ("lm_moe_tiny", r"item 5 \(MLA, MTP and lm_moe_tiny\)"),
 ])
 def test_unported_kinds_raise(arch, what):
     if arch.startswith("lm_"):

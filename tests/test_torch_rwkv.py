@@ -1,0 +1,435 @@
+"""The port's RWKV6 (`models/lm/rwkv.py`, the `rwkv` segment kind and the
+`lm_rwkv6_tiny` workload) vs the JAX reference, on the CPU.
+
+Both packages get the same numpy inputs and weights (the reference's
+init carried across with `lm_params_from_jax`). The reference's rwkv
+functions are pure jnp (its model never calls the Pallas kernel), so
+they are the oracle; the port runs the `wkv6` kernel's plain version
+(CPU tensors). Time mix, channel mix and the decode step within 1e-5 in
+f32 (T = 33 and 130, neither a multiple of the chunk of 64); reduced
+rwkv6-1.6b prefill and decode within 1e-4 with identical greedy tokens;
+the training loss within 1e-5 and every gradient leaf within 1e-5 +
+1e-4 relative of `jax.grad`; `lm_rwkv6_tiny` through `ConstellationSim`
+with the reference's draws: RoundRecords bitwise, params within 1e-5
+after a local step, and within 10x the one-ulp envelope of a 2-round run
+(its training is chaotic at the rounding level; ROADMAP section 3).
+"""
+from __future__ import annotations
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.core import ALGORITHMS as JAX_ALGORITHMS
+from repro.core.workload import get_workload as jax_get_workload
+from repro.models.lm import rwkv as jrwkv
+from repro.models.lm.transformer import init_params as jax_init_params
+from repro.models.lm.transformer import prefill as jax_prefill
+from repro.orbits import WalkerStar as JaxWalkerStar
+from repro.orbits import compute_access_windows as jax_windows
+from repro.orbits import station_subnetwork as jax_stations
+from repro.sim import ConstellationSim as JaxSim
+from repro.sim import SimConfig as JaxConfig
+from repro.train import step as jax_step
+from repro.train.step import make_serve_step as jax_make_serve_step
+from repro_torch.configs import get_config
+from repro_torch.core import ALGORITHMS, get_workload
+from repro_torch.core.workload import lm_layout
+from repro_torch.kernels import ops
+from repro_torch.launch import serve, train
+from repro_torch.models.lm import rwkv
+from repro_torch.models.lm.params import (
+    lm_params_from_jax,
+    lm_params_to_numpy,
+    map_tree,
+    tree_leaves,
+)
+from repro_torch.models.lm.transformer import (
+    forward_train,
+    init_params,
+    prefill,
+)
+from repro_torch.orbits import WalkerStar, station_subnetwork
+from repro_torch.orbits.access import AccessWindows
+from repro_torch.sim import ConstellationSim, SimConfig
+from repro_torch.train import step
+from repro_torch.train.step import make_prefill_step, make_serve_step
+from torch_parity import JaxReplaySampler
+from torch_parity import jax_init_params as jax_workload_init
+
+TOL = 1e-5
+ARCH = "rwkv6-1.6b"
+D, HD = 128, 64
+
+
+def _close(got: torch.Tensor, want, tol: float = TOL) -> None:
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def _pair(a):
+    a = np.asarray(a, np.float32)
+    return jnp.asarray(a), torch.as_tensor(a)
+
+
+@functools.lru_cache(maxsize=None)
+def _time_mix_tree():
+    """The reference's time-mix init at d = 128 (2 heads of 64), with its
+    constant leaves (mu, u, the GroupNorm's scale and shift) made random
+    so that every term shows."""
+    tree = jax.device_get(jrwkv.init_rwkv_time_mix(jax.random.PRNGKey(0), D,
+                                                   HD))
+    tree = {k: np.asarray(v, np.float32) for k, v in tree.items()}
+    rng = np.random.default_rng(0)
+    tree["mu"] = rng.uniform(0, 1, tree["mu"].shape).astype(np.float32)
+    tree["u"] = (0.3 * rng.normal(size=tree["u"].shape)).astype(np.float32)
+    tree["ln_x_g"] = (1 + 0.1 * rng.normal(size=D)).astype(np.float32)
+    tree["ln_x_b"] = (0.1 * rng.normal(size=D)).astype(np.float32)
+    return tree
+
+
+def _trees(tree):
+    return ({k: jnp.asarray(v) for k, v in tree.items()},
+            lm_params_from_jax(tree, "cpu"))
+
+
+# ---------------------------------------------------------------- blocks
+def test_group_norm_matches():
+    rng = np.random.default_rng(1)
+    (xj, xt), (gj, gt), (bj, bt) = (_pair(rng.normal(size=s))
+                                    for s in ((2, 5, D), (D,), (D,)))
+    _close(rwkv._group_norm(xt, gt, bt, D // HD),
+           jrwkv._group_norm(xj, gj, bj, D // HD))
+
+
+@pytest.mark.parametrize("T", [33, 130])
+@pytest.mark.parametrize("carry", [False, True])
+def test_time_mix_matches(T, carry):
+    """Zero shift and state (train, prefill), or a previous input and a
+    start state carried in."""
+    pj, pt = _trees(_time_mix_tree())
+    rng = np.random.default_rng(T + carry)
+    xj, xt = _pair(rng.normal(size=(2, T, D)))
+    kw_j, kw_t = {}, {}
+    if carry:
+        (kw_j["x_prev"], kw_t["x_prev"]) = _pair(rng.normal(size=(2, D)))
+        (kw_j["state"], kw_t["state"]) = _pair(
+            rng.normal(size=(2, D // HD, HD, HD)))
+    oj, (lj, sj) = jrwkv.rwkv_time_mix(pj, xj, HD, **kw_j)
+    ot, (lt, st) = rwkv.rwkv_time_mix(pt, xt, HD, **kw_t)
+    _close(ot, oj)
+    _close(lt, lj, 0.0)
+    _close(st, sj)
+
+
+def test_time_mix_stacked_shifts_per_sequence():
+    """Two clients of three sequences each through the stacked form equal
+    each sequence alone: the token shift and the scan restart at every
+    sequence, never running across the flattened B*T axis."""
+    tree = _time_mix_tree()
+    pt = lm_params_from_jax(tree, "cpu")
+    rng = np.random.default_rng(5)
+    T = 40
+    x = torch.as_tensor(rng.normal(size=(2, 3 * T, D)).astype(np.float32))
+    stacked = {k: torch.stack([v, v * 1.01]) for k, v in pt.items()}
+    out, (last, s) = rwkv.rwkv_time_mix_stacked(stacked, x, HD, T)
+    for g in range(2):
+        p = {k: v[g] for k, v in stacked.items()}
+        for b in range(3):
+            o1, (l1, s1) = rwkv.rwkv_time_mix(p, x[g:g + 1, b * T:(b + 1) * T],
+                                              HD)
+            torch.testing.assert_close(out[g, b * T:(b + 1) * T], o1[0],
+                                       rtol=1e-6, atol=1e-6)
+            torch.testing.assert_close(s[3 * g + b], s1[0], rtol=1e-6,
+                                       atol=1e-6)
+            assert torch.equal(last[3 * g + b], l1[0])
+
+
+def test_time_mix_step_matches():
+    pj, pt = _trees(_time_mix_tree())
+    rng = np.random.default_rng(2)
+    (xj, xt), (pj_, pt_) = (_pair(rng.normal(size=(3, D))) for _ in range(2))
+    sj, st = _pair(rng.normal(size=(3, D // HD, HD, HD)))
+    oj, (lj, s1j) = jrwkv.rwkv_time_mix_step(pj, xj, pj_, sj, HD)
+    ot, (lt, s1t) = rwkv.rwkv_time_mix_step(pt, xt, pt_, st, HD)
+    _close(ot, oj)
+    _close(lt, lj, 0.0)
+    _close(s1t, s1j)
+
+
+@pytest.mark.parametrize("T,carry", [(33, False), (130, False), (1, True)])
+def test_channel_mix_matches(T, carry):
+    tree = jax.device_get(jrwkv.init_rwkv_channel_mix(jax.random.PRNGKey(1),
+                                                      D, 2 * D))
+    tree = {k: np.asarray(v, np.float32) for k, v in tree.items()}
+    rng = np.random.default_rng(3)
+    tree["mu_k"] = rng.uniform(0, 1, D).astype(np.float32)
+    tree["mu_r"] = rng.uniform(0, 1, D).astype(np.float32)
+    pj, pt = _trees(tree)
+    xj, xt = _pair(rng.normal(size=(2, T, D)))
+    prev_j, prev_t = _pair(rng.normal(size=(2, D))) if carry \
+        else (None, None)
+    oj, lj = jrwkv.rwkv_channel_mix(pj, xj, x_prev=prev_j)
+    ot, lt = rwkv.rwkv_channel_mix(pt, xt, x_prev=prev_t)
+    _close(ot, oj)
+    _close(lt, lj, 0.0)
+
+
+# ----------------------------------------------------------------- init
+@functools.lru_cache(maxsize=None)
+def _jax_tree(seed: int = 0):
+    cfg = jax_get_config(ARCH).reduced()
+    return jax.device_get(jax.jit(jax_init_params, static_argnums=0)(
+        cfg, jax.random.PRNGKey(seed)))
+
+
+def test_init_constant_leaves_are_the_references():
+    """mu = 0.5, w0 = -6 + 5 linspace(0, 1)^1.5, u = 0.1, the GroupNorm's
+    1 and 0, the channel mix's 0.5: bitwise the leaves of the reference's
+    init run op by op (as its workloads' `init_fn` runs it; under `jit`,
+    XLA fuses w0's multiply-add into one rounding)."""
+    cfg = jax_get_config(ARCH).reduced()
+    want = jax.device_get(jax_init_params(
+        cfg, jax.random.PRNGKey(0)))["segments"][0]
+    got = lm_params_to_numpy(init_params(
+        get_config(ARCH).reduced(), torch.Generator().manual_seed(0),
+        "cpu"))["segments"][0]
+    assert sorted(got) == sorted(want) == ["cm", "norm1", "norm2", "tm"]
+    for mix, names in (("tm", ("mu", "w0", "u", "ln_x_g", "ln_x_b")),
+                       ("cm", ("mu_k", "mu_r"))):
+        for name in names:
+            a, b = got[mix][name], np.asarray(want[mix][name])
+            assert a.dtype == b.dtype and np.array_equal(a, b), (mix, name)
+
+
+def test_init_draws_the_reference_distributions():
+    p = init_params(get_config(ARCH).reduced(),
+                    torch.Generator().manual_seed(0), "cpu")
+    tm = p["segments"][0]["tm"]
+    # std * truncated_normal(-2, 2): sd 0.8796 * std, |w| <= 2 * std; the
+    # LoRAs at std 0.01, the projections at fan-in (d_model 256).
+    for name, std in (("tm_w1", 0.01), ("tm_w2", 0.01), ("td_w2", 0.01),
+                      ("wr", 256 ** -0.5), ("wo", 256 ** -0.5)):
+        w = tm[name]
+        assert float(w.abs().max()) <= 2 * std
+        assert abs(float(w.std()) / (0.87962566 * std) - 1) < 0.05, name
+    assert p["segments"][0]["cm"]["wv"].shape == (2, 512, 256)
+
+
+# ----------------------------------------------------------- whole model
+@functools.lru_cache(maxsize=None)
+def _jax_steps(max_seq: int):
+    cfg = jax_get_config(ARCH).reduced()
+    return (jax.jit(lambda p, t: jax_prefill(cfg, p, t, max_seq)),
+            jax.jit(jax_make_serve_step(cfg)))
+
+
+@pytest.mark.parametrize("prompt_len", [4, 130])
+def test_reduced_model_prefill_and_decode_match(prompt_len):
+    """Prefill, then 8 greedy decode steps: logits within 1e-4, the same
+    tokens, and the O(1) caches (both mixes' last inputs, the scan
+    state) within 1e-4."""
+    max_seq = prompt_len + 16
+    jprefill, jstep = _jax_steps(max_seq)
+    cfg = get_config(ARCH).reduced()
+    tree = _jax_tree()
+    params = lm_params_from_jax(tree, "cpu")
+    prompts = np.random.default_rng(prompt_len).integers(
+        0, cfg.vocab_size, (2, prompt_len), dtype=np.int32)
+    jlogits, jcache = jprefill(tree, jnp.asarray(prompts))
+    logits, cache = make_prefill_step(cfg, max_seq)(
+        params, {"tokens": torch.as_tensor(prompts, dtype=torch.int64)})
+    _close(logits, jlogits, 1e-4)
+    jtok = jnp.argmax(jlogits, -1).astype(jnp.int32)[:, None]
+    tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+    serve_step = make_serve_step(cfg)
+    for _ in range(8):
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+        jtok, jlogits, jcache = jstep(tree, jtok, jcache)
+        tok, logits, cache = serve_step(params, tok, cache)
+        _close(logits, jlogits, 1e-4)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+    for got, want in zip(cache["segments"], jcache["segments"]):
+        assert sorted(got) == sorted(want) == ["cm_x", "s", "tm_x"]
+        for name in want:
+            _close(got[name], want[name], 1e-4)
+
+
+def test_decode_cache_is_o1_and_keeps_the_models_dtype():
+    cfg = get_config(ARCH).reduced()
+    import dataclasses
+    cfg = dataclasses.replace(cfg, dtype="bfloat16")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.zeros((2, 5), dtype=torch.int64)
+    for max_seq in (8, 4096):
+        _, cache = prefill(cfg, params, toks, max_seq)
+        seg = cache["segments"][0]
+        assert seg["s"].shape == (2, 2, 4, 64, 64)
+        assert seg["tm_x"].shape == seg["cm_x"].shape == (2, 2, 256)
+        assert all(t.dtype == torch.bfloat16 for t in seg.values())
+
+
+def _grads(cfg, params, toks):
+    leaves = []
+    map_tree(lambda p: leaves.append(p.requires_grad_(True)), params)
+    loss, metrics = step.lm_loss(cfg, params, {"tokens": toks})
+    grads = iter(torch.autograd.grad(loss, leaves))
+    for p in leaves:
+        p.requires_grad_(False)
+    return loss, metrics, map_tree(lambda _: next(grads), params)
+
+
+def test_forward_train_loss_and_grads_match_reference():
+    """Loss within 1e-5; every gradient leaf within atol 1e-5 + rtol 1e-4
+    of jax.grad of the reference's `lm_loss` (through the plain `wkv6`
+    backward at K = V = 64)."""
+    cfg, jcfg = get_config(ARCH).reduced(), jax_get_config(ARCH).reduced()
+    jp = _jax_tree()
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 65),
+                                             dtype=np.int32)
+    params = lm_params_from_jax(jp, "cpu")
+    (jloss, jmetrics), jgrads = jax.value_and_grad(
+        lambda p: jax_step.lm_loss(jcfg, p, {"tokens": jnp.asarray(toks)}),
+        has_aux=True)(jp)
+    loss, metrics, grads = _grads(cfg, params, torch.as_tensor(toks).long())
+    assert abs(float(loss) - float(jloss)) <= TOL
+    assert float(metrics["moe_aux"]) == float(jmetrics["moe_aux"]) == 0.0
+    logits, _ = forward_train(cfg, params, torch.as_tensor(toks).long())
+    assert logits.shape == (2, 65, cfg.vocab_size)
+    gl = tree_leaves(lm_params_to_numpy(grads))
+    wl = jax.tree.leaves(jax.device_get(jgrads))
+    assert len(gl) == len(wl)
+    for a, b in zip(gl, wl):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        assert (np.abs(a - b) <= 1e-5 + 1e-4 * np.abs(b)).all(), \
+            float(np.abs(a - b).max())
+
+
+def test_forward_train_launches_one_scan_a_layer_for_the_stack():
+    """On the CPU no kernel launches (plain versions), and the stacked
+    forward over 3 clients equals each client's own loss."""
+    cfg = get_config(ARCH).reduced()
+    layout = lm_layout(cfg)
+    trees = [init_params(cfg, torch.Generator().manual_seed(s), "cpu")
+             for s in range(3)]
+    stack = torch.stack([layout.pack(t) for t in trees])
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (3, 4, 33))).long()
+    ops.reset_launches()
+    got = step.client_lm_losses(cfg, layout.views(stack), toks)
+    assert all(n == 0 for n in ops.LAUNCHES.values())
+    for c, tree in enumerate(trees):
+        want, _ = step.lm_loss(cfg, tree, {"tokens": toks[c]})
+        assert abs(float(got[c]) - float(want)) <= TOL
+
+
+# ---------------------------------------------------------- the workload
+def test_lm_rwkv6_tiny_cost_model_matches_reference():
+    wl, jwl = get_workload("lm_rwkv6_tiny"), jax_get_workload("lm_rwkv6_tiny")
+    for f in ("n_params", "model_bytes", "epoch_mflops", "inactive_params",
+              "active_params", "samples_per_epoch", "bytes_per_param",
+              "sample_shape", "sample_dtype"):
+        assert getattr(wl, f) == getattr(jwl, f), f
+    jtree = jax.device_get(jwl.init_fn(jax.random.PRNGKey(0)))
+    assert [tuple(s) for _, s in wl.layout.leaves] == \
+        [a.shape for a in jax.tree.leaves(jtree)]
+
+
+HORIZON = 2 * 86400.0
+RECORD_FIELDS = ("idx", "t_start", "t_end", "participants", "epochs",
+                 "idle_s", "compute_s", "comm_s", "relays", "staleness",
+                 "relay_hops", "comms_bytes")
+
+
+@pytest.fixture(scope="module")
+def windows():
+    aw = jax_windows(JaxWalkerStar(2, 2), jax_stations(1), horizon_s=HORIZON)
+    paw = AccessWindows(aw.per_sat, aw.per_sat_station, aw.cluster,
+                        aw.horizon_s, aw.dt_s)
+    return aw, paw
+
+
+def _runs(windows, name: str, rounds: int, steps: int, starts=(None,)):
+    """The reference's run and the port's (one per start: None for the
+    reference's init, else the given params) of `lm_rwkv6_tiny` on
+    c2s2/g1 with the reference's draws."""
+    aw, paw = windows
+    kw = dict(max_rounds=rounds, horizon_s=HORIZON, eval_every=1,
+              max_steps=steps, batch_size=8)
+    ref = JaxSim(JaxWalkerStar(2, 2), jax_stations(1), JAX_ALGORITHMS[name],
+                 cfg=JaxConfig(**kw), access=aw,
+                 workload="lm_rwkv6_tiny").run()
+    ports = [ConstellationSim(
+        WalkerStar(2, 2), station_subnetwork(1), ALGORITHMS[name],
+        cfg=SimConfig(**kw), access=paw, workload="lm_rwkv6_tiny",
+        device="cpu", sampler=JaxReplaySampler(0), init_params=start).run()
+        for start in starts]
+    return ref, ports
+
+
+def _records(res) -> list:
+    return [[getattr(x, f) for f in RECORD_FIELDS] for x in res.rounds]
+
+
+def _flat(tree) -> np.ndarray:
+    return np.concatenate([np.asarray(v).reshape(-1)
+                           for v in jax.tree.leaves(tree)])
+
+
+@pytest.mark.parametrize("name", ["fedavg", "fedprox"])
+def test_lm_rwkv6_tiny_local_step_matches_reference(name, windows):
+    """One round of one local step: RoundRecords bitwise, accuracy and
+    final params within 1e-5 (every client's step is the reference's)."""
+    ref, (res,) = _runs(windows, name, rounds=1, steps=1)
+    assert len(ref.rounds) == 1 and _records(res) == _records(ref)
+    np.testing.assert_allclose([a for *_, a in res.accuracy_curve],
+                               [a for *_, a in ref.accuracy_curve],
+                               atol=TOL, rtol=0)
+    np.testing.assert_allclose(_flat(res.final_params),
+                               _flat(ref.final_params), atol=TOL, rtol=0)
+
+
+def test_lm_rwkv6_tiny_constellation_run_matches_reference(windows):
+    """fedprox on c2s2/g1, 2 rounds of up to 4 local steps: RoundRecords
+    bitwise, the accuracy curve within 1e-5. At the workload's lr (0.05)
+    this training is chaotic at the rounding level: the port's own run
+    started one ulp away (either way) lands 0.2-0.63 away in L2 (max
+    0.02-0.07 an element), so the two packages' f32 rounding cannot keep
+    the params within 1e-5 after the first step. They are held to 10x
+    that one-ulp envelope (measured 3.0x of its larger side)."""
+    init = jax_workload_init(0, "lm_rwkv6_tiny")
+    nudged = [jax.tree.map(lambda v, to=to: np.nextafter(
+        np.asarray(v), np.float32(to)), init) for to in (np.inf, -np.inf)]
+    ref, (res, *res_ulp) = _runs(windows, "fedprox", rounds=2, steps=4,
+                                 starts=(None, *nudged))
+    assert len(ref.rounds) == 2
+    assert _records(res) == _records(ref) == _records(res_ulp[0]) \
+        == _records(res_ulp[1])
+    np.testing.assert_allclose([a for *_, a in res.accuracy_curve],
+                               [a for *_, a in ref.accuracy_curve],
+                               atol=TOL, rtol=0)
+    mine = _flat(res.final_params)
+    assert np.isfinite(mine).all()
+    gap = float(np.linalg.norm(mine - _flat(ref.final_params)))
+    envelope = max(float(np.linalg.norm(mine - _flat(r.final_params)))
+                   for r in res_ulp)
+    print(f"|port - ref| {gap:.4g}, one-ulp envelope {envelope:.4g}")
+    assert gap <= 10 * envelope
+
+
+# ------------------------------------------------------------ launchers
+def test_serve_and_train_launchers_run_rwkv6_on_cpu():
+    done, tokens, logits = serve.main([
+        "--arch", ARCH, "--device", "cpu", "--requests", "2", "--batch", "2",
+        "--prompt-len", "70", "--max-new", "3"])
+    assert done["requests"] == 2 and tokens.shape == (2, 4)
+    assert bool(torch.isfinite(logits).all())
+    done = train.main(["--arch", ARCH, "--device", "cpu", "--steps", "2",
+                       "--batch", "2", "--seq", "33"])
+    assert len(done["losses"]) == 2 and np.isfinite(done["losses"]).all()
