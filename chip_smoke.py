@@ -91,11 +91,15 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              broadcast layout), at rwkv6-1.6b's (K = V = 64 on the time
              mix's transposed views, the fixed build and the generic one)
              and grok-1's (bf16, 48 heads on 8 of 128, softcap 30; SDPA
-             without softcap beside it) and in every mask variant on both flash
-             kernels (flash 3e-5 in f32; in bf16 rtol 8e-3 + atol 1e-3,
-             about one bf16 rounding step, since both sides round one
-             f32 result; wkv6 2e-4), with device times, bounds and, for
-             flash, scaled_dot_product_attention as the yardstick;
+             without softcap beside it), at MLA's value head dim Dv below
+             D (deepseek-v3 serving: bf16, 4 x 128 heads x 2048 of
+             (192, 128); lm_moe_tiny's f32 (96, 64) launch; SDPA and the
+             backend it picks beside them) and in every mask variant on
+             both flash kernels (flash 3e-5 in f32; in bf16 rtol 8e-3 +
+             atol 1e-3, about one bf16 rounding step, since both sides
+             round one f32 result; wkv6 2e-4), with device times, bounds
+             and, for flash, scaled_dot_product_attention as the
+             yardstick;
   serve      full-width hymba-1.5b (bf16, random weights from a seed):
              one batch of `serve.serve_batch` plain (wall) and under
              torch.profiler (with every launch of the port's kernels by
@@ -111,13 +115,19 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              2048 prompt tokens and 32 new through `serve.serve_batch`,
              2 flash_attention launches a prefill, routed experts
              row-local in prefill and global in decode; a profiled batch;
-  serve_cpu_vs_card  reduced hymba-1.5b, gemma-2b, rwkv6-1.6b and grok-1
-             (f32) from the same weights on the card and on the CPU,
-             160-token prompts: identical greedy tokens, logits within
-             1e-4.
+  serve_mla  deepseek-v3 at full width with its depth cut to one dense
+             and one MoE MLA layer (14,870,813,696 params, 29.7 GB in
+             bf16), served as serve_moe: 2 flash_attention launches at
+             (D, Dv) = (192, 128) a prefill, the absorbed decode against
+             the (c_kv, k_rope) cache (its bytes a token a layer beside an
+             expanded 128-head k/v cache's); a profiled batch;
+  serve_cpu_vs_card  reduced hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1 and
+             deepseek-v3 (f32) from the same weights on the card and on
+             the CPU, 160-token prompts: identical greedy tokens, logits
+             within 1e-4.
   lm_fl      ConstellationSim.run() for fedavg and fedprox on the LM
-             workloads lm_tiny, lm_hybrid_tiny and lm_rwkv6_tiny
-             (c2s2/g1, 2 days, 3
+             workloads lm_tiny, lm_hybrid_tiny, lm_rwkv6_tiny and
+             lm_moe_tiny (c2s2/g1, 2 days, 3
              rounds), launch counters zeroed before and read after each
              run: exactly one prox_sgd launch a local step, one fedagg a
              round, and per attention layer one flash_attention launch a
@@ -137,7 +147,8 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              the same bits, with device times, bounds and, for flash, the
              backward of scaled_dot_product_attention as the yardstick and
              the bf16 error with P and dS rounded once (no hi + lo); the
-             D = 32 forward (lm_tiny);
+             f32 flash backward at MLA's (96, 64) (lm_moe_tiny) and
+             (192, 128); the D = 32 forward (lm_tiny);
   lm_train   `repro_torch.launch.train.main` on full-width hymba-1.5b
              and then rwkv6-1.6b (`lm_train_rwkv`) (bf16, batch 2 x 2048,
              4 AdamW steps at the launcher's lr), launch counters zeroed
@@ -150,12 +161,12 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              torch.profiler: idle share, time by kernel), whose loss
              must fall by more than 3x the spread of the initial
              weights' loss over 4 other batches;
-  lm_cpu_vs_card  lm_tiny fedprox on the card and on the CPU from the
-             same init and draws: RoundRecords identical, params within
-             1e-4; one training step of reduced hymba-1.5b, gemma-2b,
-             rwkv6-1.6b and grok-1 from the same weights: loss and every
-             gradient within 1e-4 (of the leaf's largest where that
-             passes 1).
+  lm_cpu_vs_card  lm_tiny and lm_moe_tiny fedprox on the card and on the
+             CPU from the same init and draws: RoundRecords identical,
+             params within 1e-4; one training step of reduced hymba-1.5b,
+             gemma-2b, rwkv6-1.6b, grok-1 and deepseek-v3 from the same
+             weights: loss and every gradient within 1e-4 (of the leaf's
+             largest where that passes 1).
 
 Each phase prints one JSON line; any failure exits non-zero before the
 last line, which is {"ok": true, "device": {...}}.
@@ -207,6 +218,7 @@ from repro_torch.core.client import vmapped_client_update  # noqa: E402
 from repro_torch.core.workload import get_workload  # noqa: E402
 from repro_torch.models.femnist_cnn import femnist_cnn_init  # noqa: E402
 from repro_torch.models.femnist_mlp import femnist_mlp_init  # noqa: E402
+from repro_torch.models.lm.config import Segment  # noqa: E402
 from repro_torch.models.lm.params import (  # noqa: E402
     lm_params_from_jax,
     lm_params_to_numpy,
@@ -215,6 +227,7 @@ from repro_torch.models.lm.params import (  # noqa: E402
 )
 from repro_torch.models.lm.transformer import (  # noqa: E402
     count_params,
+    init_decode_cache,
     init_params,
 )
 from repro_torch.optim.adam import adam_init  # noqa: E402
@@ -1701,6 +1714,13 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_NEW, SERVE_REQUESTS = 4, 2048, 32, 8
 # its depth cut to MOE_LAYERS (the whole model does not fit one card).
 RWKV_ARCH = "rwkv6-1.6b"
 MOE_ARCH, MOE_LAYERS, MOE_SOFTCAP = "grok-1-314b", 2, 30.0
+# deepseek-v3 at full width with its depth cut to one dense and one MoE
+# MLA layer (the whole 671 B model does not fit one card); its MLA heads:
+# 128 query and key heads of 192 dims (nope 128 + rope 64), values 128.
+MLA_ARCH, MLA_D, MLA_DV = "deepseek-v3-671b", 192, 128
+# lm_moe_tiny's model: deepseek-v3 reduced to 3 dense MLA layers and 1
+# MoE layer of 8 experts, heads of (96, 64).
+MLA_TINY = dict(n_layers=4, n_experts=8)
 
 
 def _flash_pairs(S: int, causal: bool, window: int | None) -> int:
@@ -1711,50 +1731,74 @@ def _flash_pairs(S: int, causal: bool, window: int | None) -> int:
     return int((hi - lo).sum())
 
 
+def _sdpa_call(q, k, v, causal: bool, window: int | None):
+    """scaled_dot_product_attention over the same masks (is_causal, or the
+    window as an explicit mask), v as given or, where SDPA refuses a
+    value head dim Dv below D, zero-padded to D (the output's extra
+    columns are zero). Returns (call, the backend SDPA picks, note)."""
+    from torch.nn.attention import SDPBackend
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kw = dict(is_causal=causal, enable_gqa=True)
+    if window is not None:
+        pos = torch.arange(q.shape[2], device=q.device)
+        lag = pos[:, None] - pos[None, :]
+        kw = dict(attn_mask=(lag < window) & ((lag >= 0) if causal
+                                              else True), enable_gqa=True)
+    note = None
+    try:
+        sdpa(q, k, v, **kw)
+    except RuntimeError:                 # Dv != D refused: pad v to D
+        v = torch.nn.functional.pad(v, (0, q.shape[-1] - v.shape[-1]))
+        note = f"v zero-padded from Dv to D = {q.shape[-1]}"
+    names = {int(b): n for n, b in SDPBackend.__members__.items()}
+    backend = names.get(int(torch._fused_sdp_choice(q, k, v, **kw)))
+    return (lambda: sdpa(q, k, v, **kw)), backend, note
+
+
 def check_flash(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
                 dtype: str, causal: bool = True, window: int | None = None,
                 softcap: float | None = None,
-                sdpa_without_softcap: bool = False) -> dict:
-    """The forward kernel against its plain version; the yardstick is
+                sdpa_without_softcap: bool = False,
+                Dv: int | None = None) -> dict:
+    """The forward kernel against its plain version, values of head dim
+    Dv (D unless given: MLA's is below D); the yardstick is
     scaled_dot_product_attention where it computes the same masks (with
     `sdpa_without_softcap`, a softcapped case is timed against SDPA with
-    no softcap, which it does not take: `library_note` says so)."""
+    no softcap, which it does not take: `library_note` says so), and the
+    backend it picked."""
+    Dv = Dv or D
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(B * H * S + D)
     q = torch.randn((B, H, S, D), generator=g, device=dev).to(dt)
-    k, v = (torch.randn((B, KV, S, D), generator=g, device=dev).to(dt)
-            for _ in range(2))
+    k = torch.randn((B, KV, S, D), generator=g, device=dev).to(dt)
+    v = torch.randn((B, KV, S, Dv), generator=g, device=dev).to(dt)
     kw = dict(causal=causal, window=window, softcap=softcap)
     got = ops.flash_attention_op(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err = _max_err(got, want, *FLASH_TOL[dtype])
+    del got, want
     pairs = B * H * _flash_pairs(S, causal, window)
-    n_bytes = (2 * B * H * S * D + 2 * B * KV * S * D) * q.element_size()
-    b_ms, b_by = bound_ms(n_bytes, 4 * D * pairs,
+    n_bytes = (B * H * S + B * KV * S) * (D + Dv) * q.element_size()
+    # q.k (2 D flops) and p v (2 Dv) a counted pair.
+    b_ms, b_by = bound_ms(n_bytes, 2 * (D + Dv) * pairs,
                           BF16_FLOPS_PER_S if dtype == "bfloat16"
                           else F32_FLOPS_PER_S)
     # One PyTorch call computing the same function (a yardstick only).
-    library = None
+    library, backend, note = None, None, None
     if causal and (softcap is None or sdpa_without_softcap):
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        if window is None:
-            library = lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)
-        else:
-            pos = torch.arange(S, device=dev)
-            lag = pos[:, None] - pos[None, :]
-            mask = (lag >= 0) & (lag < window)
-            library = lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)
+        library, backend, note = _sdpa_call(q, k, v, True, window)
+        if softcap is not None:
+            note = "SDPA without softcap"
     return dict(
-        name="flash_attention", case=case, B=B, H=H, KV=KV, S=S, D=D,
+        name="flash_attention", case=case, B=B, H=H, KV=KV, S=S, D=D, Dv=Dv,
         dtype=dtype, causal=causal, window=window, softcap=softcap,
         pairs=pairs, max_abs_err=err, rtol=FLASH_TOL[dtype][0],
         atol=FLASH_TOL[dtype][1],
         ms=device_ms(lambda: ops.flash_attention_op(q, k, v, **kw)),
         plain_ms=device_ms(lambda: ref.flash_attention_ref(q, k, v, **kw)),
         library_ms=None if library is None else device_ms(library),
-        library_note=("SDPA without softcap" if softcap is not None
-                      and library is not None else None),
+        library_backend=backend, library_note=note,
         bound_ms=b_ms, bound_by=b_by)
 
 
@@ -1869,6 +1913,14 @@ def phase_lm_kernels(dev) -> list[dict]:
     rows.append(check_wkv6(dev, "ragged_T", 2, 50, 1000, 16, 64))
     rows.append(check_wkv6(dev, "strong_decay", 1, 1, 256, 32, 32,
                            chunk=128, strong_decay=True))
+    # deepseek-v3 serving: bf16, 128 heads of (D, Dv) = (192, 128), full
+    # causal; and lm_moe_tiny's launch (128 sequences of 33 tokens, 4
+    # heads of (96, 64), f32).
+    rows.append(check_flash(dev, "mla_serve", B, 128, 128, S, MLA_D,
+                            "bfloat16", Dv=MLA_DV))
+    n = LM_FL_CLIENTS * LM_FL_BATCH
+    rows.append(check_flash(dev, "mla_tiny", n, 4, 4, 33, 96, "float32",
+                            Dv=64))
     emit("lm_kernels", rows=rows)
     return rows
 
@@ -1979,17 +2031,13 @@ def _profiled_batch(cfg, params, prompts) -> dict:
     return dict(wall_s=wall, **_device_time(prof, wall))
 
 
-def phase_serve_moe(dev) -> dict:
-    """grok-1 at full width (d 6144, 48 heads of 128 on 8 KV heads, 8
-    experts of d_ff 32,768 top-2 at capacity factor 1.5, softcap 30,
-    vocab 131,072, bf16, random weights from a seed) with only the depth
-    cut, to MOE_LAYERS of 64 (8.2 B params, 16.5 GB: the whole model does
-    not fit one card). One batch of 4 x 2048 prompt tokens and 32 new
-    tokens through `serve.serve_batch` (the launcher's batch function)
-    after a warm one, traced, launch counters zeroed just before and read
-    just after: one `flash_attention` launch a layer; then the batch once
-    more under torch.profiler."""
-    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+def _serve_cut_depth(dev, cfg) -> dict:
+    """A full-width model whose depth is cut (bf16, random weights from a
+    seed): one batch of 4 x 2048 prompt tokens and 32 new tokens through
+    `serve.serve_batch` (the launcher's batch function) after a warm one,
+    traced, launch counters zeroed just before and read just after: one
+    `flash_attention` launch a layer and no `wkv6`, tokens in range,
+    finite logits; then the batch once more under torch.profiler."""
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     n_params = count_params(params)
@@ -1997,6 +2045,12 @@ def phase_serve_moe(dev) -> dict:
                             generator=torch.Generator(dev).manual_seed(1),
                             device=dev)
     serve.serve_batch(cfg, params, prompts, SERVE_NEW)   # warm-up
+    # The decode cache's bytes a token a layer, from the cache that
+    # prefill builds (one sequence of one token, 8 slots).
+    _, cache = init_decode_cache(cfg, params, 1, 8)
+    cache_bytes = sum(t.nbytes for seg in cache["segments"]
+                      for t in seg.values()) / (8 * cfg.n_layers)
+    del cache
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     torch.cuda.empty_cache()
@@ -2011,20 +2065,21 @@ def phase_serve_moe(dev) -> dict:
     wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    require(launches["flash_attention"] == MOE_LAYERS
+    require(launches["flash_attention"] == cfg.n_layers
             and launches["wkv6"] == 0,
-            f"serve_moe launched {launches}; expected {MOE_LAYERS} "
+            f"{cfg.name}: launched {launches}; expected {cfg.n_layers} "
             "flash_attention")
     require(tokens.shape == (SERVE_BATCH, SERVE_NEW + 1)
             and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
-            f"serve_moe tokens out of range: {tuple(tokens.shape)}")
-    require(bool(torch.isfinite(logits).all()), "serve_moe logits not finite")
+            f"{cfg.name}: tokens out of range: {tuple(tokens.shape)}")
+    require(bool(torch.isfinite(logits).all()),
+            f"{cfg.name}: logits not finite")
     spans = summary["spans"]
     profiled = _profiled_batch(cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
-    out = dict(
-        arch=MOE_ARCH, n_layers=MOE_LAYERS, params=n_params, dtype=cfg.dtype,
+    return dict(
+        n_layers=cfg.n_layers, params=n_params, dtype=cfg.dtype,
         batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, max_new=SERVE_NEW,
         launches=launches, wall_s=wall,
         tokens_per_s=SERVE_BATCH * SERVE_NEW / wall,
@@ -2033,20 +2088,74 @@ def phase_serve_moe(dev) -> dict:
         decode_p50_ms=serve._quantile_ms(lat_s, 0.50),
         decode_p99_ms=serve._quantile_ms(lat_s, 0.99),
         peak_device_memory_bytes=peak, setup_s=setup_s,
+        decode_cache_bytes_per_token_layer=cache_bytes,
         profiled_batch=profiled)
+
+
+def phase_serve_moe(dev) -> dict:
+    """grok-1 at full width (d 6144, 48 heads of 128 on 8 KV heads, 8
+    experts of d_ff 32,768 top-2 at capacity factor 1.5, softcap 30,
+    vocab 131,072) with only the depth cut, to MOE_LAYERS of 64 (8.2 B
+    params, 16.5 GB: the whole model does not fit one card), served as
+    `_serve_cut_depth` says."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    out = dict(arch=MOE_ARCH, **_serve_cut_depth(dev, cfg))
     emit("serve_moe", **out)
     return out
 
 
+def phase_serve_mla(dev) -> dict:
+    """deepseek-v3 at full width (d 7168, 128 MLA heads: queries and keys
+    of 192 dims, values of 128, q / kv latents of 1536 / 512; vocab
+    129,280, untied head and the MTP head) with only the depth cut, to
+    one dense layer (d_ff 18,432) and one MoE layer (256 experts of d_ff
+    2,048, top-8, 1 shared, capacity factor 1.5): 14,870,813,696 params,
+    29.7 GB, as the reference's `eval_shape` counts them (the whole 671 B
+    model does not fit one card). Served as `_serve_cut_depth` says: 2
+    `flash_attention` launches at (D, Dv) = (192, 128) a prefill batch,
+    decode in the absorbed form against the (c_kv, k_rope) cache, whose
+    bytes a token a layer are set beside an expanded 128-head k/v
+    cache's."""
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=2, segments=(
+        Segment("attn", 1), Segment("moe", 1)))
+    out = dict(arch=MLA_ARCH, **_serve_cut_depth(dev, cfg))
+    require(out["params"] == 14_870_813_696,
+            f"serve_mla: {out['params']} params; the reference counts "
+            "14,870,813,696")
+    # The latent cache (c_kv of 512 and k_rope of 64 a token a layer)
+    # against per-head k (192) and v (128) of every head, both bf16.
+    mla, size = cfg.mla, torch.finfo(getattr(torch, cfg.dtype)).bits // 8
+    expanded = cfg.n_heads * (mla.nope_head_dim + mla.rope_head_dim
+                              + mla.v_head_dim) * size
+    require(out["decode_cache_bytes_per_token_layer"]
+            == (mla.kv_lora_rank + mla.rope_head_dim) * size,
+            f"serve_mla: the decode cache holds "
+            f"{out['decode_cache_bytes_per_token_layer']} bytes a token a "
+            "layer, not the latent's")
+    out.update(expanded_kv_bytes_per_token_layer=expanded)
+    emit("serve_mla", **out)
+    return out
+
+
+def _reduced_cfgs() -> dict:
+    """The reduced configs (f32) that the card is held to the CPU on:
+    hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1 and deepseek-v3 (cut as
+    lm_moe_tiny: MLA, a MoE layer, the MTP head)."""
+    cfgs = {arch: get_config(arch).reduced()
+            for arch in (SERVE_ARCH, "gemma-2b", RWKV_ARCH, MOE_ARCH)}
+    cfgs[MLA_ARCH] = get_config(MLA_ARCH).reduced(**MLA_TINY)
+    return cfgs
+
+
 def phase_serve_cpu_vs_card(dev) -> dict:
-    """Reduced hymba-1.5b, gemma-2b, rwkv6-1.6b and grok-1 (f32) from the
-    same weights through `serve.serve_batch` on the CPU and the card:
-    prefill of a 160-token prompt (the reduced 128-token window rolls;
-    grok-1's routed experts dispatch row-locally), then 8 greedy decode
-    steps (grok-1's: one global dispatch)."""
+    """Reduced hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1 and deepseek-v3
+    (f32) from the same weights through `serve.serve_batch` on the CPU and
+    the card: prefill of a 160-token prompt (the reduced 128-token window
+    rolls; grok-1's and deepseek-v3's routed experts dispatch
+    row-locally), then 8 greedy decode steps (grok-1's: one global
+    dispatch; deepseek-v3's MLA in the absorbed form)."""
     out = {}
-    for arch in (SERVE_ARCH, "gemma-2b", RWKV_ARCH, MOE_ARCH):
-        cfg = get_config(arch).reduced()
+    for arch, cfg in _reduced_cfgs().items():
         cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
                                  "cpu")
         card_params = lm_params_from_jax(lm_params_to_numpy(cpu_params), dev)
@@ -2094,24 +2203,25 @@ LM_FL_CLIENTS, LM_FL_BATCH, LM_FL_ROUNDS = 4, 32, 3
 LM_FL_HORIZON_S = 2 * 86400.0
 
 
-def _flash_bwd_inputs(dev, B, H, KV, S, D, dtype):
+def _flash_bwd_inputs(dev, B, H, KV, S, D, Dv, dtype):
     g = torch.Generator(device=dev).manual_seed(B * H * S + D + 1)
     dt = getattr(torch, dtype)
-    q, do = (torch.randn((B, H, S, D), generator=g, device=dev).to(dt)
-             for _ in range(2))
-    k, v = (torch.randn((B, KV, S, D), generator=g, device=dev).to(dt)
-            for _ in range(2))
+    q = torch.randn((B, H, S, D), generator=g, device=dev).to(dt)
+    do = torch.randn((B, H, S, Dv), generator=g, device=dev).to(dt)
+    k = torch.randn((B, KV, S, D), generator=g, device=dev).to(dt)
+    v = torch.randn((B, KV, S, Dv), generator=g, device=dev).to(dt)
     return q, k, v, do
 
 
 def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
                     dtype: str, causal: bool = True,
-                    window: int | None = None) -> dict:
+                    window: int | None = None, Dv: int | None = None) -> dict:
     """flash_attention_bwd against its plain backward, both given the
-    plain forward's lse; the yardstick is the backward of
-    scaled_dot_product_attention (is_causal, or the window as an explicit
-    mask), its forward run once outside the timing."""
-    q, k, v, do = _flash_bwd_inputs(dev, B, H, KV, S, D, dtype)
+    plain forward's lse, values of head dim Dv (D unless given); the
+    yardstick is the backward of scaled_dot_product_attention
+    (`_sdpa_call`), its forward run once outside the timing."""
+    Dv = Dv or D
+    q, k, v, do = _flash_bwd_inputs(dev, B, H, KV, S, D, Dv, dtype)
     kw = dict(causal=causal, window=window)
     o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
@@ -2122,27 +2232,24 @@ def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"flash_attention_bwd {case}: two launches differ")
     pairs = B * H * _flash_pairs(S, causal, window)
-    n_bytes = ((4 * B * H * S * D + 4 * B * KV * S * D) * q.element_size()
-               + B * H * S * 4)                       # + lse
-    b_ms, b_by = bound_ms(n_bytes, 2.5 * 4 * D * pairs,
+    # q, k, dq, dk of D columns; v, o, dO, dv of Dv; lse.
+    n_bytes = (2 * (B * H * S + B * KV * S) * (D + Dv) * q.element_size()
+               + B * H * S * 4)
+    # Q K^T, dS K, dS^T Q over D; dO V^T, P^T dO over Dv.
+    b_ms, b_by = bound_ms(n_bytes, 2 * (3 * D + 2 * Dv) * pairs,
                           BF16_FLOPS_PER_S if dtype == "bfloat16"
                           else F32_FLOPS_PER_S)
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
-    if window is None:
-        lib_o = sdpa(*leaves, is_causal=causal, enable_gqa=True)
-    else:
-        pos = torch.arange(S, device=dev)
-        lag = pos[:, None] - pos[None, :]
-        mask = (lag < window) & ((lag >= 0) if causal else True)
-        lib_o = sdpa(*leaves, attn_mask=mask, enable_gqa=True)
-    library = lambda: torch.autograd.grad(lib_o, leaves, do,
+    lib_fwd, backend, note = _sdpa_call(*leaves, causal, window)
+    lib_o = lib_fwd()
+    lib_do = torch.nn.functional.pad(do, (0, lib_o.shape[-1] - Dv))
+    library = lambda: torch.autograd.grad(lib_o, leaves, lib_do,
                                           retain_graph=True)
     return dict(
         name="flash_attention_bwd", case=case, B=B, H=H, KV=KV, S=S, D=D,
-        dtype=dtype, causal=causal, window=window, pairs=pairs,
+        Dv=Dv, dtype=dtype, causal=causal, window=window, pairs=pairs,
         max_abs_err=err, rtol=BWD_TOL[dtype][0], atol=BWD_TOL[dtype][1],
-        deterministic=True,
+        deterministic=True, library_backend=backend, library_note=note,
         ms=device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw)),
         plain_ms=device_ms(lambda: ref.flash_attention_bwd_ref(
             q, k, v, o, do, lse=lse, **kw)),
@@ -2291,7 +2398,12 @@ def phase_lm_train_kernels(dev) -> list[dict]:
         check_wkv6_bwd(dev, "rwkv6_train", TRAIN_BATCH, 32, TRAIN_SEQ, 64,
                        64, rwkv_views=True),
         check_wkv6_bwd(dev, "lm_rwkv6_tiny", n, 4, 33, 64, 64,
-                       rwkv_views=True)]
+                       rwkv_views=True),
+        # MLA's f32 backward: lm_moe_tiny's step at (96, 64), and
+        # deepseek-v3's heads (192, 128) at a short length.
+        check_flash_bwd(dev, "mla_tiny", n, 4, 4, 33, 96, "float32", Dv=64),
+        check_flash_bwd(dev, "mla_d192", 1, 4, 4, 256, MLA_D, "float32",
+                        Dv=MLA_DV)]
     emit("lm_train_kernels", rows=rows)
     return rows
 
@@ -2397,14 +2509,15 @@ def phase_lm_train(dev, arch: str = TRAIN_ARCH) -> dict:
 
 # Each LM workload's (attention layers, scan layers): lm_tiny 2 attention
 # layers, lm_hybrid_tiny 2 hybrid (attention + SSD heads), lm_rwkv6_tiny
-# 2 RWKV6 time mixes.
+# 2 RWKV6 time mixes, lm_moe_tiny 4 MLA layers (flash at (96, 64)).
 LM_FL_LAYERS = {"lm_tiny": (2, 0), "lm_hybrid_tiny": (2, 2),
-                "lm_rwkv6_tiny": (0, 2)}
+                "lm_rwkv6_tiny": (0, 2), "lm_moe_tiny": (4, 0)}
 
 
 def phase_lm_fl(dev) -> dict:
     """ConstellationSim.run() for fedavg and fedprox on lm_tiny,
-    lm_hybrid_tiny and lm_rwkv6_tiny (c2s2/g1, 2 days), launch counters
+    lm_hybrid_tiny, lm_rwkv6_tiny and lm_moe_tiny (c2s2/g1, 2 days),
+    launch counters
     zeroed before and read after each run: one prox_sgd launch a local
     step and one fedagg a round; one flash_attention launch per attention
     layer per local step and per evaluation for the whole client stack,
@@ -2459,39 +2572,43 @@ def _grads_of(cfg, params, toks):
 
 
 def phase_lm_cpu_vs_card(dev) -> dict:
-    """lm_tiny fedprox on the card and on the CPU from the same init and
-    draws (made on the CPU): identical RoundRecords, final params within
-    1e-4; one training step (loss and every gradient leaf) of reduced
-    hymba-1.5b, gemma-2b, rwkv6-1.6b and grok-1 from the same weights and
-    tokens, within 1e-4 (of each leaf's largest gradient where that
-    passes 1: rwkv6's embedding gradient reaches ~8.5, since its
-    0.02-scale rows are RMS-normed)."""
+    """lm_tiny and lm_moe_tiny fedprox on the card and on the CPU from the
+    same init and draws (made on the CPU): identical RoundRecords, final
+    params within 1e-4; one training step (loss and every gradient leaf)
+    of reduced hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1 and deepseek-v3
+    from the same weights and tokens, within 1e-4 (of each leaf's largest
+    gradient where that passes 1: rwkv6's embedding gradient reaches
+    ~8.5, since its 0.02-scale rows are RMS-normed)."""
     cst, st = WalkerStar(2, 2), station_subnetwork(1)
     aw = compute_access_windows(cst, st, horizon_s=LM_FL_HORIZON_S,
                                 device="cpu")
     cfg = SimConfig(max_rounds=LM_FL_ROUNDS, horizon_s=LM_FL_HORIZON_S,
                     eval_every=1, max_steps=8)
-    runs = {}
-    for where, device, sampler in (
-            ("cpu", "cpu", TorchSampler(0, "cpu")),
-            ("card", dev, _OnDevice(TorchSampler(0, "cpu"), dev))):
-        runs[where] = ConstellationSim(
-            cst, st, ALGORITHMS["fedprox"], cfg=cfg, access=aw,
-            workload="lm_tiny", device=device, sampler=sampler).run()
-    recs = {k: _records(v) for k, v in runs.items()}
-    require(len(recs["card"]) == LM_FL_ROUNDS and recs["card"] == recs["cpu"],
-            "lm_tiny: RoundRecords differ between the card and the CPU")
-    flat = lambda r: np.concatenate([v.reshape(-1) for v in
-                                     tree_leaves(r.final_params)])
-    gap = float(np.abs(flat(runs["card"]) - flat(runs["cpu"])).max())
-    out = {"lm_tiny": dict(
-        algorithm="fedprox", cell="c2s2/g1", records_identical=True,
-        final_params_max_abs_gap=gap, tol=1e-4,
-        accuracy_card=[a for *_, a in runs["card"].accuracy_curve],
-        accuracy_cpu=[a for *_, a in runs["cpu"].accuracy_curve])}
-    require(gap <= 1e-4, f"lm_tiny: final params differ by {gap} > 1e-4")
-    for arch in (TRAIN_ARCH, "gemma-2b", RWKV_ARCH, MOE_ARCH):
-        mcfg = get_config(arch).reduced()
+    out = {}
+    for workload in ("lm_tiny", "lm_moe_tiny"):
+        runs = {}
+        for where, device, sampler in (
+                ("cpu", "cpu", TorchSampler(0, "cpu")),
+                ("card", dev, _OnDevice(TorchSampler(0, "cpu"), dev))):
+            runs[where] = ConstellationSim(
+                cst, st, ALGORITHMS["fedprox"], cfg=cfg, access=aw,
+                workload=workload, device=device, sampler=sampler).run()
+        recs = {k: _records(v) for k, v in runs.items()}
+        require(len(recs["card"]) == LM_FL_ROUNDS
+                and recs["card"] == recs["cpu"],
+                f"{workload}: RoundRecords differ between the card and the "
+                "CPU")
+        flat = lambda r: np.concatenate([v.reshape(-1) for v in
+                                         tree_leaves(r.final_params)])
+        gap = float(np.abs(flat(runs["card"]) - flat(runs["cpu"])).max())
+        out[workload] = dict(
+            algorithm="fedprox", cell="c2s2/g1", records_identical=True,
+            final_params_max_abs_gap=gap, tol=1e-4,
+            accuracy_card=[a for *_, a in runs["card"].accuracy_curve],
+            accuracy_cpu=[a for *_, a in runs["cpu"].accuracy_curve])
+        require(gap <= 1e-4,
+                f"{workload}: final params differ by {gap} > 1e-4")
+    for arch, mcfg in _reduced_cfgs().items():
         cpu_params = init_params(mcfg, torch.Generator().manual_seed(0),
                                  "cpu")
         card_params = lm_params_from_jax(lm_params_to_numpy(cpu_params), dev)
@@ -2547,6 +2664,7 @@ def main() -> int:
     shapes.update(serve=LaunchShapes("flash_attention", "wkv6"),
                   serve_rwkv=LaunchShapes("wkv6"),
                   serve_moe=LaunchShapes("flash_attention"),
+                  serve_mla=LaunchShapes("flash_attention"),
                   lm_fl=LaunchShapes(*sim, *LM_KERNELS),
                   lm_train=LaunchShapes(*LM_KERNELS),
                   lm_train_rwkv=LaunchShapes("wkv6", "wkv6_bwd"))
@@ -2572,6 +2690,8 @@ def main() -> int:
                             "serve_rwkv")
     with shapes["serve_moe"]:
         served_moe = timed("serve_moe", phase_serve_moe, dev)
+    with shapes["serve_mla"]:
+        served_mla = timed("serve_mla", phase_serve_mla, dev)
     timed("serve_cpu_vs_card", phase_serve_cpu_vs_card, dev)
     train_rows = timed("lm_train_kernels", phase_lm_train_kernels, dev)
     with shapes["lm_train"]:
@@ -2596,22 +2716,29 @@ def main() -> int:
     wkv_bwd = _pick(train_rows, name="wkv6_bwd", case="train")
     fl_total = {k: sum(run["launches"].get(k, 0) for run in lm_fl.values())
                 for k in ops.LAUNCHES}
-    # The serving paths (hymba-1.5b, rwkv6-1.6b, grok-1) and the training
-    # paths (hymba-1.5b, rwkv6-1.6b), each counted from 0.
+    # The serving paths (hymba-1.5b, rwkv6-1.6b, grok-1, deepseek-v3) and
+    # the training paths (hymba-1.5b, rwkv6-1.6b), each counted from 0.
     serve_total = {k: sum(run["launches"][k] for run in (
-        served, served_rwkv, served_moe)) for k in ops.LAUNCHES}
+        served, served_rwkv, served_moe, served_mla)) for k in ops.LAUNCHES}
     train_total = {k: trained["launches"][k] + trained_rwkv["launches"][k]
                    for k in ops.LAUNCHES}
     # Each kernel's rows at the new paths' shapes (rwkv6's time mix through
-    # the fixed and the generic build, grok-1's softcapped D = 128 heads).
+    # the fixed and the generic build, grok-1's softcapped D = 128 heads,
+    # MLA's (D, Dv) = (192, 128) serving and lm_moe_tiny's (96, 64)).
     other = {"wkv6": [_pick(lm_rows, name="wkv6", case=c)
                       for c in ("rwkv_serve", "rwkv_serve_generic")],
              "flash_attention": [_pick(lm_rows, name="flash_attention",
-                                       case="grok_serve")],
+                                       case=c)
+                                 for c in ("grok_serve", "mla_serve",
+                                           "mla_tiny")],
+             "flash_attention_bwd": [_pick(train_rows,
+                                           name="flash_attention_bwd", case=c)
+                                     for c in ("mla_tiny", "mla_d192")],
              "wkv6_bwd": [_pick(train_rows, name="wkv6_bwd",
                                 case="rwkv6_train")]}
-    row_keys = ("case", "build", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                "bound_by", "library_ms", "library_note")
+    row_keys = ("case", "build", "D", "Dv", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms", "library_backend",
+                "library_note")
     kernels = []
     for row, source, replaces, launches in (
             (prox, "src/repro_torch/csrc/prox_sgd.cu",
@@ -2647,6 +2774,7 @@ def main() -> int:
             serve_launches=served["launches"][row["name"]],
             serve_rwkv_launches=served_rwkv["launches"][row["name"]],
             serve_moe_launches=served_moe["launches"][row["name"]],
+            serve_mla_launches=served_mla["launches"][row["name"]],
             lm_train_rwkv_launches=trained_rwkv["launches"][row["name"]],
             other_shapes=[{k: r.get(k) for k in row_keys}
                           for r in other.get(row["name"], [])]))

@@ -18,12 +18,13 @@ pinned to the paper's section-5 constants (so
 `HardwareModel.for_workload("femnist_mlp") == HardwareModel()`);
 `femnist_cnn`, the paper's headline 47k-parameter CNN, whose cost is
 derived from its conv/dense dims; and the LM workloads `lm_tiny`,
-`lm_hybrid_tiny` and `lm_rwkv6_tiny` (`lm_workload`: any ported LM
-config federated over token shards). An LM client stack is one (C, P)
-float32 buffer laid out as the config's param tree
+`lm_hybrid_tiny`, `lm_rwkv6_tiny` and `lm_moe_tiny` (a reduced
+deepseek-v3: MLA, routed experts and the MTP head) (`lm_workload`: any
+ported LM config federated over token shards). An LM client stack is one
+(C, P) float32 buffer laid out as the config's param tree
 (`ParamLayout.of_tree`), trained by one forward and backward for the
-whole stack (`client_lm_losses`). Not ported: `lm_moe_tiny` (its ROADMAP
-item: it is a reduced deepseek-v3, with MLA and an MTP head).
+whole stack (`client_lm_losses`). Every workload of the reference is
+ported.
 """
 from __future__ import annotations
 
@@ -40,12 +41,6 @@ from repro_torch.orbits import constants as C
 from repro_torch.params import FEMNIST_CNN, FEMNIST_MLP, ParamLayout
 
 EXECUTION_MODES = ("host", "mesh")
-
-# Reference workloads still to port, with the ROADMAP item that brings each.
-_NOT_PORTED = {
-    "lm_moe_tiny": "ROADMAP queue item 5 (MLA, MTP and lm_moe_tiny)",
-}
-
 
 def validate_execution(execution: str) -> str:
     """The one validator for execution modes (`Workload.with_execution`
@@ -290,6 +285,17 @@ def _lm_tiny() -> Workload:
                        samples_per_client=32, eval_samples=8)
 
 
+def _lm_moe_tiny() -> Workload:
+    """Reduced DeepSeek-V3: 3 dense MLA layers + 1 MoE layer (1 shared +
+    8 routed experts, top-2) + MTP head. The crossover workload: every
+    expert rides the wire (`model_bytes` counts all 8), but per-token
+    FLOPs only touch 2: small epoch time against large model bytes."""
+    from repro_torch.configs import get_config
+    cfg = get_config("deepseek-v3-671b").reduced(n_layers=4, n_experts=8)
+    return lm_workload(cfg, name="lm_moe_tiny", seq_len=32,
+                       samples_per_client=32, eval_samples=8)
+
+
 def _lm_rwkv6_tiny() -> Workload:
     """Reduced RWKV6 (Finch): 2 attention-free time-mix/channel-mix
     layers. Fully dense per token: only the untied embedding gather
@@ -315,6 +321,7 @@ _BUILDERS: dict[str, Callable[[], Workload]] = {
     "femnist_mlp": _femnist_mlp,
     "femnist_cnn": _femnist_cnn,
     "lm_tiny": _lm_tiny,
+    "lm_moe_tiny": _lm_moe_tiny,
     "lm_rwkv6_tiny": _lm_rwkv6_tiny,
     "lm_hybrid_tiny": _lm_hybrid_tiny,
 }
@@ -335,9 +342,6 @@ def get_workload(workload: str | Workload) -> Workload:
     """Resolve a registry name (or pass a Workload through unchanged)."""
     if isinstance(workload, Workload):
         return workload
-    if workload in _NOT_PORTED:
-        raise NotImplementedError(
-            f"workload {workload!r}: {_NOT_PORTED[workload]}")
     if workload not in _BUILDERS:
         raise KeyError(
             f"unknown workload {workload!r}; registered: {workload_names()}")

@@ -5,6 +5,14 @@
 //   s[q,k]   = softcap(q.k / sqrt(D)),  pair counted if k <= q (causal)
 //              and q - k < window
 //
+// q and k have head dim D (DQK below), v and o head dim Dv (DV). The two
+// are equal for GQA; MLA (deepseek-v3) attends with keys of nope + rope
+// dims and values of v_head_dim: (D, Dv) = (192, 128) at full width, (96,
+// 64) reduced (lm_moe_tiny). The scale is D^-1/2 of q's head dim, as the
+// reference's `attention_prefill`. Each kernel is a template on (DQK, DV)
+// and is built for the pairs the models use: (32, 32) f32 only, (64, 64),
+// (128, 128), (256, 256), (192, 128) on both, (96, 64) f32 only.
+//
 // Replaces the Pallas TPU kernel `repro/kernels/flash_attention.py::
 // flash_attention` (`_flash_kernel`). The TPU kernel walks the KV axis as
 // the innermost sequential grid dimension with (m, l, acc) in VMEM
@@ -16,25 +24,29 @@
 // kernel, S need not be a multiple of a tile: the tail tile is masked.
 // The denominator is clamped at 1e-30 as on the TPU.
 //
-// Two kernels, one per input type. Head dims 64, 128 and 256 take both;
-// 32 (the lm_tiny workload) takes the f32 kernel only.
+// Two kernels, one per input type. The bf16 kernel takes head dims that
+// are whole 64-column wgmma blocks; 32 (lm_tiny) and 96 (lm_moe_tiny)
+// take the f32 kernel only.
 //
 // bf16 (`flash_bf16_kernel`): tensor cores. One warpgroup (4 warps, 128
 // threads) owns 64 query rows. Q is staged once in shared memory; K and V
-// come in tiles of 64 keys through a ring of two shared-memory stages,
+// come in tiles of 64 keys through a ring of two shared-memory stages (K
+// at DQK, V at DV columns: 105 KB in all at (192, 128)),
 // loaded with 16-byte `cp.async` copies (zero-filled past S) while the
 // products of the previous tile run. Every tile is stored as 64-column
 // blocks of 64 rows x 128 bytes in the 128-byte swizzle that the `wgmma`
 // descriptors name (16-byte chunk c of row r at chunk c ^ (r % 8)).
-// S = Q K^T is `wgmma` m64n64k16 from shared memory (bf16 in, f32
-// accumulate: exact products, as the f32 reference). Scale, softcap and
+// S = Q K^T is `wgmma` m64n64k16 from shared memory over DQK / 16
+// k-steps (bf16 in, f32 accumulate: exact products, as the f32
+// reference). Scale, softcap and
 // masks are applied on the accumulator fragment; mask arithmetic runs
 // only on tiles that straddle the diagonal, the window edge or S. A
 // thread holds two rows' fragments, and the row max and sum reduce over
 // the four lanes of a quad. O += P V is `wgmma` with P taken from
 // registers as bf16 (the S fragment is already the A operand's layout)
 // and V read from shared memory in its natural (key, d) layout, which is
-// the transposed (MN-major) B operand. The Pallas kernel multiplies P
+// the transposed (MN-major) B operand, one accumulator of 64 columns for
+// each of the DV / 64 column blocks. The Pallas kernel multiplies P
 // by V in f32; one bf16 rounding of P (2^-9 relative) misses the bf16
 // tolerance on the serving shape, so P goes in as two bf16 products, its
 // rounding hi and the rounding of P - hi, which carry P to about 2^-17.
@@ -50,20 +62,23 @@
 // f32 (`flash_f32_kernel`): CUDA cores, f32 FMAs (TF32 would not hold the
 // f32 tolerance). 8 warps, each owning 4 query rows; a key tile of 32
 // keys, one per lane. A lane computes the scores of its key against the
-// warp's 4 rows (float4 loads from shared memory: K rows padded to D + 4
+// warp's 4 rows (float4 loads from shared memory: K rows padded to DQK + 4
 // floats so a quarter-warp's 16-byte loads hit distinct banks, q rows read
 // as broadcasts), the warp reduces the tile's max per row with shuffles,
-// and then each lane accumulates P V for D / 32 columns of the output
+// and then each lane accumulates P V for DV / 32 columns of the output
 // (lane + 32 c), reading the tile's probabilities as one float4 broadcast
 // per key. The per-lane partial denominators are rescaled with the row's
 // max like acc and reduced once at the end.
 //
-// Bound on the H100: operations. At the serving shape (B=4, H=25, KV=5,
-// S=2048, D=64, window 1024, bf16) the 1.57e8 unmasked pairs need 4 * D
-// flops each (0.040 TFLOP in all), 0.041 ms at the bf16 tensor-core rate,
-// against 0.019 ms to move q, k, v and o. The bf16 kernel issues its
-// products on the tensor cores; the f32 kernel is bounded in practice by
-// the shared-memory loads that feed its FMAs.
+// Bound on the H100: operations. A counted pair needs 2 D flops for q.k
+// and 2 Dv for p v. At the serving shape (B=4, H=25, KV=5, S=2048, D=64,
+// window 1024, bf16) the 1.57e8 unmasked pairs need 0.040 TFLOP, 0.041 ms
+// at the bf16 tensor-core rate, against 0.019 ms to move q, k, v and o.
+// At deepseek-v3's MLA serving shape (B=4, H=KV=128, S=2048, full causal,
+// (192, 128), bf16) the 1.074e9 pairs need 640 flops each, 0.695 ms at
+// 989 TFLOP/s, against 0.40 ms to move q, k, v and o (1.34 GB). The bf16
+// kernel issues its products on the tensor cores; the f32 kernel is
+// bounded in practice by the shared-memory loads that feed its FMAs.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -104,25 +119,26 @@ constexpr int kBQ = kWarps * kRows;     // query rows per block
 constexpr int kBK = 32;                 // keys per tile: one per lane
 constexpr int kThreads = kWarps * 32;
 
-template <int D>
+template <int DQK, int DV>
 constexpr int smem_floats() {
   // q rows, padded K tile, V tile, per-warp probabilities.
-  return kBQ * D + kBK * (D + 4) + kBK * D + kWarps * kBK * kRows;
+  return kBQ * DQK + kBK * (DQK + 4) + kBK * DV + kWarps * kBK * kRows;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so, int rep,
                  int S, float scale, int causal, int window, float softcap) {
-  constexpr int KS = D + 4;             // padded K row stride (floats)
-  constexpr int NC = D / 32;            // output columns per lane
+  static_assert(DQK % 4 == 0 && DV % 32 == 0, "float4 q.k, 32-lane P V");
+  constexpr int KS = DQK + 4;           // padded K row stride (floats)
+  constexpr int NC = DV / 32;           // output columns per lane
   extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);   // [kBQ][D]
-  float* ks = qs + kBQ * D;                      // [kBK][KS]
-  float* vs = ks + kBK * KS;                     // [kBK][D]
-  float* ps = vs + kBK * D;                      // [kWarps][kBK][kRows]
+  float* qs = reinterpret_cast<float*>(smem4);   // [kBQ][DQK]
+  float* ks = qs + kBQ * DQK;                    // [kBK][KS]
+  float* vs = ks + kBK * KS;                     // [kBK][DV]
+  float* ps = vs + kBK * DV;                     // [kWarps][kBK][kRows]
 
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -130,8 +146,8 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * sk.b + (h / rep) * sk.h;
   const float* vb = v + b * sv.b + (h / rep) * sv.h;
 
-  for (int i = tid; i < kBQ * D; i += kThreads) {
-    const int r = i / D, d = i % D, qi = q0 + r;
+  for (int i = tid; i < kBQ * DQK; i += kThreads) {
+    const int r = i / DQK, d = i % DQK, qi = q0 + r;
     qs[i] = qi < S ? qb[qi * sq.s + d] : 0.0f;
   }
 
@@ -154,11 +170,13 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     __syncthreads();                    // the last tile is consumed
-    for (int i = tid; i < kBK * D; i += kThreads) {
-      const int j = i / D, d = i % D, kj = k0 + j;
-      const bool in = kj < S;
-      ks[j * KS + d] = in ? kb[kj * sk.s + d] : 0.0f;
-      vs[j * D + d] = in ? vb[kj * sv.s + d] : 0.0f;
+    for (int i = tid; i < kBK * DQK; i += kThreads) {
+      const int j = i / DQK, d = i % DQK, kj = k0 + j;
+      ks[j * KS + d] = kj < S ? kb[kj * sk.s + d] : 0.0f;
+    }
+    for (int i = tid; i < kBK * DV; i += kThreads) {
+      const int j = i / DV, d = i % DV, kj = k0 + j;
+      vs[i] = kj < S ? vb[kj * sv.s + d] : 0.0f;
     }
     __syncthreads();
 
@@ -167,13 +185,14 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) s[r] = 0.0f;
     const float4* kr = reinterpret_cast<const float4*>(ks + lane * KS);
-    const float4* qr = reinterpret_cast<const float4*>(qs + warp * kRows * D);
+    const float4* qr =
+        reinterpret_cast<const float4*>(qs + warp * kRows * DQK);
 #pragma unroll 4
-    for (int d4 = 0; d4 < D / 4; ++d4) {
+    for (int d4 = 0; d4 < DQK / 4; ++d4) {
       const float4 kk = kr[d4];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const float4 qq = qr[r * (D / 4) + d4];
+        const float4 qq = qr[r * (DQK / 4) + d4];
         s[r] = fmaf(qq.x, kk.x, s[r]);
         s[r] = fmaf(qq.y, kk.y, s[r]);
         s[r] = fmaf(qq.z, kk.z, s[r]);
@@ -210,7 +229,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll 4
     for (int j = 0; j < kBK; ++j) {
       const float4 pj = pr[j];
-      const float* vr = vs + j * D + lane;
+      const float* vr = vs + j * DV + lane;
 #pragma unroll
       for (int c = 0; c < NC; ++c) {
         const float vv = vr[32 * c];
@@ -253,14 +272,16 @@ constexpr int kThreads = 128;           // one warpgroup
 constexpr int kStages = 2;              // K/V ring in shared memory
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Q, then kStages (K, V) pairs, each D / 64 column blocks; 1 KB of slack
-// to align the base to the 1 KB period of the 128-byte swizzle.
-template <int D>
+// Q, then kStages (K, V) pairs: Q and K DQK / 64 column blocks each, V
+// DV / 64; 1 KB of slack to align the base to the 1 KB period of the
+// 128-byte swizzle. At (192, 128): 13 blocks of 8 KB and 1 KB, 105 KB.
+template <int DQK, int DV>
 constexpr int smem_bytes() {
-  return (1 + 2 * kStages) * (D / 64) * kBlockBytes + 1024;
+  return ((1 + kStages) * (DQK / 64) + kStages * (DV / 64)) * kBlockBytes +
+         1024;
 }
 
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
@@ -269,11 +290,13 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so,
                   int rep, int S, float scale, int causal, int window,
                   float softcap) {
-  constexpr int NB = D / 64;            // 64-column blocks of D
-  constexpr int kTileBytes = NB * kBlockBytes;
+  static_assert(DQK % 64 == 0 && DV % 64 == 0, "64-column wgmma blocks");
+  constexpr int NB = DV / 64;           // 64-column blocks of the output
+  constexpr int kQKBytes = DQK / 64 * kBlockBytes;   // a Q or K tile
+  constexpr int kStageBytes = kQKBytes + NB * kBlockBytes;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t qs = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  // Stage st: K at qs + (1 + 2 st) * kTileBytes, V right after it.
+  // Stage st: K at qs + kQKBytes + st * kStageBytes, V right after it.
 
   // Grid: x = head (the rep heads of one KV head are neighbours), y =
   // query tile from the last (heaviest under a causal mask), z = batch.
@@ -291,9 +314,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   k_begin -= k_begin % kBK;
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
 
-  load_tile<D, kThreads>(qs, qb, sq.s, q0, S, tid);
-  load_tile<D, kThreads>(qs + kTileBytes, kb, sk.s, k_begin, S, tid);
-  load_tile<D, kThreads>(qs + 2 * kTileBytes, vb, sv.s, k_begin, S, tid);
+  load_tile<DQK, kThreads>(qs, qb, sq.s, q0, S, tid);
+  load_tile<DQK, kThreads>(qs + kQKBytes, kb, sk.s, k_begin, S, tid);
+  load_tile<DV, kThreads>(qs + 2 * kQKBytes, vb, sv.s, k_begin, S, tid);
   cp_async_commit();
 
   // Accumulator fragment of m64nNk16: register 4 i + e of this thread is
@@ -310,9 +333,9 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = k_begin + t * kBK;
     if (t + 1 < n_tiles) {              // prefetch the next tile
-      const uint32_t nxt = qs + (1 + 2 * ((t + 1) & 1)) * kTileBytes;
-      load_tile<D, kThreads>(nxt, kb, sk.s, k0 + kBK, S, tid);
-      load_tile<D, kThreads>(nxt + kTileBytes, vb, sv.s, k0 + kBK, S, tid);
+      const uint32_t nxt = qs + kQKBytes + ((t + 1) & 1) * kStageBytes;
+      load_tile<DQK, kThreads>(nxt, kb, sk.s, k0 + kBK, S, tid);
+      load_tile<DV, kThreads>(nxt + kQKBytes, vb, sv.s, k0 + kBK, S, tid);
       cp_async_commit();
       cp_async_wait<1>();               // this tile (and Q) has landed
     } else {
@@ -320,16 +343,16 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     }
     fence_async_shared();
     __syncthreads();
-    const uint32_t ks = qs + (1 + 2 * (t & 1)) * kTileBytes;
-    const uint32_t vs = ks + kTileBytes;
+    const uint32_t ks = qs + kQKBytes + (t & 1) * kStageBytes;
+    const uint32_t vs = ks + kQKBytes;
 
-    // S = Q K^T over D in steps of 16.
+    // S = Q K^T over DQK in steps of 16.
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.0f;
     fence_regs(s);
     wgmma_fence();
-    wgmma_ss_tile<D>(s, qs, ks);
+    wgmma_ss_tile<DQK>(s, qs, ks);
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -418,19 +441,19 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 }  // namespace tc
 
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
-                       float* lse, const Strides3* st, int B, int H, int KV, int S,
-                       float scale, int causal, int window, float softcap,
-                       int device, cudaStream_t stream) {
+                       float* lse, const Strides3* st, int B, int H, int KV,
+                       int S, float scale, int causal, int window,
+                       float softcap, int device, cudaStream_t stream) {
   static_assert(f32::kRows == 4, "the P V loop reads 4 rows as one float4");
   static std::atomic<unsigned> configured{0};
-  const int bytes = f32::smem_floats<D>() * (int)sizeof(float);
-  const cudaError_t err = set_smem_once(f32::flash_f32_kernel<D>, bytes,
-                                        device, configured);
+  const int bytes = f32::smem_floats<DQK, DV>() * (int)sizeof(float);
+  const cudaError_t err = set_smem_once(f32::flash_f32_kernel<DQK, DV>,
+                                        bytes, device, configured);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + f32::kBQ - 1) / f32::kBQ, H, B);
-  f32::flash_f32_kernel<D><<<grid, f32::kThreads, bytes, stream>>>(
+  f32::flash_f32_kernel<DQK, DV><<<grid, f32::kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, st[0], st[1],
       st[2], st[3], H / KV, S, scale, causal, window, softcap);
@@ -439,18 +462,18 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // q, k and v must start every row on 16 bytes (the wrapper copies them
 // when they do not).
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* o, float* lse, const Strides3* st, int B, int H, int KV,
-                        int S, float scale, int causal, int window,
+                        void* o, float* lse, const Strides3* st, int B, int H,
+                        int KV, int S, float scale, int causal, int window,
                         float softcap, int device, cudaStream_t stream) {
   static std::atomic<unsigned> configured{0};
-  constexpr int bytes = tc::smem_bytes<D>();
-  const cudaError_t err = set_smem_once(tc::flash_bf16_kernel<D>,
+  constexpr int bytes = tc::smem_bytes<DQK, DV>();
+  const cudaError_t err = set_smem_once(tc::flash_bf16_kernel<DQK, DV>,
                                         bytes, device, configured);
   if (err != cudaSuccess) return err;
   const dim3 grid(H, (S + tc::kBQ - 1) / tc::kBQ, B);
-  tc::flash_bf16_kernel<D><<<grid, tc::kThreads, bytes, stream>>>(
+  tc::flash_bf16_kernel<DQK, DV><<<grid, tc::kThreads, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -461,9 +484,9 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
 
 template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, void* o,
-           void* lse, const int64_t* strides, int B, int H, int KV, int S, int D,
-           float scale, int causal, int window, float softcap, int device,
-           void* stream) {
+           void* lse, const int64_t* strides, int B, int H, int KV, int S,
+           int D, int Dv, float scale, int causal, int window, float softcap,
+           int device, void* stream) {
   // Launch on the tensors' device and give the calling thread back its
   // current device, which PyTorch reads for its own defaults.
   int prev = device;
@@ -475,25 +498,24 @@ int launch(const void* q, const void* k, const void* v, void* o,
   for (int i = 0; i < 4; ++i)
     st[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   auto run = [&](auto launch_d) {
-    return launch_d(q, k, v, o, static_cast<float*>(lse), st, B, H, KV, S, scale, causal, window,
-                    softcap, device, s);
+    return launch_d(q, k, v, o, static_cast<float*>(lse), st, B, H, KV, S,
+                    scale, causal, window, softcap, device, s);
   };
-  switch (D) {
-    case 32:  // f32 only: a bf16 tile of 32 columns is no wgmma operand here
-      if constexpr (kBf16) err = cudaErrorInvalidValue;
-      else err = run(launch_f32<32>);
-      break;
-    case 64:
-      err = kBf16 ? run(launch_bf16<64>) : run(launch_f32<64>);
-      break;
-    case 128:
-      err = kBf16 ? run(launch_bf16<128>) : run(launch_f32<128>);
-      break;
-    case 256:
-      err = kBf16 ? run(launch_bf16<256>) : run(launch_f32<256>);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
+  const auto is = [&](int dqk, int dv) { return D == dqk && Dv == dv; };
+  err = cudaErrorInvalidValue;
+  if constexpr (kBf16) {
+    // No D = 32 or 96: neither is a whole number of 64-column wgmma blocks.
+    if (is(64, 64)) err = run(launch_bf16<64, 64>);
+    else if (is(128, 128)) err = run(launch_bf16<128, 128>);
+    else if (is(256, 256)) err = run(launch_bf16<256, 256>);
+    else if (is(192, 128)) err = run(launch_bf16<192, 128>);  // deepseek-v3
+  } else {
+    if (is(32, 32)) err = run(launch_f32<32, 32>);
+    else if (is(64, 64)) err = run(launch_f32<64, 64>);
+    else if (is(128, 128)) err = run(launch_f32<128, 128>);
+    else if (is(256, 256)) err = run(launch_f32<256, 256>);
+    else if (is(96, 64)) err = run(launch_f32<96, 64>);       // lm_moe_tiny
+    else if (is(192, 128)) err = run(launch_f32<192, 128>);
   }
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
@@ -502,25 +524,26 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // C entry points (bound with ctypes). strides: (b, h, s) of q, k, v, o in
-// elements; window 0 = none, softcap 0 = none; lse, if not null, a dense
-// (B, H, S) f32 output of each row's log-sum-exp (what the backward
-// kernels read). Return the launch's CUDA error: 0 on success.
+// elements; D the head dim of q and k, Dv that of v and o; window 0 =
+// none, softcap 0 = none; lse, if not null, a dense (B, H, S) f32 output
+// of each row's log-sum-exp (what the backward kernels read). Return the
+// launch's CUDA error: 0 on success.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    const int64_t* strides, int B, int H,
-                                   int KV, int S, int D, float scale,
+                                   int KV, int S, int D, int Dv, float scale,
                                    int causal, int window, float softcap,
                                    int device, void* stream) {
-  return launch<false>(q, k, v, o, lse, strides, B, H, KV, S, D, scale, causal,
-                       window, softcap, device, stream);
+  return launch<false>(q, k, v, o, lse, strides, B, H, KV, S, D, Dv, scale,
+                       causal, window, softcap, device, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, void* lse,
                                     const int64_t* strides, int B, int H,
-                                    int KV, int S, int D, float scale,
+                                    int KV, int S, int D, int Dv, float scale,
                                     int causal, int window, float softcap,
                                     int device, void* stream) {
-  return launch<true>(q, k, v, o, lse, strides, B, H, KV, S, D, scale, causal,
-                      window, softcap, device, stream);
+  return launch<true>(q, k, v, o, lse, strides, B, H, KV, S, D, Dv, scale,
+                      causal, window, softcap, device, stream);
 }

@@ -45,16 +45,23 @@
 // each of P (dV), dS (dK) and dS (dQ) goes in as two bf16 products, its
 // rounding hi and the rounding of what hi leaves, lo.
 //
-// f32 (D in {32, 64, 128, 256}, `simt::`) runs on the CUDA cores, as the
-// same two kernels: 32 x 32 tiles, 256 threads, f32 FMAs over padded f32
-// shared tiles, lse from the forward and delta from the dq kernel.
+// f32 (`simt::`) runs on the CUDA cores, as the same two kernels: 32 x 32
+// tiles, 256 threads, f32 FMAs over padded f32 shared tiles, lse from the
+// forward and delta from the dq kernel. It is a template on (DQK, DV), the
+// head dims of q, k, dq, dk and of v, o, dO, dv, built for (D, D) at D in
+// {32, 64, 128, 256} and for MLA's (96, 64) (lm_moe_tiny trains through
+// it) and (192, 128): s = q.k runs over DQK, dp = dO.v and delta = dO.O
+// over DV, dq and dk accumulate DQK columns and dv DV. The bf16 kernels
+// take Dv = D only; at Dv != D the wrapper raises.
 //
 // Bound on the H100: operations. Five products of the forward's size
-// (Q K^T, dO V^T, P^T dO, dS^T Q, dS K) where the forward does two: 2.5 x
-// its 4 D flops a counted pair. At the full-width training shape (B=2,
-// H=25, KV=5, S=2048, D=64, window 1024) that is 0.05 TFLOP, 0.051 ms
-// at the bf16 tensor-core rate; the bytes (q, k, v, o, dO, lse in and
-// dq, dk, dv out, 26 MB) take 0.008 ms.
+// (Q K^T, dO V^T, P^T dO, dS^T Q, dS K) where the forward does two: 2 (3 D
+// + 2 Dv) flops a counted pair, 2.5 x the forward's 4 D where Dv = D. At
+// the full-width training shape (B=2, H=25, KV=5, S=2048, D=64, window
+// 1024) that is 0.05 TFLOP, 0.051 ms at the bf16 tensor-core rate; the
+// bytes (q, k, v, o, dO, lse in and dq, dk, dv out, 26 MB) take 0.008
+// ms. At lm_moe_tiny's f32 step (128 sequences, 4 heads of (96, 64), 33
+// tokens) the bytes bound it: 0.013 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -134,19 +141,37 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 constexpr int smem_floats() {
-  // Four padded (kB, D) tiles, two (kB, kB + 1) score tiles, lse, delta.
-  return 4 * kB * (D + 1) + 2 * kB * (kB + 1) + 2 * kB;
+  // Padded q, k (DQK) and v, dO (DV) tiles, two (kB, kB + 1) score tiles,
+  // lse, delta.
+  return 2 * kB * (DQK + 1) + 2 * kB * (DV + 1) + 2 * kB * (kB + 1) + 2 * kB;
 }
 
 // Dots of row `qi` of `a` with rows kj = j0 + 8 n (n < 4) of `b`, both
-// padded tiles, and of row `qi` of `c` with the same rows of `d`.
+// padded tiles of D columns.
 template <int D>
-__device__ __forceinline__ void dots4(const float* a, const float* b,
-                                      const float* c, const float* d, int qi,
-                                      int j0, float (&ab)[4],
-                                      float (&cd)[4]) {
+__device__ __forceinline__ void dots4(const float* a, const float* b, int qi,
+                                      int j0, float (&ab)[4]) {
+#pragma unroll
+  for (int n = 0; n < 4; ++n) ab[n] = 0.0f;
+  const float* ar = a + qi * (D + 1);
+#pragma unroll 8
+  for (int x = 0; x < D; ++x) {
+    const float av = ar[x];
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+      ab[n] = fmaf(av, b[(j0 + 8 * n) * (D + 1) + x], ab[n]);
+  }
+}
+
+// The same for two pairs of tiles of one width at once (q.k and dO.v
+// where DQK = DV): one loop, twice the loads in flight.
+template <int D>
+__device__ __forceinline__ void dots4x2(const float* a, const float* b,
+                                        const float* c, const float* d,
+                                        int qi, int j0, float (&ab)[4],
+                                        float (&cd)[4]) {
 #pragma unroll
   for (int n = 0; n < 4; ++n) ab[n] = cd[n] = 0.0f;
   const float* ar = a + qi * (D + 1);
@@ -162,8 +187,9 @@ __device__ __forceinline__ void dots4(const float* a, const float* b,
   }
 }
 
-// p and ds of the pairs (row, j0 + 8 n) of a tile, into [kB][kB + 1].
-template <int D>
+// p and ds of the pairs (row, j0 + 8 n) of a tile, into [kB][kB + 1]:
+// s from q.k over DQK, dp from dO.v over DV.
+template <int DQK, int DV>
 __device__ __forceinline__ void probs(const float* qs, const float* ks,
                                       const float* gs, const float* vs,
                                       const float* lse_s,
@@ -171,7 +197,12 @@ __device__ __forceinline__ void probs(const float* qs, const float* ks,
                                       const Masks& mk, float* ps, float* dss) {
   const int row = threadIdx.x >> 3, j0 = threadIdx.x & 7;
   float s[4], dp[4];
-  dots4<D>(qs, ks, gs, vs, row, j0, s, dp);
+  if constexpr (DQK == DV) {
+    dots4x2<DQK>(qs, ks, gs, vs, row, j0, s, dp);
+  } else {
+    dots4<DQK>(qs, ks, row, j0, s);
+    dots4<DV>(gs, vs, row, j0, dp);
+  }
 #pragma unroll
   for (int n = 0; n < 4; ++n) {
     const int j = j0 + 8 * n;
@@ -199,7 +230,7 @@ __device__ __forceinline__ void load_rows(float* lse_s, float* delta_s,
   }
 }
 
-template <int D, typename T>
+template <int DQK, int DV, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
@@ -207,24 +238,26 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             T* __restrict__ dk, T* __restrict__ dv, Strides3 sq, Strides3 sk,
             Strides3 sv, Strides3 sd, Strides3 sdk, Strides3 sdv, int H,
             int rep, Masks mk) {
-  constexpr int NC = D / 8;             // output columns per thread
+  constexpr int NK = DQK / 8, NV = DV / 8;   // output columns per thread
   extern __shared__ float smem[];
-  float* qs = smem;                     // [kB][D + 1] each
-  float* ks = qs + kB * (D + 1);
-  float* vs = ks + kB * (D + 1);
-  float* gs = vs + kB * (D + 1);
-  float* ps = gs + kB * (D + 1);        // [kB][kB + 1] each
+  float* qs = smem;                     // [kB][DQK + 1] each
+  float* ks = qs + kB * (DQK + 1);
+  float* vs = ks + kB * (DQK + 1);      // [kB][DV + 1] each
+  float* gs = vs + kB * (DV + 1);
+  float* ps = gs + kB * (DV + 1);       // [kB][kB + 1] each
   float* dss = ps + kB * (kB + 1);
   float* lse_s = dss + kB * (kB + 1);   // [kB] each
   float* delta_s = lse_s + kB;
 
   const int b = blockIdx.z, g = blockIdx.y, k0 = blockIdx.x * kB;
   const int tid = threadIdx.x, kr = tid >> 3, c0 = tid & 7;
-  load_tile<D>(ks, k + b * sk.b + g * sk.h, sk.s, k0, mk.S);
-  load_tile<D>(vs, v + b * sv.b + g * sv.h, sv.s, k0, mk.S);
-  float acc_k[NC], acc_v[NC];
+  load_tile<DQK>(ks, k + b * sk.b + g * sk.h, sk.s, k0, mk.S);
+  load_tile<DV>(vs, v + b * sv.b + g * sv.h, sv.s, k0, mk.S);
+  float acc_k[NK], acc_v[NV];
 #pragma unroll
-  for (int c = 0; c < NC; ++c) acc_k[c] = acc_v[c] = 0.0f;
+  for (int c = 0; c < NK; ++c) acc_k[c] = 0.0f;
+#pragma unroll
+  for (int c = 0; c < NV; ++c) acc_v[c] = 0.0f;
 
   int q_begin, q_end;
   mk.query_range<kB>(k0, &q_begin, &q_end);
@@ -232,20 +265,21 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long at = ((long long)b * H + h) * mk.S;
     for (int q0 = q_begin; q0 < q_end; q0 += kB) {
       __syncthreads();                  // the last tile is consumed
-      load_tile<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, mk.S);
-      load_tile<D>(gs, dout + b * sd.b + h * sd.h, sd.s, q0, mk.S);
+      load_tile<DQK>(qs, q + b * sq.b + h * sq.h, sq.s, q0, mk.S);
+      load_tile<DV>(gs, dout + b * sd.b + h * sd.h, sd.s, q0, mk.S);
       load_rows(lse_s, delta_s, lse, delta, at, q0, mk.S);
       __syncthreads();
-      probs<D>(qs, ks, gs, vs, lse_s, delta_s, q0, k0, mk, ps, dss);
+      probs<DQK, DV>(qs, ks, gs, vs, lse_s, delta_s, q0, k0, mk, ps, dss);
       __syncthreads();
       // dV[kr] += sum_i p[i, kr] dO[i];  dK[kr] += sum_i ds[i, kr] q[i].
       for (int i = 0; i < kB; ++i) {
         const float p = ps[i * (kB + 1) + kr], ds = dss[i * (kB + 1) + kr];
 #pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          acc_v[c] = fmaf(p, gs[i * (D + 1) + c0 + 8 * c], acc_v[c]);
-          acc_k[c] = fmaf(ds, qs[i * (D + 1) + c0 + 8 * c], acc_k[c]);
-        }
+        for (int c = 0; c < NV; ++c)
+          acc_v[c] = fmaf(p, gs[i * (DV + 1) + c0 + 8 * c], acc_v[c]);
+#pragma unroll
+        for (int c = 0; c < NK; ++c)
+          acc_k[c] = fmaf(ds, qs[i * (DQK + 1) + c0 + 8 * c], acc_k[c]);
       }
     }
   }
@@ -253,16 +287,15 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* dkr = dk + b * sdk.b + g * sdk.h + (k0 + kr) * sdk.s;
     T* dvr = dv + b * sdv.b + g * sdv.h + (k0 + kr) * sdv.s;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      store(dkr + c0 + 8 * c, acc_k[c]);
-      store(dvr + c0 + 8 * c, acc_v[c]);
-    }
+    for (int c = 0; c < NK; ++c) store(dkr + c0 + 8 * c, acc_k[c]);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) store(dvr + c0 + 8 * c, acc_v[c]);
   }
 }
 
-// dQ of 32 query rows; first their delta = dO . O (eight lanes a row),
-// written out for the dkdv kernel.
-template <int D, typename T>
+// dQ of 32 query rows; first their delta = dO . O over DV (eight lanes a
+// row), written out for the dkdv kernel.
+template <int DQK, int DV, typename T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ o,
@@ -270,13 +303,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           float* __restrict__ delta, T* __restrict__ dq, Strides3 sq,
           Strides3 sk, Strides3 sv, Strides3 so, Strides3 sd, Strides3 sdq,
           int H, int rep, Masks mk) {
-  constexpr int NC = D / 8;
+  constexpr int NC = DQK / 8;
   extern __shared__ float smem[];
   float* qs = smem;
-  float* ks = qs + kB * (D + 1);
-  float* vs = ks + kB * (D + 1);
-  float* gs = vs + kB * (D + 1);
-  float* ps = gs + kB * (D + 1);
+  float* ks = qs + kB * (DQK + 1);
+  float* vs = ks + kB * (DQK + 1);
+  float* gs = vs + kB * (DV + 1);
+  float* ps = gs + kB * (DV + 1);
   float* dss = ps + kB * (kB + 1);
   float* lse_s = dss + kB * (kB + 1);
   float* delta_s = lse_s + kB;
@@ -287,13 +320,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long at = ((long long)b * H + h) * mk.S;
   const T* kb = k + b * sk.b + (h / rep) * sk.h;
   const T* vb = v + b * sv.b + (h / rep) * sv.h;
-  load_tile<D>(qs, q + b * sq.b + h * sq.h, sq.s, q0, mk.S);
-  load_tile<D>(gs, dout + b * sd.b + h * sd.h, sd.s, q0, mk.S);
+  load_tile<DQK>(qs, q + b * sq.b + h * sq.h, sq.s, q0, mk.S);
+  load_tile<DV>(gs, dout + b * sd.b + h * sd.h, sd.s, q0, mk.S);
   float dsum = 0.0f;
   if (qi < mk.S) {
     const T* orow = o + b * so.b + h * so.h + qi * so.s;
     const T* grow = dout + b * sd.b + h * sd.h + qi * sd.s;
-    for (int x = c0; x < D; x += 8)
+    for (int x = c0; x < DV; x += 8)
       dsum = fmaf(load(grow + x), load(orow + x), dsum);
   }
 #pragma unroll
@@ -312,17 +345,17 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   mk.key_range<kB>(q0, &k_begin, &k_end);
   for (int k0 = k_begin; k0 < k_end; k0 += kB) {
     __syncthreads();
-    load_tile<D>(ks, kb, sk.s, k0, mk.S);
-    load_tile<D>(vs, vb, sv.s, k0, mk.S);
+    load_tile<DQK>(ks, kb, sk.s, k0, mk.S);
+    load_tile<DV>(vs, vb, sv.s, k0, mk.S);
     __syncthreads();
-    probs<D>(qs, ks, gs, vs, lse_s, delta_s, q0, k0, mk, ps, dss);
+    probs<DQK, DV>(qs, ks, gs, vs, lse_s, delta_s, q0, k0, mk, ps, dss);
     __syncthreads();
     // dQ[row] += sum_j ds[row, j] k[j].
     for (int j = 0; j < kB; ++j) {
       const float ds = dss[row * (kB + 1) + j];
 #pragma unroll
       for (int c = 0; c < NC; ++c)
-        acc[c] = fmaf(ds, ks[j * (D + 1) + c0 + 8 * c], acc[c]);
+        acc[c] = fmaf(ds, ks[j * (DQK + 1) + c0 + 8 * c], acc[c]);
     }
   }
   if (qi < mk.S) {
@@ -690,15 +723,15 @@ struct Args {
   Masks mk;
 };
 
-template <int D, typename T>
+template <int DQK, int DV, typename T>
 cudaError_t launch_simt(const Args& a, int device, cudaStream_t stream) {
   using namespace simt;
   static std::atomic<unsigned> done_kv{0}, done_q{0};
-  const int bytes = smem_floats<D>() * (int)sizeof(float);
+  const int bytes = smem_floats<DQK, DV>() * (int)sizeof(float);
   cudaError_t err;
-  if ((err = set_smem_once(flash_bwd_dkdv_kernel<D, T>, bytes, device,
+  if ((err = set_smem_once(flash_bwd_dkdv_kernel<DQK, DV, T>, bytes, device,
                            done_kv)) ||
-      (err = set_smem_once(flash_bwd_dq_kernel<D, T>, bytes, device,
+      (err = set_smem_once(flash_bwd_dq_kernel<DQK, DV, T>, bytes, device,
                            done_q)))
     return err;
   const int rep = a.H / a.KV, tiles = (a.mk.S + kB - 1) / kB;
@@ -706,13 +739,13 @@ cudaError_t launch_simt(const Args& a, int device, cudaStream_t stream) {
           *v = static_cast<const T*>(a.v), *o = static_cast<const T*>(a.o),
           *g = static_cast<const T*>(a.dout);
   const Strides3* st = a.st;
-  flash_bwd_dq_kernel<D, T><<<dim3(tiles, a.H, a.B), kThreads, bytes,
-                               stream>>>(
+  flash_bwd_dq_kernel<DQK, DV, T><<<dim3(tiles, a.H, a.B), kThreads, bytes,
+                                     stream>>>(
       q, k, v, o, g, a.lse, a.delta, static_cast<T*>(a.dq), st[0], st[1],
       st[2], st[3], st[4], st[5], a.H, rep, a.mk);
   if ((err = cudaGetLastError())) return err;
-  flash_bwd_dkdv_kernel<D, T><<<dim3(tiles, a.KV, a.B), kThreads, bytes,
-                                 stream>>>(
+  flash_bwd_dkdv_kernel<DQK, DV, T><<<dim3(tiles, a.KV, a.B), kThreads,
+                                       bytes, stream>>>(
       q, k, v, g, a.lse, a.delta, static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), st[0], st[1], st[2], st[4], st[6], st[7], a.H,
       rep, a.mk);
@@ -752,7 +785,7 @@ template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dq, void* dk, void* dv,
            void* delta, const int64_t* strides, int B, int H, int KV, int S,
-           int D, float scale, int causal, int window, float softcap,
+           int D, int Dv, float scale, int causal, int window, float softcap,
            int device, void* stream) {
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
@@ -764,21 +797,19 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   for (int i = 0; i < 8; ++i)
     a.st[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (kBf16) {
-    switch (D) {
-      case 64: err = launch_tc<64>(a, device, s); break;
-      case 128: err = launch_tc<128>(a, device, s); break;
-      case 256: err = launch_tc<256>(a, device, s); break;
-      default: err = cudaErrorInvalidValue;
-    }
+  const auto is = [&](int dqk, int dv) { return D == dqk && Dv == dv; };
+  err = cudaErrorInvalidValue;
+  if constexpr (kBf16) {                // Dv = D only
+    if (is(64, 64)) err = launch_tc<64>(a, device, s);
+    else if (is(128, 128)) err = launch_tc<128>(a, device, s);
+    else if (is(256, 256)) err = launch_tc<256>(a, device, s);
   } else {
-    switch (D) {
-      case 32: err = launch_simt<32, float>(a, device, s); break;
-      case 64: err = launch_simt<64, float>(a, device, s); break;
-      case 128: err = launch_simt<128, float>(a, device, s); break;
-      case 256: err = launch_simt<256, float>(a, device, s); break;
-      default: err = cudaErrorInvalidValue;
-    }
+    if (is(32, 32)) err = launch_simt<32, 32, float>(a, device, s);
+    else if (is(64, 64)) err = launch_simt<64, 64, float>(a, device, s);
+    else if (is(128, 128)) err = launch_simt<128, 128, float>(a, device, s);
+    else if (is(256, 256)) err = launch_simt<256, 256, float>(a, device, s);
+    else if (is(96, 64)) err = launch_simt<96, 64, float>(a, device, s);
+    else if (is(192, 128)) err = launch_simt<192, 128, float>(a, device, s);
   }
   if (prev != device) cudaSetDevice(prev);
   return (int)err;
@@ -789,26 +820,27 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // C entry points (bound with ctypes). strides: (b, h, s) of q, k, v, o,
 // dO, dQ, dK, dV in elements; lse the forward's dense (B, H, S) f32
 // log-sum-exp, delta (B, H, S) f32 scratch; window 0 = none, softcap 0 =
-// none; D in {32, 64, 128, 256} for f32, {64, 128, 256} for bf16. Return
-// the launches' CUDA error.
+// none; (D, Dv) the head dims of q, k and of v, o, dO: (32, 32), (64,
+// 64), (128, 128), (256, 256), (96, 64) or (192, 128) for f32, and (64,
+// 64), (128, 128) or (256, 256) for bf16. Return the launches' CUDA error.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* delta, const int64_t* strides, int B, int H, int KV, int S, int D,
-    float scale, int causal, int window, float softcap, int device,
+    int Dv, float scale, int causal, int window, float softcap, int device,
     void* stream) {
   return launch<false>(q, k, v, o, dout, lse, dq, dk, dv, delta, strides, B,
-                       H, KV, S, D, scale, causal, window, softcap, device,
-                       stream);
+                       H, KV, S, D, Dv, scale, causal, window, softcap,
+                       device, stream);
 }
 
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
     void* delta, const int64_t* strides, int B, int H, int KV, int S, int D,
-    float scale, int causal, int window, float softcap, int device,
+    int Dv, float scale, int causal, int window, float softcap, int device,
     void* stream) {
   return launch<true>(q, k, v, o, dout, lse, dq, dk, dv, delta, strides, B,
-                      H, KV, S, D, scale, causal, window, softcap, device,
+                      H, KV, S, D, Dv, scale, causal, window, softcap, device,
                       stream);
 }

@@ -1,5 +1,6 @@
 """CUDA kernel wrapper: flash attention (causal / sliding-window /
-softcapped GQA) over positions 0..S-1.
+softcapped GQA) over positions 0..S-1, with values of head dim Dv, which
+may differ from the queries' and keys' D (MLA).
 
 Port of the Pallas TPU kernel `repro.kernels.flash_attention`
 (`flash_attention`, `_flash_kernel`): online-softmax attention with f32
@@ -11,9 +12,10 @@ design and what bounds it on the H100.
 
 The kernel takes strides for the batch, head and sequence axes (the head
 dim must be contiguous), so the model's (B, S, H, D) tensors go in as
-transposed views, and the output keeps q's memory layout
-(`torch.empty_like`). The bf16 kernel loads rows with 16-byte copies, so
-a bf16 input whose rows do not start on 16 bytes is copied first.
+transposed views, and the output keeps q's memory layout (its (B, H, S)
+axes in q's order where Dv differs from D). The bf16 kernel loads rows
+with 16-byte copies, so a bf16 input whose rows do not start on 16 bytes
+is copied first.
 
 `flash_attention(..., return_lse=True)` also returns each row's
 log-sum-exp, which `flash_attention_bwd` takes to launch the gradient's
@@ -32,11 +34,19 @@ from repro_torch.kernels.stream import current_stream
 
 _DTYPES = {torch.float32: "flash_attention_f32",
            torch.bfloat16: "flash_attention_bf16"}
-# Head dims per input type, forward and backward: the bf16 kernels' wgmma
-# tiles are 64 columns wide, so D = 32 (lm_tiny) takes the f32 kernels
-# only.
-HEAD_DIMS = {torch.float32: (32, 64, 128, 256),
-             torch.bfloat16: (64, 128, 256)}
+# (D, Dv) pairs per input type, D the head dim of q and k and Dv that of
+# v and o: (D, D) for GQA, and MLA's (192, 128) (deepseek-v3) and
+# (96, 64) (its reduced form, lm_moe_tiny). The bf16 kernels' wgmma tiles
+# are 64 columns wide, so D = 32 (lm_tiny) and D = 96 take the f32
+# kernels only.
+HEAD_DIM_PAIRS = {
+    torch.float32: ((32, 32), (64, 64), (128, 128), (256, 256), (96, 64),
+                    (192, 128)),
+    torch.bfloat16: ((64, 64), (128, 128), (256, 256), (192, 128))}
+# The backward's: the bf16 backward takes Dv = D only (ROADMAP).
+BWD_HEAD_DIM_PAIRS = {
+    torch.float32: HEAD_DIM_PAIRS[torch.float32],
+    torch.bfloat16: ((64, 64), (128, 128), (256, 256))}
 _BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
                 torch.bfloat16: "flash_attention_bwd_bf16"}
 
@@ -44,15 +54,16 @@ _BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None, return_lse: bool = False):
-    """Launch the kernel on CUDA tensors. q: (B, H, S, D); k/v:
-    (B, KV, S, D) with H % KV == 0; one dtype, f32 or bf16; D in
-    HEAD_DIMS of that dtype. A (q, k) pair counts if `kpos <= qpos`
-    (causal) and `qpos - kpos < window`. Returns (B, H, S, D) in q's
-    dtype and memory layout; with `return_lse`, also each row's
-    log-sum-exp, a dense (B, H, S) float32 tensor."""
-    B, H, S, D, KV = _check(q, k, v, HEAD_DIMS.get(q.dtype, ()),
-                            window, softcap, "flash_attention")
-    out = torch.empty_like(q)
+    """Launch the kernel on CUDA tensors. q: (B, H, S, D); k: (B, KV, S,
+    D) and v: (B, KV, S, Dv) with H % KV == 0; one dtype, f32 or bf16;
+    (D, Dv) in HEAD_DIM_PAIRS of that dtype; the scale is D^-1/2. A
+    (q, k) pair counts if `kpos <= qpos` (causal) and `qpos - kpos <
+    window`. Returns (B, H, S, Dv) in q's dtype and memory layout; with
+    `return_lse`, also each row's log-sum-exp, a dense (B, H, S) float32
+    tensor."""
+    B, H, S, D, KV, Dv = _check(q, k, v, HEAD_DIM_PAIRS, window, softcap,
+                                "flash_attention")
+    out = _empty_like(q, Dv)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if return_lse else None
     if out.numel() > 0:
@@ -63,15 +74,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn = build.entry(_DTYPES[q.dtype])
         build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), None if lse is None else lse.data_ptr(),
-                       strides, B, H, KV, S, D, float(D ** -0.5),
+                       strides, B, H, KV, S, D, Dv, float(D ** -0.5),
                        int(causal), int(window or 0), float(softcap or 0.0),
                        q.device.index, current_stream(q.device.index)),
                     "flash_attention")
     return (out, lse) if return_lse else out
 
 
-def _check(q, k, v, head_dims, window, softcap, what: str):
-    """Raise on inputs the kernels do not take; returns (B, H, S, D, KV)."""
+def _empty_like(q: torch.Tensor, width: int) -> torch.Tensor:
+    """An empty (B, H, S, width) tensor with q's dtype and device, its
+    (B, H, S) axes in the memory order of q's (so that the model's
+    transposed views give an output that reshapes without a copy)."""
+    if width == q.shape[-1]:
+        return torch.empty_like(q)
+    order = sorted(range(3), key=lambda i: (-q.stride(i), i))
+    out = torch.empty([q.shape[i] for i in order] + [width], dtype=q.dtype,
+                      device=q.device)
+    return out.permute(*[order.index(i) for i in range(3)], 3)
+
+
+def _check(q, k, v, pairs, window, softcap, what: str):
+    """Raise on inputs the kernels do not take; returns (B, H, S, D, KV,
+    Dv)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{what}: {name} must be a CUDA tensor on "
@@ -85,20 +109,21 @@ def _check(q, k, v, head_dims, window, softcap, what: str):
         raise TypeError(f"{what}: dtype {q.dtype} not supported (float32 or "
                         "bfloat16)")
     B, H, S, D = q.shape
-    KV = k.shape[1]
-    if k.shape != (B, KV, S, D) or v.shape != k.shape:
-        raise ValueError(f"{what}: k and v must be ({B}, KV, {S}, {D}), got "
-                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    KV, Dv = k.shape[1], v.shape[-1]
+    if k.shape != (B, KV, S, D) or v.shape != (B, KV, S, Dv):
+        raise ValueError(f"{what}: k must be ({B}, KV, {S}, {D}) and v "
+                         f"({B}, KV, {S}, Dv), got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
     if KV == 0 or H % KV:
         raise ValueError(f"{what}: H = {H} is not a multiple of KV = {KV}")
-    if D not in head_dims:
-        raise ValueError(f"{what}: head dim {D} not in {head_dims} for "
-                         f"{q.dtype}")
+    if (D, Dv) not in pairs[q.dtype]:
+        raise ValueError(f"{what}: head dim {D} (values {Dv}) not in the "
+                         f"(D, Dv) pairs {pairs[q.dtype]} for {q.dtype}")
     if window is not None and window < 1:
         raise ValueError(f"{what}: window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"{what}: softcap must be > 0, got {softcap}")
-    return B, H, S, D, KV
+    return B, H, S, D, KV, Dv
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,18 +133,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch the backward kernels (`csrc/flash_attention_bwd.cu`) on CUDA
     tensors: q, k, v as for `flash_attention`, o its output, do the
-    gradient of o (both (B, H, S, D), q's dtype) and lse the forward's
+    gradient of o (both (B, H, S, Dv), q's dtype) and lse the forward's
     (`return_lse`; dense (B, H, S) float32). Returns (dq, dk, dv) in the
-    input dtype, each in its input's memory layout. D in HEAD_DIMS of
-    that dtype."""
-    B, H, S, D, KV = _check(q, k, v, HEAD_DIMS.get(q.dtype, ()), window,
-                            softcap, "flash_attention_bwd")
+    input dtype, each in its input's memory layout. (D, Dv) in
+    BWD_HEAD_DIM_PAIRS of that dtype: the bf16 backward at Dv != D is not
+    written yet and raises."""
+    B, H, S, D, KV, Dv = _check(q, k, v, BWD_HEAD_DIM_PAIRS, window,
+                                softcap, "flash_attention_bwd")
     for name, t in (("o", o), ("do", do)):
-        if t.shape != q.shape or t.dtype != q.dtype \
+        if t.shape != (B, H, S, Dv) or t.dtype != q.dtype \
                 or t.device != q.device or t.stride(-1) != 1:
-            raise ValueError(f"flash_attention_bwd: {name} must match q "
-                             f"({tuple(q.shape)}, {q.dtype}, {q.device}) "
-                             "with a contiguous last axis")
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             f"({B}, {H}, {S}, {Dv}), {q.dtype} on "
+                             f"{q.device}, with a contiguous last axis")
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 \
             or lse.device != q.device or not lse.is_contiguous():
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
@@ -137,8 +163,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), strides,
-                   B, H, KV, S, D, float(D ** -0.5), int(causal),
-                   int(window or 0), float(softcap or 0.0), q.device.index, current_stream(q.device.index)),
+                   B, H, KV, S, D, Dv, float(D ** -0.5), int(causal),
+                   int(window or 0), float(softcap or 0.0), q.device.index,
+                   current_stream(q.device.index)),
                 "flash_attention_bwd")
     return dq, dk, dv
 

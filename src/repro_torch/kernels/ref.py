@@ -95,7 +95,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int | None = None,
                         softcap: float | None = None,
                         return_lse: bool = False):
-    """q: (B,H,S,D), k/v: (B,KV,S,D) -> (B,H,S,D) in q.dtype. Naive
+    """q: (B,H,S,D), k: (B,KV,S,D), v: (B,KV,S,Dv) -> (B,H,S,Dv) in
+    q.dtype (Dv = D, or MLA's value head dim), scaled by D^-1/2. Naive
     softmax in f32 over positions 0..S-1; query head h reads KV head
     h // (H / KV). A pair counts if `kpos <= qpos` (causal) and
     `qpos - kpos < window`. With `return_lse`, also each row's
@@ -170,8 +171,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The backward kernel's formulas (`csrc/flash_attention_bwd.cu`), in
-    f32: q (B,H,S,D), k/v (B,KV,S,D), o the forward's output and do its
-    gradient (B,H,S,D) -> (dq, dk, dv) in the input dtypes.
+    f32: q (B,H,S,D), k (B,KV,S,D), v (B,KV,S,Dv), o the forward's
+    output and do its gradient (B,H,S,Dv) -> (dq, dk, dv) in the input
+    dtypes (dv of v's Dv).
 
     Row statistics first: lse = log sum_k exp(s) over the counted pairs
     (the forward's, `flash_attention_ref(..., return_lse=True)`, when
@@ -203,7 +205,8 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     ds = p * (dp - delta) * dscore
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf).view(B, KV, rep, S, D).sum(2)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).view(B, KV, rep, S, D).sum(2)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).view(B, KV, rep, S, -1) \
+        .sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 

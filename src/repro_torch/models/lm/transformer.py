@@ -1,12 +1,14 @@
-"""The LM stack: GQA attention, routed-expert, RWKV6 and hybrid
-(attention + SSD) layers.
+"""The LM stack: GQA or MLA attention, routed-expert, RWKV6 and hybrid
+(attention + SSD) layers, and the MTP head.
 
 Port of `repro.models.lm.transformer` for the segment kinds
-  attn    — GQA attention + dense MLP
-  moe     — GQA attention + routed experts (+ shared), row-local dispatch
+  attn    — [MLA|GQA] attention + dense MLP
+  moe     — [MLA|GQA] attention + routed experts (+ shared), row-local
+            dispatch
   rwkv    — RWKV6 time mix + channel mix
   hybrid  — parallel GQA attention + SSD heads, then dense MLP
-with the reference's parameter tree: `params["segments"]` is a list of
+(MLA where `cfg.mla` is set, as deepseek-v3) with the reference's
+parameter tree: `params["segments"]` is a list of
 dicts, one per `cfg.resolved_segments` entry, whose leaves carry the
 segment's stacked layer axis. Where the reference scans that axis
 (`lax.scan`), the port loops over it in Python and hands each layer
@@ -30,7 +32,8 @@ as views). With `cfg.remat` each layer is recomputed in the backward
 (`torch.utils.checkpoint`), as the reference's `jax.checkpoint` of the
 scanned layer.
 
-The prefill attention is the `flash_attention` kernel, and the SSD and
+The prefill attention is the `flash_attention` kernel (for MLA with
+value head dim Dv below the keys' D, `mla.mla_stacked`), and the SSD and
 RWKV6 prefill scans the `wkv6` kernel (through `attention.attention_prefill`
 and `scan_core.chunked_decay_scan`). The decode cache is the reference's, per
 segment with a leading layer axis, plus `cache["pos"]`, a Python int
@@ -38,15 +41,18 @@ segment with a leading layer axis, plus `cache["pos"]`, a Python int
 updates the cache's tensors in place and returns the cache with `pos`
 advanced: the reference returns new arrays instead. An `rwkv` layer's
 cache is O(1) in the sequence: the last inputs of both mixes and the
-(H, hd, hd) scan state, in the model's dtype.
+(H, hd, hd) scan state, in the model's dtype. An MLA layer caches the
+compressed latent c_kv and the shared rope key, and decodes in the
+absorbed form (`mla.mla_decode`).
 
 The MoE layers' aux loss is per client in `forward_train_stacked`
 (`moe_aux` of shape (G,), each client's over its own tokens), so that
 `client_lm_losses` adds each client its own; `forward_train` returns it
-0-d, as the reference.
+0-d, as the reference. With `cfg.mtp` both also return `mtp_logits`,
+the MTP head's next-next-token logits off the final norm.
 
-Not ported yet, each raising NotImplementedError: MLA attention and the
-MTP head, the encoder (enc-dec) and prefix embeddings (VLM).
+Not ported yet, each raising NotImplementedError: the encoder (enc-dec)
+and prefix embeddings (VLM).
 """
 from __future__ import annotations
 
@@ -66,6 +72,12 @@ from repro_torch.models.lm.layers import (
     dense_init,
     init_mlp,
     rmsnorm,
+)
+from repro_torch.models.lm.mla import (
+    init_mla,
+    mla_decode,
+    mla_prefill,
+    mla_stacked,
 )
 from repro_torch.models.lm.moe import apply_moe, apply_moe_stacked, init_moe
 from repro_torch.models.lm.params import map_tree
@@ -87,7 +99,6 @@ from repro_torch.models.lm.ssm import (
 )
 
 _ROADMAP = {
-    "mla": "MLA, MTP and lm_moe_tiny",
     "encoder": "Encoder and prefix embeddings",
     "prefix": "Encoder and prefix embeddings",
 }
@@ -102,11 +113,6 @@ def _check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for what the port does not run yet."""
     if cfg.encoder is not None:
         raise _not_ported(f"{cfg.name}: the encoder (enc-dec)", "encoder")
-    for seg in cfg.resolved_segments:
-        if cfg.mla is not None and seg.kind in ("attn", "moe"):
-            raise _not_ported(f"{cfg.name}: MLA attention", "mla")
-    if cfg.mtp:
-        raise _not_ported(f"{cfg.name}: the MTP head", "mla")
 
 
 # ======================================================================= #
@@ -128,6 +134,11 @@ def _init_gqa(generator, cfg: ModelConfig, lead, device, dtype) -> dict:
     return p
 
 
+def _is_mla(cfg: ModelConfig, seg: Segment) -> bool:
+    """Whether the segment's attention is MLA (the reference's rule)."""
+    return cfg.mla is not None and seg.kind in ("attn", "moe")
+
+
 def _init_segment(cfg: ModelConfig, seg: Segment, generator, device,
                   dtype) -> dict:
     """One segment's params, every leaf with a leading (n_layers,) axis."""
@@ -142,7 +153,11 @@ def _init_segment(cfg: ModelConfig, seg: Segment, generator, device,
         p["cm"] = init_rwkv_channel_mix(generator, cfg.d_model, cfg.d_ff,
                                         lead, device, dtype)
         return p
-    p["attn"] = _init_gqa(generator, cfg, lead, device, dtype)
+    if _is_mla(cfg, seg):
+        p["mla"] = init_mla(generator, cfg.d_model, cfg.n_heads, cfg.mla,
+                            lead, device, dtype)
+    else:
+        p["attn"] = _init_gqa(generator, cfg, lead, device, dtype)
     if seg.kind == "hybrid":
         p["ssm"] = init_ssm(generator, cfg.d_model, cfg.ssm, lead, device,
                             dtype)
@@ -177,6 +192,9 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             generator, (cfg.d_model, cfg.vocab_size), device=device, dtype=dt)
     params["segments"] = [_init_segment(cfg, seg, generator, device, dt)
                           for seg in cfg.resolved_segments]
+    if cfg.mtp:
+        params["mtp_head"] = dense_init(
+            generator, (cfg.d_model, cfg.vocab_size), device=device, dtype=dt)
     return params
 
 
@@ -246,6 +264,9 @@ def _init_segment_cache(cfg: ModelConfig, seg: Segment, B: int,
         H = cfg.d_model // hd
         return {"tm_x": zeros(cfg.d_model), "cm_x": zeros(cfg.d_model),
                 "s": zeros(H, hd, hd)}
+    if _is_mla(cfg, seg):
+        return {"c_kv": zeros(max_seq, cfg.mla.kv_lora_rank),
+                "k_rope": zeros(max_seq, cfg.mla.rope_head_dim)}
     c = {"k": zeros(slots, cfg.n_kv_heads, hd),
          "v": zeros(slots, cfg.n_kv_heads, hd)}
     if seg.kind == "hybrid":
@@ -272,16 +293,22 @@ def _apply_layer_prefill(cfg: ModelConfig, seg: Segment, lp: dict, x,
     S = x.shape[1]
     window = _seg_window(cfg, seg)
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    o, (k, v) = _gqa_full(lp["attn"], h, cfg, positions, window)
-    slots = cache["k"].shape[1]
-    if window and S > slots:
-        # keep the last `window` tokens, ring-aligned
-        start = (S - slots) % slots
-        cache["k"].copy_(torch.roll(k[:, -slots:], start, dims=1))
-        cache["v"].copy_(torch.roll(v[:, -slots:], start, dims=1))
+    if "mla" in lp:
+        o, (c_kv, k_rope) = mla_prefill(lp["mla"], h, cfg.n_heads, cfg.mla,
+                                        positions, cfg.rope_theta)
+        cache["c_kv"][:, :S] = c_kv
+        cache["k_rope"][:, :S] = k_rope
     else:
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+        o, (k, v) = _gqa_full(lp["attn"], h, cfg, positions, window)
+        slots = cache["k"].shape[1]
+        if window and S > slots:
+            # keep the last `window` tokens, ring-aligned
+            start = (S - slots) % slots
+            cache["k"].copy_(torch.roll(k[:, -slots:], start, dims=1))
+            cache["v"].copy_(torch.roll(v[:, -slots:], start, dims=1))
+        else:
+            cache["k"][:, :S] = k
+            cache["v"][:, :S] = v
     if seg.kind == "hybrid":
         s_out, (ssm_s, tail) = ssm_forward(lp["ssm"], h, cfg.ssm)
         o = torch.exp(lp["gate_attn"]) * o + torch.exp(lp["gate_ssm"]) * s_out
@@ -317,7 +344,12 @@ def _apply_layer_decode(cfg: ModelConfig, seg: Segment, lp: dict, x,
         return x + o2
     window = _seg_window(cfg, seg)
     h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
-    o = _gqa_step(lp["attn"], h, cfg, cache["k"], cache["v"], pos, window)
+    if "mla" in lp:
+        o = mla_decode(lp["mla"], h, cache["c_kv"], cache["k_rope"], pos,
+                       cfg.n_heads, cfg.mla, cfg.rope_theta)
+    else:
+        o = _gqa_step(lp["attn"], h, cfg, cache["k"], cache["v"], pos,
+                      window)
     if seg.kind == "hybrid":
         s_out, (ssm_s, tail) = ssm_step(lp["ssm"], h, cfg.ssm,
                                         cache["ssm_s"], cache["conv_tail"])
@@ -442,7 +474,11 @@ def _apply_layer_train(cfg: ModelConfig, seg: Segment, lp: dict, x,
         return x + o, None
     window = _seg_window(cfg, seg)
     h = rmsnorm(x, _row(lp["norm1"]), cfg.norm_eps)
-    o = _gqa_train(lp["attn"], h, cfg, positions, window, seq_len)
+    if "mla" in lp:
+        o, _ = mla_stacked(lp["mla"], h, cfg.n_heads, cfg.mla, positions,
+                           cfg.rope_theta, seq_len)
+    else:
+        o = _gqa_train(lp["attn"], h, cfg, positions, window, seq_len)
     if seg.kind == "hybrid":
         s, _ = ssm_stacked(lp["ssm"], h, cfg.ssm, seq_len)
         gate = lambda g: torch.exp(g)[:, None, None]
@@ -459,7 +495,8 @@ def forward_train_stacked(cfg: ModelConfig, params, tokens: torch.Tensor):
     """Full-sequence forward of G clients at once: every leaf of `params`
     has a leading (G,) axis, tokens (G, B, S) integer. Returns (logits
     (G, B, S, V), {"moe_aux": (G,) f32}), each client's MoE aux loss
-    summed over its layers (zero without MoE layers)."""
+    summed over its layers (zero without MoE layers); with the MTP head,
+    also "mtp_logits" (G, B, S, V)."""
     _check_supported(cfg)
     G, B, S = tokens.shape
     embed = params["embed"]
@@ -478,17 +515,21 @@ def forward_train_stacked(cfg: ModelConfig, params, tokens: torch.Tensor):
             if aux is not None:
                 moe_aux = moe_aux + aux
     h = rmsnorm(x, _row(params["final_norm"]), cfg.norm_eps)
+    aux = {"moe_aux": moe_aux}
+    if cfg.mtp and "mtp_head" in params:
+        aux["mtp_logits"] = (h @ params["mtp_head"]).reshape(G, B, S, -1)
     logits = h @ (embed.transpose(-1, -2) if cfg.tie_embeddings
                   else params["lm_head"])
-    return logits.reshape(G, B, S, -1), {"moe_aux": moe_aux}
+    return logits.reshape(G, B, S, -1), aux
 
 
 def forward_train(cfg: ModelConfig, params, tokens, prefix_embeds=None,
                   enc_embeds=None):
     """Full-sequence forward of one model. tokens (B, S) integer. Returns
     (logits (B, S, V), {"moe_aux": 0-d}), as the reference: the MoE
-    layers' aux loss, zero without them."""
+    layers' aux loss, zero without them (and "mtp_logits" (B, S, V) with
+    the MTP head)."""
     _check_inputs(cfg, prefix_embeds, enc_embeds)
     logits, aux = forward_train_stacked(
         cfg, map_tree(lambda t: t.unsqueeze(0), params), tokens[None])
-    return logits[0], {"moe_aux": aux["moe_aux"][0]}
+    return logits[0], {k: v[0] for k, v in aux.items()}

@@ -25,10 +25,10 @@ the two (`repro_torch.comms.codec`). Random draws (initial params,
 minibatch indices, the codec's stochastic-rounding uniforms) come from a
 `sampler`; the default `TorchSampler` holds one `torch.Generator`.
 
-The workloads are `femnist_mlp`, `femnist_cnn`, `lm_tiny` and
-`lm_hybrid_tiny`. Not ported yet (each raises NotImplementedError naming
-its ROADMAP item): `execution="mesh"` (multi-device slice), `lm_moe_tiny`
-and `lm_rwkv6_tiny`.
+The workloads are `femnist_mlp`, `femnist_cnn`, `lm_tiny`,
+`lm_hybrid_tiny`, `lm_rwkv6_tiny` and `lm_moe_tiny`. Not ported yet
+(raising NotImplementedError naming its ROADMAP item):
+`execution="mesh"` (multi-device slice).
 """
 from __future__ import annotations
 

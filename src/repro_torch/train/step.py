@@ -48,11 +48,18 @@ def _ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return _ce_tokens(logits, labels).mean()
 
 
+# Weight of the MTP head's next-next-token CE in the loss (the
+# reference's).
+MTP_WEIGHT = 0.3
+
+
 def lm_loss(cfg: ModelConfig, params, batch: Batch):
-    """Next-token CE (+ the MoE aux term, zero for the ported kinds).
+    """Next-token CE + the MoE aux term (zero without MoE layers) + 0.3 x
+    the MTP head's next-next-token CE where the config has one.
 
     batch: {"tokens": (B, S) integer}. Returns (loss, metrics) with the
-    reference's metric names ("ce", "moe_aux", "loss")."""
+    reference's metric names ("ce", "moe_aux", "mtp" with the MTP head,
+    "loss")."""
     tokens = batch["tokens"]
     logits, aux = forward_train(cfg, params, tokens,
                                 prefix_embeds=batch.get("prefix_embeds"),
@@ -61,6 +68,10 @@ def lm_loss(cfg: ModelConfig, params, batch: Batch):
     metrics = {"ce": loss}
     loss = loss + aux["moe_aux"]
     metrics["moe_aux"] = aux["moe_aux"]
+    if "mtp_logits" in aux:
+        mtp = _ce(aux["mtp_logits"][:, :-2], tokens[:, 2:])
+        loss = loss + MTP_WEIGHT * mtp
+        metrics["mtp"] = mtp
     metrics["loss"] = loss
     return loss, metrics
 
@@ -70,8 +81,12 @@ def client_lm_losses(cfg: ModelConfig, params, tokens: torch.Tensor
     """`lm_loss` of each client of a stack at once: params' leaves (C,
     ...), tokens (C, B, S) -> (C,) losses (one forward for the stack)."""
     logits, aux = forward_train_stacked(cfg, params, tokens)
-    ce = _ce_tokens(logits[:, :, :-1], tokens[:, :, 1:]).mean((1, 2))
-    return ce + aux["moe_aux"]
+    loss = _ce_tokens(logits[:, :, :-1], tokens[:, :, 1:]).mean((1, 2)) \
+        + aux["moe_aux"]
+    if "mtp_logits" in aux:
+        loss = loss + MTP_WEIGHT * _ce_tokens(
+            aux["mtp_logits"][:, :, :-2], tokens[:, :, 2:]).mean((1, 2))
+    return loss
 
 
 def make_train_step(cfg: ModelConfig, lr: float = 3e-4,

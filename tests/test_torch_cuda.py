@@ -904,12 +904,19 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take(dev):
         wkv6_bwd(r, kk, vv, lw, s0, torch.zeros_like(vv), None, states)
 
 
+# Each LM workload's (attention layers, scan layers).
+LM_WORKLOAD_LAYERS = {"lm_tiny": (2, 0), "lm_hybrid_tiny": (2, 2),
+                      "lm_rwkv6_tiny": (0, 2), "lm_moe_tiny": (4, 0)}
+
+
 @pytest.mark.parametrize("workload", ["lm_tiny", "lm_hybrid_tiny",
-                                      "lm_rwkv6_tiny"])
+                                      "lm_rwkv6_tiny", "lm_moe_tiny"])
 def test_lm_workload_trains_on_the_card(dev, workload):
     """fedprox on c2s2/g1: one prox_sgd launch a local step, and one
     flash_attention (and wkv6) launch and backward a layer a local step
-    for the whole client stack (rwkv6: wkv6 only)."""
+    for the whole client stack (rwkv6: wkv6 only; lm_moe_tiny's MLA at
+    (D, Dv) = (96, 64))."""
+    n_attn, n_scan = LM_WORKLOAD_LAYERS[workload]
     ops.reset_launches()
     res = ConstellationSim(
         WalkerStar(2, 2), station_subnetwork(1), ALGORITHMS["fedprox"],
@@ -918,10 +925,8 @@ def test_lm_workload_trains_on_the_card(dev, workload):
     torch.cuda.synchronize()
     steps = ops.LAUNCHES["prox_sgd"]
     assert res.n_rounds == 2 and steps > 0
-    assert ops.LAUNCHES["flash_attention_bwd"] == (
-        0 if workload == "lm_rwkv6_tiny" else 2 * steps)
-    if workload != "lm_tiny":
-        assert ops.LAUNCHES["wkv6_bwd"] == 2 * steps
+    assert ops.LAUNCHES["flash_attention_bwd"] == n_attn * steps
+    assert ops.LAUNCHES["wkv6_bwd"] == n_scan * steps
     assert all(math.isfinite(a) for *_, a in res.accuracy_curve)
 
 
@@ -1047,6 +1052,137 @@ def test_reduced_rwkv6_and_grok_card_match_cpu(dev, arch):
     _close(out["card"][1], out["cpu"][1], 1e-4)
     kernel = "wkv6" if arch == "rwkv6-1.6b" else "flash_attention"
     assert out["card"][2][kernel] == cfg.n_layers
+    assert abs(out["card"][3] - out["cpu"][3]) <= 1e-4
+    for a, b in zip(out["card"][4], out["cpu"][4]):
+        _close(a, b, 1e-4, 1e-4 * max(1.0, float(b.abs().max())))
+
+
+# ------------------------------------- MLA: value head dim Dv below D
+MLA_FLASH_CASES = [
+    # b, h, kv, s, d, dv, dtype, window, softcap
+    (128, 4, 4, 33, 96, 64, torch.float32, None, None),      # lm_moe_tiny
+    (2, 8, 2, 130, 96, 64, torch.float32, None, None),       # GQA, ragged S
+    (1, 4, 4, 333, 192, 128, torch.float32, 100, None),
+    (1, 16, 16, 2048, 192, 128, torch.bfloat16, None, None),  # deepseek-v3
+    (2, 8, 2, 1000, 192, 128, torch.bfloat16, None, None),   # GQA, ragged S
+    (1, 4, 2, 65, 192, 128, torch.bfloat16, 32, 30.0),
+]
+
+
+def _mla_inputs(dev, b, h, kv, s, d, dv, dtype):
+    g = torch.Generator(device=dev).manual_seed(b * h * s + d + dv)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, h, s, d), (b, kv, s, d), (b, kv, s, dv))]
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dv,dtype,window,softcap",
+                         MLA_FLASH_CASES)
+def test_flash_attention_dv_kernel_matches_plain(dev, b, h, kv, s, d, dv,
+                                                 dtype, window, softcap):
+    q, k, v = _mla_inputs(dev, b, h, kv, s, d, dv, dtype)
+    kw = dict(window=window, softcap=softcap)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention_op(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, s, dv)
+    _close(got, ref.flash_attention_ref(q, k, v, **kw), *FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_dv_reads_the_mla_views(dev, dtype):
+    """MLA's (B, S, H, D) queries and keys (nope and rope dims
+    concatenated) and (B, S, H, Dv) values as transposed views: the
+    output's (B, S, H, Dv) layout is dense, so the model's reshape to
+    (B, S, H * Dv) is a view."""
+    B, S, H = 2, 200, 8
+    g = torch.Generator(device=dev).manual_seed(7)
+    q, k = (torch.randn((B, S, H, 192), generator=g, device=dev).to(dtype)
+            .transpose(1, 2) for _ in range(2))
+    v = torch.randn((B, S, H, 128), generator=g, device=dev).to(dtype) \
+        .transpose(1, 2)
+    got = ops.flash_attention_op(q, k, v)
+    torch.cuda.synchronize()
+    assert got.shape == (B, H, S, 128) and got.transpose(1, 2).is_contiguous()
+    _close(got, ref.flash_attention_ref(q, k, v), *FLASH_TOL[dtype])
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,dv,window", [
+    (128, 4, 4, 33, 96, 64, None),       # lm_moe_tiny's training step
+    (2, 8, 2, 130, 96, 64, 50),
+    (1, 4, 4, 256, 192, 128, None),
+    (1, 4, 2, 100, 192, 128, None),
+])
+def test_flash_attention_bwd_f32_dv_matches_plain(dev, b, h, kv, s, d, dv,
+                                                  window):
+    """The f32 backward at (D, Dv) = (96, 64) and (192, 128) through the
+    op: one launch, dq and dk of D columns and dv of Dv within 2e-5 of the
+    plain backward, the same bits twice."""
+    leaves = [t.requires_grad_(True) for t in
+              _mla_inputs(dev, b, h, kv, s, d, dv, torch.float32)]
+    do = torch.randn((b, h, s, dv), generator=torch.Generator(
+        device=dev).manual_seed(s), device=dev)
+    grads = []
+    for _ in range(2):
+        before = ops.LAUNCHES["flash_attention_bwd"]
+        o = ops.flash_attention_op(*leaves, window=window)
+        grads.append(torch.autograd.grad(o, leaves, do))
+        assert ops.LAUNCHES["flash_attention_bwd"] == before + 1
+    torch.cuda.synchronize()
+    want = ref.flash_attention_bwd_ref(*(t.detach() for t in leaves),
+                                       o.detach(), do, window=window)
+    for a, b_, w in zip(*grads, want):
+        assert a.shape == w.shape and torch.equal(a, b_)
+        _close(a, w, *BWD_TOL[torch.float32])
+
+
+def test_dv_pairs_the_kernels_do_not_take_raise(dev):
+    """bf16 D = 96 (not whole 64-column wgmma blocks), the bf16 backward
+    at Dv != D, and a pair no model uses: each raises by name."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v = _mla_inputs(dev, 1, 2, 2, 64, 96, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 96"):
+        ops.flash_attention_op(q, k, v)
+    q, k, v = _mla_inputs(dev, 1, 2, 2, 64, 192, 128, torch.bfloat16)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True)
+    with pytest.raises(ValueError, match="head dim 192 \\(values 128\\)"):
+        flash_attention_bwd(q, k, v, o, o, lse)
+    q, k, v = _mla_inputs(dev, 1, 2, 2, 64, 128, 64, torch.float32)
+    with pytest.raises(ValueError, match="head dim 128 \\(values 64\\)"):
+        ops.flash_attention_op(q, k, v)
+
+
+def test_reduced_deepseek_card_matches_cpu(dev):
+    """lm_moe_tiny's model (deepseek-v3 reduced to 4 MLA layers, the last
+    MoE, and the MTP head; f32) from one set of weights on the card and
+    the CPU: a 130-token prompt, 8 absorbed decode steps, identical tokens,
+    logits within 1e-4, one `flash_attention` launch a layer per prefill;
+    one training step's loss within 1e-4 and each gradient leaf within
+    1e-4 of its largest element where that passes 1, through one
+    `flash_attention_bwd` launch a layer."""
+    from repro_torch.models.lm.params import map_tree
+    from repro_torch.train.step import lm_loss
+    cfg = get_config("deepseek-v3-671b").reduced(n_layers=4, n_experts=8)
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_params = lm_params_from_jax(lm_params_to_numpy(cpu_params), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 130),
+                            generator=torch.Generator().manual_seed(1))
+    out = {}
+    for where, params in (("cpu", cpu_params), ("card", card_params)):
+        before = dict(ops.LAUNCHES)
+        toks, _, logits = serve.serve_batch(
+            cfg, params, prompts.to(params["embed"].device), 8)
+        leaves = []
+        map_tree(lambda t: leaves.append(t.requires_grad_(True)), params)
+        loss, _ = lm_loss(cfg, params, {"tokens": prompts[:, :65].to(
+            params["embed"].device)})
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        moved = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES}
+        out[where] = (toks.cpu(), logits.cpu(), moved, float(loss), grads)
+    assert torch.equal(out["card"][0], out["cpu"][0])
+    _close(out["card"][1], out["cpu"][1], 1e-4)
+    assert out["card"][2]["flash_attention"] == 2 * cfg.n_layers
+    assert out["card"][2]["flash_attention_bwd"] == cfg.n_layers
     assert abs(out["card"][3] - out["cpu"][3]) <= 1e-4
     for a, b in zip(out["card"][4], out["cpu"][4]):
         _close(a, b, 1e-4, 1e-4 * max(1.0, float(b.abs().max())))

@@ -384,17 +384,9 @@ def test_every_arch_resolves():
 
 
 @pytest.mark.parametrize("arch,what", [
-    ("deepseek-v3-671b", "MLA attention"),
     ("whisper-medium", "encoder"),
-    # The LM workload of the MLA kind, naming its ROADMAP item.
-    ("lm_moe_tiny", r"item 5 \(MLA, MTP and lm_moe_tiny\)"),
 ])
 def test_unported_kinds_raise(arch, what):
-    if arch.startswith("lm_"):
-        from repro_torch.core import get_workload
-        with pytest.raises(NotImplementedError, match=what):
-            get_workload(arch)
-        return
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match=what):
         init_params(cfg, torch.Generator().manual_seed(0), "cpu")
