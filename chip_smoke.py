@@ -94,7 +94,11 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              without softcap beside it), at MLA's value head dim Dv below
              D (deepseek-v3 serving: bf16, 4 x 128 heads x 2048 of
              (192, 128); lm_moe_tiny's f32 (96, 64) launch; SDPA and the
-             backend it picks beside them) and in every mask variant on
+             backend it picks beside them), at whisper-medium's (the
+             encoder's bidirectional 16 heads of 64 over 1,500 frames, and
+             the cross-attention's 224 queries against 1,500 keys of their
+             own length) and llava-next-mistral-7b's (4,928 positions in a
+             4,096 window, 32 heads on 8 of 128), and in every mask variant on
              both flash kernels (flash 3e-5 in f32; in bf16 rtol 8e-3 +
              atol 1e-3, about one bf16 rounding step, since both sides
              round one f32 result; wkv6 2e-4), with device times, bounds
@@ -121,10 +125,24 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              (D, Dv) = (192, 128) a prefill, the absorbed decode against
              the (c_kv, k_rope) cache (its bytes a token a layer beside an
              expanded 128-head k/v cache's); a profiled batch;
-  serve_cpu_vs_card  reduced hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1 and
-             deepseek-v3 (f32) from the same weights on the card and on
-             the CPU, 160-token prompts: identical greedy tokens, logits
-             within 1e-4.
+  serve_audio  whisper-medium at full width (757,877,760 params): 8
+             requests of 1,500 random frames and 224 prompt tokens in
+             batches of 4, 32 new tokens, through `serve.serve_batch`
+             (`_serve_full`): 72 flash_attention launches a prefill
+             (encoder, self, cross), prefill and decode times, tokens/s,
+             peak memory, the decode cache; the traced run written with
+             `obs.write_chrome_trace` and read back; a profiled batch;
+  serve_vlm  llava-next-mistral-7b at full width (7,241,732,096 params,
+             14.5 GB bf16): 8 requests of 2,880 random prefix embeddings
+             and 2,048 text tokens, 32 new, through `init_decode_cache(...,
+             prompt=, prefix_embeds=)` and `make_serve_step`, as
+             serve_audio: 32 flash_attention launches a prefill, the
+             4,096-slot window cache;
+  serve_cpu_vs_card  reduced hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1,
+             whisper-medium, llava-next-mistral-7b (seeded random frames
+             and prefix embeddings) and deepseek-v3 (f32) from the same
+             weights on the card and on the CPU, 160-token prompts:
+             identical greedy tokens, logits within 1e-4.
   lm_fl      ConstellationSim.run() for fedavg and fedprox on the LM
              workloads lm_tiny, lm_hybrid_tiny, lm_rwkv6_tiny and
              lm_moe_tiny (c2s2/g1, 2 days, 3
@@ -148,14 +166,23 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              backward of scaled_dot_product_attention as the yardstick and
              the bf16 error with P and dS rounded once (no hi + lo); the
              f32 flash backward at MLA's (96, 64) (lm_moe_tiny) and
-             (192, 128); the D = 32 forward (lm_tiny);
-  lm_train   `repro_torch.launch.train.main` on full-width hymba-1.5b
-             and then rwkv6-1.6b (`lm_train_rwkv`) (bf16, batch 2 x 2048,
-             4 AdamW steps at the launcher's lr), launch counters zeroed
+             (192, 128); the D = 32 forward (lm_tiny); the bf16
+             backward at whisper-medium's training shapes (the encoder's
+             1,500 frames, the cross-attention's 448 queries against 1,500
+             keys);
+  lm_train   `repro_torch.launch.train.main` on full-width hymba-1.5b,
+             then rwkv6-1.6b (`lm_train_rwkv`) (bf16, batch 2 x 2048) and
+             whisper-medium (`lm_train_audio`: batch 4 x 448 text tokens,
+             1,500 zero frames), and the launcher's loop on llava at every
+             published width with its depth cut to 4 of 32 layers
+             (`lm_train_vlm`: 1,134,596,096 params, batch 2 x (2,880 zero
+             prefix embeddings + 2,048 text tokens)) (4 AdamW steps at the
+             launcher's lr), launch counters zeroed
              just before and read just after: a launch a layer a step of
              each LM kernel the model runs (hymba: 32 of each of
              flash_attention, flash_attention_bwd, wkv6 and wkv6_bwd;
-             rwkv6: 24 of wkv6 and wkv6_bwd), finite losses;
+             rwkv6: 24 of wkv6 and wkv6_bwd; whisper: 72 of
+             flash_attention and its backward; llava: 4), finite losses;
              s/step, tokens/s, peak device memory; then 4 steps of the
              same configuration on one fixed batch (one of them under
              torch.profiler: idle share, time by kernel), whose loss
@@ -164,9 +191,10 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
   lm_cpu_vs_card  lm_tiny and lm_moe_tiny fedprox on the card and on the
              CPU from the same init and draws: RoundRecords identical,
              params within 1e-4; one training step of reduced hymba-1.5b,
-             gemma-2b, rwkv6-1.6b, grok-1 and deepseek-v3 from the same
-             weights: loss and every gradient within 1e-4 (of the leaf's
-             largest where that passes 1).
+             gemma-2b, rwkv6-1.6b, grok-1, whisper-medium, llava (seeded
+             random frames and prefix embeddings) and deepseek-v3 from the
+             same weights: loss and every gradient within 1e-4 (of the
+             leaf's largest where that passes 1).
 
 Each phase prints one JSON line; any failure exits non-zero before the
 last line, which is {"ok": true, "device": {...}}.
@@ -245,7 +273,11 @@ from repro_torch.sim import (  # noqa: E402
 )
 from repro_torch.sim.batched import _fast_plannable  # noqa: E402
 from repro_torch.sim.engine import client_steps  # noqa: E402
-from repro_torch.train.step import lm_loss, make_train_step  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    lm_loss,
+    make_serve_step,
+    make_train_step,
+)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the tensor
@@ -660,7 +692,8 @@ class LaunchShapes:
     and form; for `prox_sgd` C, P, dtype, mu (a float, or the values of a
     per-row vector) and the anchor (shared, per client, or one row per
     group of rows); for the LM kernels every tensor argument's
-    `_layout` and the keyword options. `kernels` names the kernels the
+    `_layout` (so a cross-attention's keys keep their own length) and
+    the keyword options. `kernels` names the kernels the
     path must launch."""
 
     def __init__(self, *kernels: str):
@@ -1721,10 +1754,26 @@ MLA_ARCH, MLA_D, MLA_DV = "deepseek-v3-671b", 192, 128
 # lm_moe_tiny's model: deepseek-v3 reduced to 3 dense MLA layers and 1
 # MoE layer of 8 experts, heads of (96, 64).
 MLA_TINY = dict(n_layers=4, n_experts=8)
+# whisper-medium at full width, served and trained: 1,500 frames (30 s of
+# audio) a request; a 224-token prompt, half of its 448-token text
+# context; trained at batch 4 x 448 text tokens.
+AUDIO_ARCH, AUDIO_FRAMES, AUDIO_PROMPT = "whisper-medium", 1500, 224
+AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ = 4, 448
+# llava-next-mistral-7b at full width, served: 2,880 prefix embeddings
+# (LLaVA-NeXT's AnyRes worst case, 5 x 576 patches) + 2,048 text tokens,
+# window 4,096; trained at every published width with its depth cut to
+# VLM_TRAIN_LAYERS of 32 (with f32 Adam moments the whole model needs
+# ~87 GB), batch 2.
+VLM_ARCH, VLM_PREFIX, VLM_WINDOW = "llava-next-mistral-7b", 2880, 4096
+VLM_TRAIN_LAYERS = 4
 
 
-def _flash_pairs(S: int, causal: bool, window: int | None) -> int:
-    """(q, k) pairs that the masks leave, over positions 0..S-1."""
+def _flash_pairs(S: int, causal: bool, window: int | None,
+                 Sk: int | None = None) -> int:
+    """(q, k) pairs that the masks leave, queries at 0..S-1 and keys at
+    0..Sk-1 (Sk = S unless given: cross-attention, with no mask)."""
+    if Sk is not None and Sk != S:
+        return S * Sk
     q = np.arange(S)
     lo = np.maximum(0, q - window + 1) if window else np.zeros(S, np.int64)
     hi = q + 1 if causal else np.full(S, S)
@@ -1759,39 +1808,41 @@ def check_flash(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
                 dtype: str, causal: bool = True, window: int | None = None,
                 softcap: float | None = None,
                 sdpa_without_softcap: bool = False,
-                Dv: int | None = None) -> dict:
+                Dv: int | None = None, Sk: int | None = None) -> dict:
     """The forward kernel against its plain version, values of head dim
-    Dv (D unless given: MLA's is below D); the yardstick is
+    Dv (D unless given: MLA's is below D), keys of length Sk (S unless
+    given: cross-attention's, non-causal); the yardstick is
     scaled_dot_product_attention where it computes the same masks (with
     `sdpa_without_softcap`, a softcapped case is timed against SDPA with
     no softcap, which it does not take: `library_note` says so), and the
     backend it picked."""
-    Dv = Dv or D
+    Dv, Sk = Dv or D, Sk or S
     dt = getattr(torch, dtype)
-    g = torch.Generator(device=dev).manual_seed(B * H * S + D)
+    g = torch.Generator(device=dev).manual_seed(B * H * S + D + Sk - S)
     q = torch.randn((B, H, S, D), generator=g, device=dev).to(dt)
-    k = torch.randn((B, KV, S, D), generator=g, device=dev).to(dt)
-    v = torch.randn((B, KV, S, Dv), generator=g, device=dev).to(dt)
+    k = torch.randn((B, KV, Sk, D), generator=g, device=dev).to(dt)
+    v = torch.randn((B, KV, Sk, Dv), generator=g, device=dev).to(dt)
     kw = dict(causal=causal, window=window, softcap=softcap)
     got = ops.flash_attention_op(q, k, v, **kw)
     want = ref.flash_attention_ref(q, k, v, **kw)
     torch.cuda.synchronize()
     err = _max_err(got, want, *FLASH_TOL[dtype])
     del got, want
-    pairs = B * H * _flash_pairs(S, causal, window)
-    n_bytes = (B * H * S + B * KV * S) * (D + Dv) * q.element_size()
+    pairs = B * H * _flash_pairs(S, causal, window, Sk)
+    n_bytes = (B * H * S + B * KV * Sk) * (D + Dv) * q.element_size()
     # q.k (2 D flops) and p v (2 Dv) a counted pair.
     b_ms, b_by = bound_ms(n_bytes, 2 * (D + Dv) * pairs,
                           BF16_FLOPS_PER_S if dtype == "bfloat16"
                           else F32_FLOPS_PER_S)
     # One PyTorch call computing the same function (a yardstick only).
     library, backend, note = None, None, None
-    if causal and (softcap is None or sdpa_without_softcap):
-        library, backend, note = _sdpa_call(q, k, v, True, window)
+    if softcap is None or sdpa_without_softcap:
+        library, backend, note = _sdpa_call(q, k, v, causal, window)
         if softcap is not None:
             note = "SDPA without softcap"
     return dict(
-        name="flash_attention", case=case, B=B, H=H, KV=KV, S=S, D=D, Dv=Dv,
+        name="flash_attention", case=case, B=B, H=H, KV=KV, S=S, Sk=Sk, D=D,
+        Dv=Dv,
         dtype=dtype, causal=causal, window=window, softcap=softcap,
         pairs=pairs, max_abs_err=err, rtol=FLASH_TOL[dtype][0],
         atol=FLASH_TOL[dtype][1],
@@ -1921,6 +1972,17 @@ def phase_lm_kernels(dev) -> list[dict]:
     n = LM_FL_CLIENTS * LM_FL_BATCH
     rows.append(check_flash(dev, "mla_tiny", n, 4, 4, 33, 96, "float32",
                             Dv=64))
+    # whisper-medium serving: the encoder's bidirectional 16 heads of 64
+    # over 1,500 frames, and the decoder's cross-attention, 224 prompt
+    # tokens against the 1,500 frames (keys of their own length, no
+    # mask); llava-next-mistral-7b serving: 32 heads on 8 of 128 over
+    # 2,880 prefix + 2,048 text positions, window 4,096.
+    rows.append(check_flash(dev, "whisper_encoder", B, 16, 16, AUDIO_FRAMES,
+                            64, "bfloat16", causal=False))
+    rows.append(check_flash(dev, "whisper_cross", B, 16, 16, AUDIO_PROMPT,
+                            64, "bfloat16", causal=False, Sk=AUDIO_FRAMES))
+    rows.append(check_flash(dev, "llava_serve", B, 32, 8, VLM_PREFIX + S,
+                            128, "bfloat16", window=VLM_WINDOW))
     emit("lm_kernels", rows=rows)
     return rows
 
@@ -1953,10 +2015,14 @@ def phase_serve(dev, arch: str = SERVE_ARCH, name: str = "serve") -> dict:
 def _layer_launches(cfg) -> dict[str, int]:
     """Launches of each LM kernel that one forward (and backward) of `cfg`
     makes: flash_attention (and its backward) per attention layer (attn,
-    moe, hybrid), wkv6 (and its backward) per scan layer (rwkv, hybrid)."""
+    moe, hybrid; an enc-dec model's encoder layers, and its decoder's
+    layers twice: self- and cross-attention), wkv6 (and its backward) per
+    scan layer (rwkv, hybrid)."""
     segs = cfg.resolved_segments
     attn = sum(s.n_layers for s in segs if s.kind in ("attn", "moe",
                                                       "hybrid"))
+    if cfg.encoder is not None:
+        attn = cfg.encoder.n_layers + 2 * attn
     scan = sum(s.n_layers for s in segs if s.kind in ("rwkv", "hybrid"))
     return {"flash_attention": attn, "flash_attention_bwd": attn,
             "wkv6": scan, "wkv6_bwd": scan}
@@ -2013,22 +2079,76 @@ def _serve_main(dev, arch: str) -> dict:
         peak_device_memory_bytes=peak)
 
 
-def _profiled_batch(cfg, params, prompts) -> dict:
-    """One warm `serve.serve_batch` plain (wall), then the same batch
+def _profiled_batch(cfg, params, prompts, stub: dict | None = None) -> dict:
+    """One warm serving batch (`_serve`) plain (wall), then the same batch
     under torch.profiler: device busy time, idle share, time by kernel."""
     from torch.profiler import ProfilerActivity, profile
 
-    serve.serve_batch(cfg, params, prompts, SERVE_NEW)
+    run = lambda: _serve(cfg, params, prompts, SERVE_NEW, stub)
+    run()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    serve.serve_batch(cfg, params, prompts, SERVE_NEW)
+    run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        serve.serve_batch(cfg, params, prompts, SERVE_NEW)
+        run()
         torch.cuda.synchronize()
     return dict(wall_s=wall, **_device_time(prof, wall))
+
+
+def _serve(cfg, params, prompts, max_new: int, stub: dict | None = None):
+    """One arrival batch through the package's serving entry points:
+    `serve.serve_batch` (an enc-dec model's frames as `enc=`), or, with
+    prefix embeddings, `init_decode_cache(..., prompt=, prefix_embeds=)`
+    and `make_serve_step` (`serve_batch` keeps the reference's signature,
+    which has no prefix), timed the same way (a `launch.prefill` span and
+    per-step latencies that end in a device sync when traced). Returns
+    (tokens (B, max_new + 1), latencies (s), logits (max_new + 1, B, V))."""
+    stub = stub or {}
+    if "prefix_embeds" not in stub:
+        return serve.serve_batch(cfg, params, prompts, max_new,
+                                 enc=stub.get("enc_embeds"))
+    prefix = stub["prefix_embeds"]
+    B, max_seq = prompts.shape[0], prefix.shape[1] + prompts.shape[1] \
+        + max_new + 8
+    measure = obs.enabled()
+    sync = torch.cuda.synchronize if prompts.is_cuda else (lambda: None)
+    with torch.inference_mode():
+        with obs.span("launch.prefill", batch=B):
+            logits, cache = init_decode_cache(cfg, params, B, max_seq,
+                                              prompt=prompts,
+                                              prefix_embeds=prefix)
+            if measure:
+                sync()
+        step = make_serve_step(cfg)
+        tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+        out, all_logits, lat_s = [tok], [logits], []
+        for _ in range(max_new):
+            t0 = time.perf_counter()
+            tok, logits, cache = step(params, tok, cache)
+            if measure:
+                sync()
+                lat_s.append(time.perf_counter() - t0)
+            out.append(tok)
+            all_logits.append(logits)
+    return torch.cat(out, dim=1), lat_s, torch.stack(all_logits)
+
+
+def _stub_inputs(cfg, B: int, seed: int, device) -> dict:
+    """Seeded random stub-modality inputs for cfg, in its dtype: frame
+    embeddings (B, n_frames, d) for an enc-dec model, prefix embeddings
+    (B, n_prefix_tokens, d) for a VLM, nothing for the others. Drawn on
+    the CPU, so the card and the CPU get the same values."""
+    g = torch.Generator().manual_seed(seed)
+    draw = lambda n: torch.randn((B, n, cfg.d_model), generator=g).to(
+        getattr(torch, cfg.dtype)).to(device)
+    if cfg.encoder is not None:
+        return {"enc_embeds": draw(cfg.encoder.n_frames)}
+    if cfg.n_prefix_tokens:
+        return {"prefix_embeds": draw(cfg.n_prefix_tokens)}
+    return {}
 
 
 def _serve_cut_depth(dev, cfg) -> dict:
@@ -2137,23 +2257,160 @@ def phase_serve_mla(dev) -> dict:
     return out
 
 
+def _serve_full(dev, cfg, prompt_len: int, name: str) -> dict:
+    """A full-width model with a stubbed modality (bf16; random weights,
+    prompts and stub inputs from seeds): SERVE_REQUESTS requests of
+    `prompt_len` tokens in batches of SERVE_BATCH, each with its own
+    frames or prefix embeddings, SERVE_NEW new tokens, through `_serve`
+    after a warm batch, traced, with the launch counters zeroed just
+    before and read just after: per prefill batch the `flash_attention`
+    launches `_layer_launches` counts and no `wkv6`, tokens in range,
+    finite logits. The trace is written with `obs.write_chrome_trace`
+    and read back. Then one batch under torch.profiler, and the decode
+    cache's slots and bytes a request."""
+    n_batches = SERVE_REQUESTS // SERVE_BATCH
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    n_params = count_params(params)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_REQUESTS, prompt_len),
+                            generator=torch.Generator(dev).manual_seed(1),
+                            device=dev)
+    stubs = [_stub_inputs(cfg, SERVE_BATCH, 2 + i, dev)
+             for i in range(n_batches)]
+    _serve(cfg, params, prompts[:SERVE_BATCH], SERVE_NEW, stubs[0])
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                 # this path's counts start here
+    t0 = time.perf_counter()
+    tokens, lat_all = [], []
+    trace_path = os.path.join(ROOT, "build", f"{name}_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    with obs.tracing():
+        for i in range(n_batches):
+            with obs.span("launch.serve_batch", batch=SERVE_BATCH):
+                toks, lat_s, logits = _serve(
+                    cfg, params, prompts[i * SERVE_BATCH:(i + 1) * SERVE_BATCH],
+                    SERVE_NEW, stubs[i])
+            tokens.append(toks)
+            lat_all += lat_s
+            require(bool(torch.isfinite(logits).all()),
+                    f"{name}: logits not finite")
+        summary = obs.metrics_summary()
+        obs.write_chrome_trace(trace_path)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with open(trace_path) as f:
+        trace = json.load(f)
+    n_spans = sum(ev["ph"] == "X" for ev in trace["traceEvents"])
+    per_prefill = _layer_launches(cfg)["flash_attention"]
+    require(launches["flash_attention"] == per_prefill * n_batches
+            and launches["wkv6"] == 0,
+            f"{name}: launched {launches}; expected {per_prefill} "
+            "flash_attention a prefill batch")
+    tokens = torch.cat(tokens)
+    require(tokens.shape == (SERVE_REQUESTS, SERVE_NEW + 1)
+            and bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+            f"{name}: tokens out of range: {tuple(tokens.shape)}")
+    spans = summary["spans"]
+    require(spans["launch.prefill"]["count"] == n_batches
+            and n_spans == sum(v["count"] for v in spans.values()),
+            f"{name}: the trace's {n_spans} spans do not match the tracer's "
+            f"{spans}")
+    profiled = _profiled_batch(cfg, params, prompts[:SERVE_BATCH], stubs[0])
+    # The decode cache of one request: self-attention slots (the window
+    # where it is shorter than the sequence), and an enc-dec model's
+    # cross K/V over its frames.
+    max_seq = (cfg.n_prefix_tokens + prompt_len + SERVE_NEW + 8)
+    _, cache = init_decode_cache(cfg, params, 1, max_seq, **{
+        k: v[:1] for k, v in stubs[0].items() if k == "enc_embeds"})
+    cache_slots = cache["segments"][0]["k"].shape[2]
+    cache_bytes = sum(t.nbytes for seg in cache["segments"]
+                      for t in seg.values())
+    del params, cache
+    torch.cuda.empty_cache()
+    return dict(
+        arch=cfg.name, n_layers=cfg.n_layers, params=n_params,
+        dtype=cfg.dtype, requests=SERVE_REQUESTS, batch=SERVE_BATCH,
+        prompt_len=prompt_len, prefix_len=cfg.n_prefix_tokens,
+        frames=cfg.encoder.n_frames if cfg.encoder is not None else 0,
+        max_new=SERVE_NEW, launches=launches,
+        flash_launches_per_prefill=launches["flash_attention"] // n_batches,
+        wall_s=wall, tokens_per_s=SERVE_REQUESTS * SERVE_NEW / wall,
+        prefill_ms_per_batch=spans["launch.prefill"]["total_s"]
+        / n_batches * 1e3,
+        decode_ms_per_batch=(spans["launch.serve_batch"]["total_s"]
+                             - spans["launch.prefill"]["total_s"])
+        / n_batches * 1e3,
+        decode_p50_ms=serve._quantile_ms(lat_all, 0.50),
+        decode_p99_ms=serve._quantile_ms(lat_all, 0.99),
+        peak_device_memory_bytes=peak, setup_s=setup_s,
+        decode_cache_slots=cache_slots,
+        decode_cache_bytes_per_request=cache_bytes,
+        trace_file=os.path.relpath(trace_path, ROOT), trace_spans=n_spans,
+        profiled_batch=profiled)
+
+
+def phase_serve_audio(dev) -> dict:
+    """whisper-medium at full width (24 encoder + 24 decoder layers, d
+    1024, 16 heads of 64, vocab 51,865, sinusoidal positions, tied
+    embeddings; 757,877,760 params, the reference's `eval_shape` count):
+    8 requests of 1,500 random frames (30 s of audio) and a 224-token
+    prompt, 32 new tokens, served as `_serve_full` says: the encoder once
+    a batch, prefill caching each decoder layer's cross K/V, 72
+    `flash_attention` launches a prefill (24 encoder, 24 self, 24 cross
+    at 224 queries against 1,500 keys)."""
+    out = _serve_full(dev, get_config(AUDIO_ARCH), AUDIO_PROMPT,
+                      "serve_audio")
+    require(out["params"] == 757_877_760,
+            f"serve_audio: {out['params']} params; the reference counts "
+            "757,877,760")
+    emit("serve_audio", **out)
+    return out
+
+
+def phase_serve_vlm(dev) -> dict:
+    """llava-next-mistral-7b at full width (32 layers, d 4096, 32 heads on
+    8 KV heads of 128, d_ff 14,336, window 4,096, vocab 32,000;
+    7,241,732,096 params, 14.5 GB in bf16): 8 requests of 2,880 random
+    prefix embeddings (the stubbed vision tower) and 2,048 text tokens,
+    32 new tokens, served as `_serve_full` says: the 4,928-position
+    prefill passes the window, so each layer's 4,096-slot cache keeps
+    the last 4,096 positions ring-aligned; 32 `flash_attention` launches
+    a prefill."""
+    out = _serve_full(dev, get_config(VLM_ARCH), SERVE_PROMPT, "serve_vlm")
+    require(out["params"] == 7_241_732_096 and out["decode_cache_slots"]
+            == VLM_WINDOW, f"serve_vlm: {out['params']} params, "
+            f"{out['decode_cache_slots']} cache slots; expected "
+            f"7,241,732,096 and {VLM_WINDOW}")
+    emit("serve_vlm", **out)
+    return out
+
+
 def _reduced_cfgs() -> dict:
     """The reduced configs (f32) that the card is held to the CPU on:
-    hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1 and deepseek-v3 (cut as
+    hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1, whisper-medium (64 frames),
+    llava-next-mistral-7b (16 prefix embeddings) and deepseek-v3 (cut as
     lm_moe_tiny: MLA, a MoE layer, the MTP head)."""
     cfgs = {arch: get_config(arch).reduced()
-            for arch in (SERVE_ARCH, "gemma-2b", RWKV_ARCH, MOE_ARCH)}
+            for arch in (SERVE_ARCH, "gemma-2b", RWKV_ARCH, MOE_ARCH,
+                         AUDIO_ARCH, VLM_ARCH)}
     cfgs[MLA_ARCH] = get_config(MLA_ARCH).reduced(**MLA_TINY)
     return cfgs
 
 
 def phase_serve_cpu_vs_card(dev) -> dict:
-    """Reduced hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1 and deepseek-v3
-    (f32) from the same weights through `serve.serve_batch` on the CPU and
-    the card: prefill of a 160-token prompt (the reduced 128-token window
-    rolls; grok-1's and deepseek-v3's routed experts dispatch
-    row-locally), then 8 greedy decode steps (grok-1's: one global
-    dispatch; deepseek-v3's MLA in the absorbed form)."""
+    """Reduced hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1, whisper-medium,
+    llava-next-mistral-7b and deepseek-v3 (f32) from the same weights
+    through `_serve` on the CPU and the card: prefill of a 160-token
+    prompt (the reduced 128-token window rolls; grok-1's and
+    deepseek-v3's routed experts dispatch row-locally; whisper's 64 and
+    llava's 16 seeded random frame and prefix embeddings), then 8 greedy
+    decode steps (grok-1's: one global dispatch; deepseek-v3's MLA in the
+    absorbed form; whisper's against the cached cross K/V)."""
     out = {}
     for arch, cfg in _reduced_cfgs().items():
         cpu_params = init_params(cfg, torch.Generator().manual_seed(0),
@@ -2163,8 +2420,9 @@ def phase_serve_cpu_vs_card(dev) -> dict:
                                 generator=torch.Generator().manual_seed(1))
         runs = {}
         for where, params in (("cpu", cpu_params), ("card", card_params)):
-            toks, _, logits = serve.serve_batch(
-                cfg, params, prompts.to(params["embed"].device), 8)
+            at = params["embed"].device
+            toks, _, logits = _serve(cfg, params, prompts.to(at), 8,
+                                     _stub_inputs(cfg, 2, 2, at))
             runs[where] = (toks.cpu(), logits.cpu())
         same = bool(torch.equal(runs["card"][0], runs["cpu"][0]))
         gap = float((runs["card"][1] - runs["cpu"][1]).abs().max())
@@ -2203,25 +2461,27 @@ LM_FL_CLIENTS, LM_FL_BATCH, LM_FL_ROUNDS = 4, 32, 3
 LM_FL_HORIZON_S = 2 * 86400.0
 
 
-def _flash_bwd_inputs(dev, B, H, KV, S, D, Dv, dtype):
-    g = torch.Generator(device=dev).manual_seed(B * H * S + D + 1)
+def _flash_bwd_inputs(dev, B, H, KV, S, D, Dv, dtype, Sk):
+    g = torch.Generator(device=dev).manual_seed(B * H * S + D + 1 + Sk - S)
     dt = getattr(torch, dtype)
     q = torch.randn((B, H, S, D), generator=g, device=dev).to(dt)
     do = torch.randn((B, H, S, Dv), generator=g, device=dev).to(dt)
-    k = torch.randn((B, KV, S, D), generator=g, device=dev).to(dt)
-    v = torch.randn((B, KV, S, Dv), generator=g, device=dev).to(dt)
+    k = torch.randn((B, KV, Sk, D), generator=g, device=dev).to(dt)
+    v = torch.randn((B, KV, Sk, Dv), generator=g, device=dev).to(dt)
     return q, k, v, do
 
 
 def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
                     dtype: str, causal: bool = True,
-                    window: int | None = None, Dv: int | None = None) -> dict:
+                    window: int | None = None, Dv: int | None = None,
+                    Sk: int | None = None) -> dict:
     """flash_attention_bwd against its plain backward, both given the
-    plain forward's lse, values of head dim Dv (D unless given); the
-    yardstick is the backward of scaled_dot_product_attention
-    (`_sdpa_call`), its forward run once outside the timing."""
-    Dv = Dv or D
-    q, k, v, do = _flash_bwd_inputs(dev, B, H, KV, S, D, Dv, dtype)
+    plain forward's lse, values of head dim Dv (D unless given), keys of
+    length Sk (S unless given); the yardstick is the backward of
+    scaled_dot_product_attention (`_sdpa_call`), its forward run once
+    outside the timing."""
+    Dv, Sk = Dv or D, Sk or S
+    q, k, v, do = _flash_bwd_inputs(dev, B, H, KV, S, D, Dv, dtype, Sk)
     kw = dict(causal=causal, window=window)
     o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
     got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
@@ -2231,9 +2491,9 @@ def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
     err = max(_max_err(a, w, *BWD_TOL[dtype]) for a, w in zip(got, want))
     require(all(torch.equal(a, b) for a, b in zip(got, again)),
             f"flash_attention_bwd {case}: two launches differ")
-    pairs = B * H * _flash_pairs(S, causal, window)
+    pairs = B * H * _flash_pairs(S, causal, window, Sk)
     # q, k, dq, dk of D columns; v, o, dO, dv of Dv; lse.
-    n_bytes = (2 * (B * H * S + B * KV * S) * (D + Dv) * q.element_size()
+    n_bytes = (2 * (B * H * S + B * KV * Sk) * (D + Dv) * q.element_size()
                + B * H * S * 4)
     # Q K^T, dS K, dS^T Q over D; dO V^T, P^T dO over Dv.
     b_ms, b_by = bound_ms(n_bytes, 2 * (3 * D + 2 * Dv) * pairs,
@@ -2246,8 +2506,8 @@ def check_flash_bwd(dev, case: str, B: int, H: int, KV: int, S: int, D: int,
     library = lambda: torch.autograd.grad(lib_o, leaves, lib_do,
                                           retain_graph=True)
     return dict(
-        name="flash_attention_bwd", case=case, B=B, H=H, KV=KV, S=S, D=D,
-        Dv=Dv, dtype=dtype, causal=causal, window=window, pairs=pairs,
+        name="flash_attention_bwd", case=case, B=B, H=H, KV=KV, S=S, Sk=Sk,
+        D=D, Dv=Dv, dtype=dtype, causal=causal, window=window, pairs=pairs,
         max_abs_err=err, rtol=BWD_TOL[dtype][0], atol=BWD_TOL[dtype][1],
         deterministic=True, library_backend=backend, library_note=note,
         ms=device_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw)),
@@ -2403,47 +2663,90 @@ def phase_lm_train_kernels(dev) -> list[dict]:
         # deepseek-v3's heads (192, 128) at a short length.
         check_flash_bwd(dev, "mla_tiny", n, 4, 4, 33, 96, "float32", Dv=64),
         check_flash_bwd(dev, "mla_d192", 1, 4, 4, 256, MLA_D, "float32",
-                        Dv=MLA_DV)]
+                        Dv=MLA_DV),
+        # whisper-medium training (batch 4 x 448 text tokens, 1,500
+        # frames): the encoder's backward and the cross-attention's.
+        check_flash_bwd(dev, "whisper_encoder", AUDIO_TRAIN_BATCH, 16, 16,
+                        AUDIO_FRAMES, 64, "bfloat16", causal=False),
+        check_flash_bwd(dev, "whisper_cross", AUDIO_TRAIN_BATCH, 16, 16,
+                        AUDIO_TRAIN_SEQ, 64, "bfloat16", causal=False,
+                        Sk=AUDIO_FRAMES)]
     emit("lm_train_kernels", rows=rows)
     return rows
 
 
-def _token_batch(cfg, seed: int, dev) -> dict:
-    """A batch of the launcher's data (its Markov chains), on `dev`."""
-    toks = synthetic_token_batch(TRAIN_BATCH, TRAIN_SEQ, cfg.vocab_size,
-                                 seed=seed)
-    return {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=dev)}
+def _token_batch(cfg, seed: int, dev, batch: int = TRAIN_BATCH,
+                 seq: int = TRAIN_SEQ) -> dict:
+    """A batch of the launcher's data (its Markov chains and, where the
+    config takes them, its zero frame or prefix embeddings), on `dev`."""
+    toks = synthetic_token_batch(batch, seq, cfg.vocab_size, seed=seed)
+    return {"tokens": torch.as_tensor(toks, dtype=torch.int64, device=dev),
+            **train.stub_embeds(cfg, batch, dev)}
 
 
-def phase_lm_train(dev, arch: str = TRAIN_ARCH) -> dict:
+def _launcher_steps(cfg, dev, batch: int, seq: int) -> dict:
+    """The launcher's loop (`train.main`) for a config it cannot name (a
+    depth cut): TRAIN_STEPS AdamW steps at TRAIN_LR from seeded weights on
+    fresh batches, each in a `launch.train_step` span ending in a device
+    sync. Returns its `train.done` fields."""
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = adam_init(params)
+    step = make_train_step(cfg, lr=TRAIN_LR, remat=False)
+    rng = np.random.default_rng(0)
+    losses, step_s = [], []
+    for i in range(TRAIN_STEPS):
+        data = _token_batch(cfg, int(rng.integers(1 << 30)), dev, batch, seq)
+        t0 = time.perf_counter()
+        with obs.span("launch.train_step", step=i):
+            params, opt, metrics = step(params, opt, data)
+            losses.append(float(metrics["loss"]))
+            torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        obs.count("launch.train_tokens", batch * seq)
+    s_per_step = sum(step_s[1:]) / (TRAIN_STEPS - 1)
+    return dict(losses=losses, s_per_step=s_per_step,
+                tokens_per_s=batch * seq / s_per_step)
+
+
+def phase_lm_train(dev, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
+                   seq: int = TRAIN_SEQ, n_layers: int | None = None,
+                   name: str = "lm_train") -> dict:
     """`repro_torch.launch.train.main` on a full-width `arch` (bf16,
-    random weights from a seed; hymba-1.5b, rwkv6-1.6b) at its default
-    lr, traced, with the launch counters zeroed just before and read just
-    after: one launch of each LM kernel its layers run, and of its
-    backward, a layer a step. Then the same
-    configuration from the same weights on one fixed batch: its initial
-    loss on TRAIN_STEPS other batches (the spread the batch alone gives),
-    TRAIN_STEPS steps (two plain, wall; one under torch.profiler: device
-    busy time, idle share and time by kernel; one plain) and the loss
-    after them, which must fall by more than TRAIN_DROP_SPREADS spreads:
-    the full-width gradient trains the model."""
+    random weights from a seed; hymba-1.5b, rwkv6-1.6b, whisper-medium
+    with zero frames) at its default lr, or, for a depth cut to
+    `n_layers` (llava-next-mistral-7b: every published width, 4 of 32
+    layers), the launcher's loop (`_launcher_steps`), traced, with the
+    launch counters zeroed just before and read just after: one launch
+    of each LM kernel its layers run, and of its backward, a layer a
+    step. Then the same configuration from the same weights on one fixed
+    batch: its initial loss on TRAIN_STEPS other batches (the spread the
+    batch alone gives), TRAIN_STEPS steps (two plain, wall; one under
+    torch.profiler: device busy time, idle share and time by kernel; one
+    plain) and the loss after them, which must fall by more than
+    TRAIN_DROP_SPREADS spreads: the full-width gradient trains the
+    model. Tokens are text tokens (`batch` x `seq`)."""
     from torch.profiler import ProfilerActivity, profile
 
+    cfg = get_config(arch)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()                 # the training path's counts
     t0 = time.perf_counter()
     with obs.tracing():
-        done = train.main([
-            "--arch", arch, "--full-config", "--device", "cuda",
-            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
-            "--steps", str(TRAIN_STEPS)])
+        if n_layers is None:
+            done = train.main([
+                "--arch", arch, "--full-config", "--device", "cuda",
+                "--batch", str(batch), "--seq", str(seq),
+                "--steps", str(TRAIN_STEPS)])
+        else:
+            done = _launcher_steps(cfg, dev, batch, seq)
         summary = obs.metrics_summary()
     torch.cuda.synchronize()
     main_wall = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    cfg = get_config(arch)
     want = {k: n * TRAIN_STEPS for k, n in _layer_launches(cfg).items()}
     require(all(launches[k] == n for k, n in want.items()),
             f"train {arch} launched {launches}; expected {want}")
@@ -2453,19 +2756,18 @@ def phase_lm_train(dev, arch: str = TRAIN_ARCH) -> dict:
             f"train losses not finite: {losses}")
     counters = summary["counters"]
     require(counters.get("launch.train_tokens")
-            == TRAIN_STEPS * TRAIN_BATCH * TRAIN_SEQ,
+            == TRAIN_STEPS * batch * seq,
             f"train counters: {counters}")
     spans = summary["spans"]["launch.train_step"]
 
     params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
     with torch.no_grad():
-        spread_losses = [float(lm_loss(cfg, params, _token_batch(cfg, s,
-                                                                 dev))[0])
-                         for s in range(1, TRAIN_STEPS + 1)]
+        spread_losses = [float(lm_loss(cfg, params, _token_batch(
+            cfg, s, dev, batch, seq))[0]) for s in range(1, TRAIN_STEPS + 1)]
     spread = max(spread_losses) - min(spread_losses)
     opt = adam_init(params)
     train_step = make_train_step(cfg, lr=TRAIN_LR, remat=False)
-    fixed = _token_batch(cfg, 0, dev)
+    fixed = _token_batch(cfg, 0, dev, batch, seq)
     fixed_losses, walls = [], []
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
@@ -2494,7 +2796,9 @@ def phase_lm_train(dev, arch: str = TRAIN_ARCH) -> dict:
     del params, opt
     torch.cuda.empty_cache()
     out = dict(
-        arch=arch, dtype=cfg.dtype, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        arch=arch, n_layers=cfg.n_layers, dtype=cfg.dtype, batch=batch,
+        seq=seq, prefix_len=cfg.n_prefix_tokens,
+        frames=cfg.encoder.n_frames if cfg.encoder is not None else 0,
         steps=TRAIN_STEPS, lr=TRAIN_LR, losses=losses,
         launches=launches, main_wall_s=main_wall,
         s_per_step=done["s_per_step"], tokens_per_s=done["tokens_per_s"],
@@ -2503,7 +2807,7 @@ def phase_lm_train(dev, arch: str = TRAIN_ARCH) -> dict:
         initial_loss_by_batch=spread_losses, initial_loss_spread=spread,
         fixed_batch_losses=fixed_losses, fixed_batch_drop=drop,
         plain_step_walls_s=walls, profiled_step=profiled)
-    emit("lm_train", **out)
+    emit(name, **out)
     return out
 
 
@@ -2563,10 +2867,10 @@ def phase_lm_fl(dev) -> dict:
     return out
 
 
-def _grads_of(cfg, params, toks):
+def _grads_of(cfg, params, toks, stub: dict):
     leaves = []
     map_tree(lambda p: leaves.append(p.requires_grad_(True)), params)
-    loss, _ = lm_loss(cfg, params, {"tokens": toks})
+    loss, _ = lm_loss(cfg, params, {"tokens": toks, **stub})
     grads = torch.autograd.grad(loss, leaves)
     return float(loss.detach()), [g.detach().cpu() for g in grads]
 
@@ -2575,10 +2879,12 @@ def phase_lm_cpu_vs_card(dev) -> dict:
     """lm_tiny and lm_moe_tiny fedprox on the card and on the CPU from the
     same init and draws (made on the CPU): identical RoundRecords, final
     params within 1e-4; one training step (loss and every gradient leaf)
-    of reduced hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1 and deepseek-v3
-    from the same weights and tokens, within 1e-4 (of each leaf's largest
-    gradient where that passes 1: rwkv6's embedding gradient reaches
-    ~8.5, since its 0.02-scale rows are RMS-normed)."""
+    of reduced hymba-1.5b, gemma-2b, rwkv6-1.6b, grok-1, whisper-medium
+    (seeded random frames), llava-next-mistral-7b (seeded random prefix
+    embeddings) and deepseek-v3 from the same weights and tokens, within
+    1e-4 (of each leaf's largest gradient where that passes 1: rwkv6's
+    embedding gradient reaches ~8.5, since its 0.02-scale rows are
+    RMS-normed)."""
     cst, st = WalkerStar(2, 2), station_subnetwork(1)
     aw = compute_access_windows(cst, st, horizon_s=LM_FL_HORIZON_S,
                                 device="cpu")
@@ -2614,8 +2920,10 @@ def phase_lm_cpu_vs_card(dev) -> dict:
         card_params = lm_params_from_jax(lm_params_to_numpy(cpu_params), dev)
         toks = torch.randint(0, mcfg.vocab_size, (2, 65),
                              generator=torch.Generator().manual_seed(1))
-        loss_cpu, g_cpu = _grads_of(mcfg, cpu_params, toks)
-        loss_card, g_card = _grads_of(mcfg, card_params, toks.to(dev))
+        loss_cpu, g_cpu = _grads_of(mcfg, cpu_params, toks,
+                                    _stub_inputs(mcfg, 2, 3, "cpu"))
+        loss_card, g_card = _grads_of(mcfg, card_params, toks.to(dev),
+                                      _stub_inputs(mcfg, 2, 3, dev))
         grad_gap = max(float((a - b).abs().max())
                        for a, b in zip(g_card, g_cpu))
         # Each leaf's gap over max(1, its largest gradient).
@@ -2665,9 +2973,15 @@ def main() -> int:
                   serve_rwkv=LaunchShapes("wkv6"),
                   serve_moe=LaunchShapes("flash_attention"),
                   serve_mla=LaunchShapes("flash_attention"),
+                  serve_audio=LaunchShapes("flash_attention"),
+                  serve_vlm=LaunchShapes("flash_attention"),
                   lm_fl=LaunchShapes(*sim, *LM_KERNELS),
                   lm_train=LaunchShapes(*LM_KERNELS),
-                  lm_train_rwkv=LaunchShapes("wkv6", "wkv6_bwd"))
+                  lm_train_rwkv=LaunchShapes("wkv6", "wkv6_bwd"),
+                  lm_train_audio=LaunchShapes("flash_attention",
+                                              "flash_attention_bwd"),
+                  lm_train_vlm=LaunchShapes("flash_attention",
+                                            "flash_attention_bwd"))
     with shapes["main_path"]:
         main_path = timed("main_path", phase_main_path, dev, setup)
     timed("where_time_goes", phase_where_time_goes, dev, setup)
@@ -2692,12 +3006,25 @@ def main() -> int:
         served_moe = timed("serve_moe", phase_serve_moe, dev)
     with shapes["serve_mla"]:
         served_mla = timed("serve_mla", phase_serve_mla, dev)
+    with shapes["serve_audio"]:
+        served_audio = timed("serve_audio", phase_serve_audio, dev)
+    with shapes["serve_vlm"]:
+        served_vlm = timed("serve_vlm", phase_serve_vlm, dev)
     timed("serve_cpu_vs_card", phase_serve_cpu_vs_card, dev)
     train_rows = timed("lm_train_kernels", phase_lm_train_kernels, dev)
     with shapes["lm_train"]:
         trained = timed("lm_train", phase_lm_train, dev)
     with shapes["lm_train_rwkv"]:
-        trained_rwkv = timed("lm_train_rwkv", phase_lm_train, dev, RWKV_ARCH)
+        trained_rwkv = timed("lm_train_rwkv", phase_lm_train, dev, RWKV_ARCH,
+                             TRAIN_BATCH, TRAIN_SEQ, None, "lm_train_rwkv")
+    with shapes["lm_train_audio"]:
+        trained_audio = timed("lm_train_audio", phase_lm_train, dev,
+                              AUDIO_ARCH, AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ,
+                              None, "lm_train_audio")
+    with shapes["lm_train_vlm"]:
+        trained_vlm = timed("lm_train_vlm", phase_lm_train, dev, VLM_ARCH,
+                            TRAIN_BATCH, TRAIN_SEQ, VLM_TRAIN_LAYERS,
+                            "lm_train_vlm")
     timed("path_shapes", phase_path_shapes, dev, shapes)
     timed("lm_cpu_vs_card", phase_lm_cpu_vs_card, dev)
 
@@ -2716,29 +3043,40 @@ def main() -> int:
     wkv_bwd = _pick(train_rows, name="wkv6_bwd", case="train")
     fl_total = {k: sum(run["launches"].get(k, 0) for run in lm_fl.values())
                 for k in ops.LAUNCHES}
-    # The serving paths (hymba-1.5b, rwkv6-1.6b, grok-1, deepseek-v3) and
-    # the training paths (hymba-1.5b, rwkv6-1.6b), each counted from 0.
-    serve_total = {k: sum(run["launches"][k] for run in (
-        served, served_rwkv, served_moe, served_mla)) for k in ops.LAUNCHES}
-    train_total = {k: trained["launches"][k] + trained_rwkv["launches"][k]
+    # The serving paths (hymba-1.5b, rwkv6-1.6b, grok-1, deepseek-v3,
+    # whisper-medium, llava) and the training paths (hymba-1.5b,
+    # rwkv6-1.6b, whisper-medium, llava), each counted from 0.
+    serve_runs = dict(serve=served, serve_rwkv=served_rwkv,
+                      serve_moe=served_moe, serve_mla=served_mla,
+                      serve_audio=served_audio, serve_vlm=served_vlm)
+    train_runs = dict(lm_train=trained, lm_train_rwkv=trained_rwkv,
+                      lm_train_audio=trained_audio, lm_train_vlm=trained_vlm)
+    serve_total = {k: sum(run["launches"][k] for run in serve_runs.values())
+                   for k in ops.LAUNCHES}
+    train_total = {k: sum(run["launches"][k] for run in train_runs.values())
                    for k in ops.LAUNCHES}
     # Each kernel's rows at the new paths' shapes (rwkv6's time mix through
     # the fixed and the generic build, grok-1's softcapped D = 128 heads,
-    # MLA's (D, Dv) = (192, 128) serving and lm_moe_tiny's (96, 64)).
+    # MLA's (D, Dv) = (192, 128) serving and lm_moe_tiny's (96, 64),
+    # whisper's encoder and its cross-attention's keys of their own
+    # length, llava's 4,928 positions in a 4,096 window).
     other = {"wkv6": [_pick(lm_rows, name="wkv6", case=c)
                       for c in ("rwkv_serve", "rwkv_serve_generic")],
              "flash_attention": [_pick(lm_rows, name="flash_attention",
                                        case=c)
                                  for c in ("grok_serve", "mla_serve",
-                                           "mla_tiny")],
+                                           "mla_tiny", "whisper_encoder",
+                                           "whisper_cross", "llava_serve")],
              "flash_attention_bwd": [_pick(train_rows,
                                            name="flash_attention_bwd", case=c)
-                                     for c in ("mla_tiny", "mla_d192")],
+                                     for c in ("mla_tiny", "mla_d192",
+                                               "whisper_encoder",
+                                               "whisper_cross")],
              "wkv6_bwd": [_pick(train_rows, name="wkv6_bwd",
                                 case="rwkv6_train")]}
-    row_keys = ("case", "build", "D", "Dv", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms", "library_backend",
-                "library_note")
+    row_keys = ("case", "build", "S", "Sk", "D", "Dv", "max_abs_err", "ms",
+                "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "library_backend", "library_note")
     kernels = []
     for row, source, replaces, launches in (
             (prox, "src/repro_torch/csrc/prox_sgd.cu",
@@ -2769,13 +3107,9 @@ def main() -> int:
             comms_path_launches=comms["launches"].get(row["name"], 0),
             batched_sweep_launches=sweep["train"]["femnist_cnn"][
                 "launches"].get(row["name"], 0),
-            lm_train_launches=trained["launches"].get(row["name"], 0),
             lm_fl_launches=fl_total.get(row["name"], 0),
-            serve_launches=served["launches"][row["name"]],
-            serve_rwkv_launches=served_rwkv["launches"][row["name"]],
-            serve_moe_launches=served_moe["launches"][row["name"]],
-            serve_mla_launches=served_mla["launches"][row["name"]],
-            lm_train_rwkv_launches=trained_rwkv["launches"][row["name"]],
+            **{f"{path}_launches": run["launches"][row["name"]]
+               for path, run in (serve_runs | train_runs).items()},
             other_shapes=[{k: r.get(k) for k in row_keys}
                           for r in other.get(row["name"], [])]))
     emit("done", wall_s=time.perf_counter() - t_start, phases_s=phases_s)

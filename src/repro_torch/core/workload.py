@@ -238,11 +238,12 @@ def lm_workload(cfg, *, name: str | None = None, seq_len: int = 32,
     count comes from the real parameter tree and prices the wire. The
     client stack trains as one (C, P) float32 buffer, so the config's
     dtype must be float32 (both LM workloads' is)."""
-    from repro_torch.models.lm.transformer import _check_supported, \
-        init_params
+    from repro_torch.models.lm.transformer import init_params
     from repro_torch.train.step import client_lm_losses
 
-    _check_supported(cfg)
+    if cfg.encoder is not None:
+        raise ValueError(f"lm_workload({cfg.name}): an enc-dec model needs "
+                         "frame embeddings, which token shards do not carry")
     if cfg.dtype != "float32":
         raise ValueError(f"lm_workload({cfg.name}): the client stack is one "
                          f"float32 buffer; config dtype is {cfg.dtype}")

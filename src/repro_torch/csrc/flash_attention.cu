@@ -1,9 +1,16 @@
-// flash_attention — online-softmax GQA attention over positions 0..S-1,
-// with causal, sliding-window and tanh-softcap masks.
+// flash_attention — online-softmax GQA attention of S queries at
+// positions 0..S-1 against Sk keys at positions 0..Sk-1, with causal,
+// sliding-window and tanh-softcap masks.
 //
 //   o[b,h,q] = sum_k softmax_k(s[q,k]) v[b,h/rep,k],
 //   s[q,k]   = softcap(q.k / sqrt(D)),  pair counted if k <= q (causal)
 //              and q - k < window
+//
+// Sk = S for self-attention. Cross-attention (whisper's decoder against
+// its encoder's F = 1,500 frames) gives keys of their own length, with
+// no mask (the wrapper refuses a causal or windowed call at Sk != S): the
+// key loop, the tile skip and the key tail mask are bounded by Sk, the
+// query rows, the output and lse by S.
 //
 // q and k have head dim D (DQK below), v and o head dim Dv (DV). The two
 // are equal for GQA; MLA (deepseek-v3) attends with keys of nope + rope
@@ -32,7 +39,7 @@
 // threads) owns 64 query rows. Q is staged once in shared memory; K and V
 // come in tiles of 64 keys through a ring of two shared-memory stages (K
 // at DQK, V at DV columns: 105 KB in all at (192, 128)),
-// loaded with 16-byte `cp.async` copies (zero-filled past S) while the
+// loaded with 16-byte `cp.async` copies (zero-filled past Sk) while the
 // products of the previous tile run. Every tile is stored as 64-column
 // blocks of 64 rows x 128 bytes in the 128-byte swizzle that the `wgmma`
 // descriptors name (16-byte chunk c of row r at chunk c ^ (r % 8)).
@@ -40,7 +47,7 @@
 // k-steps (bf16 in, f32 accumulate: exact products, as the f32
 // reference). Scale, softcap and
 // masks are applied on the accumulator fragment; mask arithmetic runs
-// only on tiles that straddle the diagonal, the window edge or S. A
+// only on tiles that straddle the diagonal, the window edge or Sk. A
 // thread holds two rows' fragments, and the row max and sum reduce over
 // the four lanes of a quad. O += P V is `wgmma` with P taken from
 // registers as bf16 (the S fragment is already the A operand's layout)
@@ -76,8 +83,10 @@
 // at the bf16 tensor-core rate, against 0.019 ms to move q, k, v and o.
 // At deepseek-v3's MLA serving shape (B=4, H=KV=128, S=2048, full causal,
 // (192, 128), bf16) the 1.074e9 pairs need 640 flops each, 0.695 ms at
-// 989 TFLOP/s, against 0.40 ms to move q, k, v and o (1.34 GB). The bf16
-// kernel issues its products on the tensor cores; the f32 kernel is
+// 989 TFLOP/s, against 0.40 ms to move q, k, v and o (1.34 GB). Whisper's
+// cross-attention (B=4, H=KV=16, S=224 queries against Sk=1500 keys, D=64,
+// bf16) is bound by bytes instead: 28 MB of q, k, v and o, 0.008 ms,
+// against 5.5 GFLOP (0.006 ms). The bf16 kernel issues its products on the tensor cores; the f32 kernel is
 // bounded in practice by the shared-memory loads that feed its FMAs.
 
 #include <cuda_bf16.h>
@@ -129,8 +138,9 @@ template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so, int rep,
-                 int S, float scale, int causal, int window, float softcap) {
+                 float* __restrict__ lse, Strides3 sq, Strides3 sk,
+                 Strides3 sv, Strides3 so, int rep, int S, int Sk,
+                 float scale, int causal, int window, float softcap) {
   static_assert(DQK % 4 == 0 && DV % 32 == 0, "float4 q.k, 32-lane P V");
   constexpr int KS = DQK + 4;           // padded K row stride (floats)
   constexpr int NC = DV / 32;           // output columns per lane
@@ -153,7 +163,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   // The keys any row of this block can reach: [k_begin, k_end).
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? min(q_last + 1, Sk) : Sk;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin -= k_begin % kBK;
 
@@ -172,11 +182,11 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     __syncthreads();                    // the last tile is consumed
     for (int i = tid; i < kBK * DQK; i += kThreads) {
       const int j = i / DQK, d = i % DQK, kj = k0 + j;
-      ks[j * KS + d] = kj < S ? kb[kj * sk.s + d] : 0.0f;
+      ks[j * KS + d] = kj < Sk ? kb[kj * sk.s + d] : 0.0f;
     }
     for (int i = tid; i < kBK * DV; i += kThreads) {
       const int j = i / DV, d = i % DV, kj = k0 + j;
-      vs[i] = kj < S ? vb[kj * sv.s + d] : 0.0f;
+      vs[i] = kj < Sk ? vb[kj * sv.s + d] : 0.0f;
     }
     __syncthreads();
 
@@ -207,7 +217,7 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int qi = row0 + r;
       float sc = s[r] * scale;
       if (softcap > 0.0f) sc = softcap * tanhf(sc / softcap);
-      const bool ok = kj < S && (!causal || kj <= qi) &&
+      const bool ok = kj < Sk && (!causal || kj <= qi) &&
                       (window <= 0 || qi - kj < window);
       float mx = ok ? sc : kNegInf;
 #pragma unroll
@@ -288,8 +298,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                   Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so,
-                  int rep, int S, float scale, int causal, int window,
-                  float softcap) {
+                  int rep, int S, int Sk, float scale, int causal,
+                  int window, float softcap) {
   static_assert(DQK % 64 == 0 && DV % 64 == 0, "64-column wgmma blocks");
   constexpr int NB = DV / 64;           // 64-column blocks of the output
   constexpr int kQKBytes = DQK / 64 * kBlockBytes;   // a Q or K tile
@@ -309,14 +319,14 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
   // The keys any row of this block can reach: [k_begin, k_end).
   const int q_last = min(q0 + kBQ, S) - 1;
-  const int k_end = causal ? q_last + 1 : S;
+  const int k_end = causal ? min(q_last + 1, Sk) : Sk;
   int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
   k_begin -= k_begin % kBK;
   const int n_tiles = (k_end - k_begin + kBK - 1) / kBK;
 
   load_tile<DQK, kThreads>(qs, qb, sq.s, q0, S, tid);
-  load_tile<DQK, kThreads>(qs + kQKBytes, kb, sk.s, k_begin, S, tid);
-  load_tile<DV, kThreads>(qs + 2 * kQKBytes, vb, sv.s, k_begin, S, tid);
+  load_tile<DQK, kThreads>(qs + kQKBytes, kb, sk.s, k_begin, Sk, tid);
+  load_tile<DV, kThreads>(qs + 2 * kQKBytes, vb, sv.s, k_begin, Sk, tid);
   cp_async_commit();
 
   // Accumulator fragment of m64nNk16: register 4 i + e of this thread is
@@ -334,8 +344,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int k0 = k_begin + t * kBK;
     if (t + 1 < n_tiles) {              // prefetch the next tile
       const uint32_t nxt = qs + kQKBytes + ((t + 1) & 1) * kStageBytes;
-      load_tile<DQK, kThreads>(nxt, kb, sk.s, k0 + kBK, S, tid);
-      load_tile<DV, kThreads>(nxt + kQKBytes, vb, sv.s, k0 + kBK, S, tid);
+      load_tile<DQK, kThreads>(nxt, kb, sk.s, k0 + kBK, Sk, tid);
+      load_tile<DV, kThreads>(nxt + kQKBytes, vb, sv.s, k0 + kBK, Sk, tid);
       cp_async_commit();
       cp_async_wait<1>();               // this tile (and Q) has landed
     } else {
@@ -357,8 +367,8 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     wgmma_wait_all();
     fence_regs(s);
 
-    // Masks only where the tile meets the diagonal, the window edge or S.
-    const bool edge = k0 + kBK > S || (causal && k0 + kBK - 1 > q0) ||
+    // Masks only where the tile meets the diagonal, the window edge or Sk.
+    const bool edge = k0 + kBK > Sk || (causal && k0 + kBK - 1 > q0) ||
                       (window > 0 && q0 + kBQ - 1 - k0 >= window);
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -369,7 +379,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
         if (softcap > 0.0f) x = softcap * tanhf(x / softcap);
         if (edge) {
           const int qi = row + 8 * (e >> 1), kj = k0 + 8 * i + col + (e & 1);
-          const bool ok = kj < S && (!causal || kj <= qi) &&
+          const bool ok = kj < Sk && (!causal || kj <= qi) &&
                           (window <= 0 || qi - kj < window);
           if (!ok) x = -INFINITY;       // p = 0 whatever the row max
         }
@@ -444,7 +454,7 @@ flash_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 template <int DQK, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
                        float* lse, const Strides3* st, int B, int H, int KV,
-                       int S, float scale, int causal, int window,
+                       int S, int Sk, float scale, int causal, int window,
                        float softcap, int device, cudaStream_t stream) {
   static_assert(f32::kRows == 4, "the P V loop reads 4 rows as one float4");
   static std::atomic<unsigned> configured{0};
@@ -456,7 +466,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
   f32::flash_f32_kernel<DQK, DV><<<grid, f32::kThreads, bytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, st[0], st[1],
-      st[2], st[3], H / KV, S, scale, causal, window, softcap);
+      st[2], st[3], H / KV, S, Sk, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
@@ -465,8 +475,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 template <int DQK, int DV>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* o, float* lse, const Strides3* st, int B, int H,
-                        int KV, int S, float scale, int causal, int window,
-                        float softcap, int device, cudaStream_t stream) {
+                        int KV, int S, int Sk, float scale, int causal,
+                        int window, float softcap, int device,
+                        cudaStream_t stream) {
   static std::atomic<unsigned> configured{0};
   constexpr int bytes = tc::smem_bytes<DQK, DV>();
   const cudaError_t err = set_smem_once(tc::flash_bf16_kernel<DQK, DV>,
@@ -478,15 +489,15 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
       static_cast<__nv_bfloat16*>(o), lse, st[0], st[1], st[2], st[3],
-      H / KV, S, scale, causal, window, softcap);
+      H / KV, S, Sk, scale, causal, window, softcap);
   return cudaGetLastError();
 }
 
 template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, void* o,
            void* lse, const int64_t* strides, int B, int H, int KV, int S,
-           int D, int Dv, float scale, int causal, int window, float softcap,
-           int device, void* stream) {
+           int Sk, int D, int Dv, float scale, int causal, int window,
+           float softcap, int device, void* stream) {
   // Launch on the tensors' device and give the calling thread back its
   // current device, which PyTorch reads for its own defaults.
   int prev = device;
@@ -499,7 +510,7 @@ int launch(const void* q, const void* k, const void* v, void* o,
     st[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   auto run = [&](auto launch_d) {
     return launch_d(q, k, v, o, static_cast<float*>(lse), st, B, H, KV, S,
-                    scale, causal, window, softcap, device, s);
+                    Sk, scale, causal, window, softcap, device, s);
   };
   const auto is = [&](int dqk, int dv) { return D == dqk && Dv == dv; };
   err = cudaErrorInvalidValue;
@@ -524,26 +535,27 @@ int launch(const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // C entry points (bound with ctypes). strides: (b, h, s) of q, k, v, o in
-// elements; D the head dim of q and k, Dv that of v and o; window 0 =
-// none, softcap 0 = none; lse, if not null, a dense (B, H, S) f32 output
-// of each row's log-sum-exp (what the backward kernels read). Return the
-// launch's CUDA error: 0 on success.
+// elements; S the queries' length, Sk the keys' and values'; D the head
+// dim of q and k, Dv that of v and o; window 0 = none, softcap 0 = none;
+// lse, if not null, a dense (B, H, S) f32 output of each row's
+// log-sum-exp (what the backward kernels read). Return the launch's CUDA
+// error: 0 on success.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, void* lse,
                                    const int64_t* strides, int B, int H,
-                                   int KV, int S, int D, int Dv, float scale,
-                                   int causal, int window, float softcap,
-                                   int device, void* stream) {
-  return launch<false>(q, k, v, o, lse, strides, B, H, KV, S, D, Dv, scale,
-                       causal, window, softcap, device, stream);
+                                   int KV, int S, int Sk, int D, int Dv,
+                                   float scale, int causal, int window,
+                                   float softcap, int device, void* stream) {
+  return launch<false>(q, k, v, o, lse, strides, B, H, KV, S, Sk, D, Dv,
+                       scale, causal, window, softcap, device, stream);
 }
 
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, void* lse,
                                     const int64_t* strides, int B, int H,
-                                    int KV, int S, int D, int Dv, float scale,
-                                    int causal, int window, float softcap,
-                                    int device, void* stream) {
-  return launch<true>(q, k, v, o, lse, strides, B, H, KV, S, D, Dv, scale,
-                      causal, window, softcap, device, stream);
+                                    int KV, int S, int Sk, int D, int Dv,
+                                    float scale, int causal, int window,
+                                    float softcap, int device, void* stream) {
+  return launch<true>(q, k, v, o, lse, strides, B, H, KV, S, Sk, D, Dv,
+                      scale, causal, window, softcap, device, stream);
 }

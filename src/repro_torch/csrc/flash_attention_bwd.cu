@@ -1,5 +1,6 @@
 // flash_attention_bwd — the gradient of `flash_attention` (causal /
-// sliding-window / tanh-softcap GQA attention over positions 0..S-1):
+// sliding-window / tanh-softcap GQA attention of S queries against Sk
+// keys, Sk = S but for cross-attention, which has no mask):
 // dQ, dK, dV from Q, K, V, O, dO and the forward's log-sum-exp per row,
 // recomputing the scores (FlashAttention-2 style) instead of storing them.
 //
@@ -21,6 +22,9 @@
 //   dkdv  one block per (64 keys, KV head, batch): loops over the rep
 //         query heads of its KV head and the query tiles that reach its
 //         keys, summing dK and dV.
+// dq's blocks cover the S queries and loop over key tiles bounded by Sk;
+// dkdv's cover the Sk keys and loop over query tiles bounded by S; lse
+// and delta are per query row, (B, H, S).
 // One block owns each output row, so there are no atomics: two runs give
 // the same bits. The masks are the forward's, tile skipping included; a
 // masked pair's p is exactly 0 (never exp of an overflow).
@@ -79,11 +83,11 @@ struct Strides3 {
 };
 
 struct Masks {
-  int S, causal, window;
+  int S, Sk, causal, window;            // S queries, Sk keys
   float scale, softcap;
 
   __device__ __forceinline__ bool ok(int qi, int kj) const {
-    return kj < S && qi < S && (!causal || kj <= qi) &&
+    return kj < Sk && qi < S && (!causal || kj <= qi) &&
            (window <= 0 || qi - kj < window);
   }
   // The softcapped, scaled score, and the factor d score / d (q.k).
@@ -101,7 +105,7 @@ struct Masks {
   template <int TB>
   __device__ __forceinline__ void key_range(int q0, int* kb, int* ke) const {
     const int q_last = min(q0 + TB, S) - 1;
-    *ke = causal ? q_last + 1 : S;
+    *ke = causal ? min(q_last + 1, Sk) : Sk;
     int b = window > 0 ? max(0, q0 - window + 1) : 0;
     *kb = b - b % TB;
   }
@@ -110,13 +114,13 @@ struct Masks {
   __device__ __forceinline__ void query_range(int k0, int* qb, int* qe) const {
     const int b = causal ? k0 : 0;
     *qb = b - b % TB;
-    *qe = window > 0 ? min(S, min(k0 + TB, S) - 1 + window) : S;
+    *qe = window > 0 ? min(S, min(k0 + TB, Sk) - 1 + window) : S;
   }
   // Whether a (TB query rows from q0) x (TB keys from k0) tile has a pair
   // the masks drop: only such tiles run the mask arithmetic.
   template <int TB>
   __device__ __forceinline__ bool edge(int q0, int k0) const {
-    return k0 + TB > S || q0 + TB > S || (causal && k0 + TB - 1 > q0) ||
+    return k0 + TB > Sk || q0 + TB > S || (causal && k0 + TB - 1 > q0) ||
            (window > 0 && q0 + TB - 1 - k0 >= window);
   }
 };
@@ -251,8 +255,8 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int b = blockIdx.z, g = blockIdx.y, k0 = blockIdx.x * kB;
   const int tid = threadIdx.x, kr = tid >> 3, c0 = tid & 7;
-  load_tile<DQK>(ks, k + b * sk.b + g * sk.h, sk.s, k0, mk.S);
-  load_tile<DV>(vs, v + b * sv.b + g * sv.h, sv.s, k0, mk.S);
+  load_tile<DQK>(ks, k + b * sk.b + g * sk.h, sk.s, k0, mk.Sk);
+  load_tile<DV>(vs, v + b * sv.b + g * sv.h, sv.s, k0, mk.Sk);
   float acc_k[NK], acc_v[NV];
 #pragma unroll
   for (int c = 0; c < NK; ++c) acc_k[c] = 0.0f;
@@ -283,7 +287,7 @@ flash_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       }
     }
   }
-  if (k0 + kr < mk.S) {
+  if (k0 + kr < mk.Sk) {
     T* dkr = dk + b * sdk.b + g * sdk.h + (k0 + kr) * sdk.s;
     T* dvr = dv + b * sdv.b + g * sdv.h + (k0 + kr) * sdv.s;
 #pragma unroll
@@ -345,8 +349,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   mk.key_range<kB>(q0, &k_begin, &k_end);
   for (int k0 = k_begin; k0 < k_end; k0 += kB) {
     __syncthreads();
-    load_tile<DQK>(ks, kb, sk.s, k0, mk.S);
-    load_tile<DV>(vs, vb, sv.s, k0, mk.S);
+    load_tile<DQK>(ks, kb, sk.s, k0, mk.Sk);
+    load_tile<DV>(vs, vb, sv.s, k0, mk.Sk);
     __syncthreads();
     probs<DQK, DV>(qs, ks, gs, vs, lse_s, delta_s, q0, k0, mk, ps, dss);
     __syncthreads();
@@ -460,7 +464,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // Grid: x = (batch, head), the rep heads of one KV head neighbours; y =
   // query tile from the last, so the heaviest under a causal mask start
   // first over every head and batch.
-  const int b = blockIdx.x / H, h = blockIdx.x % H, S = mk.S;
+  const int b = blockIdx.x / H, h = blockIdx.x % H, S = mk.S, Sk = mk.Sk;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const bf16* kb = k + b * sk.b + (h / rep) * sk.h;
@@ -471,8 +475,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   load_tile<D, 128>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
   load_tile<D, 128>(gs, dout + b * sd.b + h * sd.h, sd.s, q0, S, tid);
-  load_tile<D, 128>(qs + 2 * kTileBytes, kb, sk.s, k_begin, S, tid);
-  load_tile<D, 128>(qs + 3 * kTileBytes, vb, sv.s, k_begin, S, tid);
+  load_tile<D, 128>(qs + 2 * kTileBytes, kb, sk.s, k_begin, Sk, tid);
+  load_tile<D, 128>(qs + 3 * kTileBytes, vb, sv.s, k_begin, Sk, tid);
   cp_async_commit();
 
   // delta = dO . O of the block's rows, two threads a row (16-byte loads),
@@ -525,8 +529,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = k_begin + t * kBM;
     if (t + 1 < n_tiles) {              // prefetch the next tile
       const uint32_t nxt = qs + (2 + 2 * ((t + 1) % kStages)) * kTileBytes;
-      load_tile<D, 128>(nxt, kb, sk.s, k0 + kBM, S, tid);
-      load_tile<D, 128>(nxt + kTileBytes, vb, sv.s, k0 + kBM, S, tid);
+      load_tile<D, 128>(nxt, kb, sk.s, k0 + kBM, Sk, tid);
+      load_tile<D, 128>(nxt + kTileBytes, vb, sv.s, k0 + kBM, Sk, tid);
       cp_async_commit();
       cp_async_wait<1>();               // this tile (and Q, dO) landed
     } else {
@@ -599,7 +603,7 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // Grid: x = (batch, KV head); y = key tile from the first, so the
   // heaviest under a causal mask start first over every head and batch.
   const int KV = H / rep, b = blockIdx.x / KV;
-  const int g = blockIdx.x % KV, S = mk.S;
+  const int g = blockIdx.x % KV, S = mk.S, Sk = mk.Sk;
   const int k0 = blockIdx.y * kBM;
   const int tid = threadIdx.x, grp = tid >> 7, t128 = tid & 127;
   const int warp = t128 >> 5, lane = tid & 31;
@@ -621,8 +625,8 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     else if (tid < 2 * kBM)
       load_row_stats(delta_s[st], delta + at, q0, S, tid - kBM);
   };
-  load_tile<D, 256>(ks, k + b * sk.b + g * sk.h, sk.s, k0, S, tid);
-  load_tile<D, 256>(vs, v + b * sv.b + g * sv.h, sv.s, k0, S, tid);
+  load_tile<D, 256>(ks, k + b * sk.b + g * sk.h, sk.s, k0, Sk, tid);
+  load_tile<D, 256>(vs, v + b * sv.b + g * sv.h, sv.s, k0, Sk, tid);
   if (n_it > 0) prefetch(0);
   cp_async_commit();
 
@@ -693,10 +697,10 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<0>();                   // K and V, when no query reaches
   if (grp == 0)
     store_rows<NB>(acc, dv + b * sdv.b + g * sdv.h + k0 * sdv.s, sdv.s,
-                   S - k0, warp, lane);
+                   Sk - k0, warp, lane);
   else
     store_rows<NB>(acc, dk + b * sdk.b + g * sdk.h + k0 * sdk.s, sdk.s,
-                   S - k0, warp, lane);
+                   Sk - k0, warp, lane);
 }
 
 }  // namespace tc
@@ -734,17 +738,18 @@ cudaError_t launch_simt(const Args& a, int device, cudaStream_t stream) {
       (err = set_smem_once(flash_bwd_dq_kernel<DQK, DV, T>, bytes, device,
                            done_q)))
     return err;
-  const int rep = a.H / a.KV, tiles = (a.mk.S + kB - 1) / kB;
+  const int rep = a.H / a.KV, q_tiles = (a.mk.S + kB - 1) / kB;
+  const int k_tiles = (a.mk.Sk + kB - 1) / kB;
   const T *q = static_cast<const T*>(a.q), *k = static_cast<const T*>(a.k),
           *v = static_cast<const T*>(a.v), *o = static_cast<const T*>(a.o),
           *g = static_cast<const T*>(a.dout);
   const Strides3* st = a.st;
-  flash_bwd_dq_kernel<DQK, DV, T><<<dim3(tiles, a.H, a.B), kThreads, bytes,
+  flash_bwd_dq_kernel<DQK, DV, T><<<dim3(q_tiles, a.H, a.B), kThreads, bytes,
                                      stream>>>(
       q, k, v, o, g, a.lse, a.delta, static_cast<T*>(a.dq), st[0], st[1],
       st[2], st[3], st[4], st[5], a.H, rep, a.mk);
   if ((err = cudaGetLastError())) return err;
-  flash_bwd_dkdv_kernel<DQK, DV, T><<<dim3(tiles, a.KV, a.B), kThreads,
+  flash_bwd_dkdv_kernel<DQK, DV, T><<<dim3(k_tiles, a.KV, a.B), kThreads,
                                        bytes, stream>>>(
       q, k, v, g, a.lse, a.delta, static_cast<T*>(a.dk),
       static_cast<T*>(a.dv), st[0], st[1], st[2], st[4], st[6], st[7], a.H,
@@ -763,18 +768,19 @@ cudaError_t launch_tc(const Args& a, int device, cudaStream_t stream) {
   if ((err = set_smem_once(flash_bwd_dkdv_tc<D>, bytes, device, done_kv)) ||
       (err = set_smem_once(flash_bwd_dq_tc<D>, bytes, device, done_q)))
     return err;
-  const int rep = a.H / a.KV, tiles = (a.mk.S + kBM - 1) / kBM;
+  const int rep = a.H / a.KV, q_tiles = (a.mk.S + kBM - 1) / kBM;
+  const int k_tiles = (a.mk.Sk + kBM - 1) / kBM;
   const bf16 *q = static_cast<const bf16*>(a.q),
              *k = static_cast<const bf16*>(a.k),
              *v = static_cast<const bf16*>(a.v),
              *o = static_cast<const bf16*>(a.o),
              *g = static_cast<const bf16*>(a.dout);
   const Strides3* st = a.st;
-  flash_bwd_dq_tc<D><<<dim3(a.B * a.H, tiles), 128, bytes, stream>>>(
+  flash_bwd_dq_tc<D><<<dim3(a.B * a.H, q_tiles), 128, bytes, stream>>>(
       q, k, v, o, g, a.lse, a.delta, static_cast<bf16*>(a.dq), st[0], st[1],
       st[2], st[3], st[4], st[5], a.H, rep, a.mk);
   if ((err = cudaGetLastError())) return err;
-  flash_bwd_dkdv_tc<D><<<dim3(a.B * a.KV, tiles), 256, bytes, stream>>>(
+  flash_bwd_dkdv_tc<D><<<dim3(a.B * a.KV, k_tiles), 256, bytes, stream>>>(
       q, k, v, g, a.lse, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), st[0], st[1], st[2], st[4], st[6], st[7],
       a.H, rep, a.mk);
@@ -785,15 +791,15 @@ template <bool kBf16>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const void* lse, void* dq, void* dk, void* dv,
            void* delta, const int64_t* strides, int B, int H, int KV, int S,
-           int D, int Dv, float scale, int causal, int window, float softcap,
-           int device, void* stream) {
+           int Sk, int D, int Dv, float scale, int causal, int window,
+           float softcap, int device, void* stream) {
   int prev = device;
   cudaError_t err = cudaGetDevice(&prev);
   if (err == cudaSuccess && prev != device) err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Args a{q, k, v, o, dout, static_cast<const float*>(lse), dq, dk, dv,
          static_cast<float*>(delta), {}, B, H, KV,
-         Masks{S, causal, window, scale, softcap}};
+         Masks{S, Sk, causal, window, scale, softcap}};
   for (int i = 0; i < 8; ++i)
     a.st[i] = Strides3{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -818,7 +824,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 }  // namespace
 
 // C entry points (bound with ctypes). strides: (b, h, s) of q, k, v, o,
-// dO, dQ, dK, dV in elements; lse the forward's dense (B, H, S) f32
+// dO, dQ, dK, dV in elements; S the queries' length, Sk the keys' (k, v,
+// dK, dV); lse the forward's dense (B, H, S) f32
 // log-sum-exp, delta (B, H, S) f32 scratch; window 0 = none, softcap 0 =
 // none; (D, Dv) the head dims of q, k and of v, o, dO: (32, 32), (64,
 // 64), (128, 128), (256, 256), (96, 64) or (192, 128) for f32, and (64,
@@ -826,21 +833,21 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
-    void* delta, const int64_t* strides, int B, int H, int KV, int S, int D,
-    int Dv, float scale, int causal, int window, float softcap, int device,
-    void* stream) {
+    void* delta, const int64_t* strides, int B, int H, int KV, int S, int Sk,
+    int D, int Dv, float scale, int causal, int window, float softcap,
+    int device, void* stream) {
   return launch<false>(q, k, v, o, dout, lse, dq, dk, dv, delta, strides, B,
-                       H, KV, S, D, Dv, scale, causal, window, softcap,
+                       H, KV, S, Sk, D, Dv, scale, causal, window, softcap,
                        device, stream);
 }
 
 extern "C" int flash_attention_bwd_bf16(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,
-    void* delta, const int64_t* strides, int B, int H, int KV, int S, int D,
-    int Dv, float scale, int causal, int window, float softcap, int device,
-    void* stream) {
+    void* delta, const int64_t* strides, int B, int H, int KV, int S, int Sk,
+    int D, int Dv, float scale, int causal, int window, float softcap,
+    int device, void* stream) {
   return launch<true>(q, k, v, o, dout, lse, dq, dk, dv, delta, strides, B,
-                      H, KV, S, D, Dv, scale, causal, window, softcap, device,
-                      stream);
+                      H, KV, S, Sk, D, Dv, scale, causal, window, softcap,
+                      device, stream);
 }

@@ -60,11 +60,11 @@ _SIGNATURES = {
     "fedagg_batched_bf16": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _i32,
                             _vp],
     # q, k, v, o, lse (or null), strides[4][3] (b, h, s of q, k, v, o), B,
-    # H, KV, S, D, Dv, scale, causal, window (0 = none), softcap (0 =
+    # H, KV, S, Sk, D, Dv, scale, causal, window (0 = none), softcap (0 =
     # none), device, stream
-    "flash_attention_f32": [_vp] * 5 + [_i64p] + [_i32] * 6 + [
+    "flash_attention_f32": [_vp] * 5 + [_i64p] + [_i32] * 7 + [
         _f32, _i32, _i32, _f32, _i32, _vp],
-    "flash_attention_bf16": [_vp] * 5 + [_i64p] + [_i32] * 6 + [
+    "flash_attention_bf16": [_vp] * 5 + [_i64p] + [_i32] * 7 + [
         _f32, _i32, _i32, _f32, _i32, _vp],
     # r, k, v, logw, s0, o, s_final, strides[7][4], B, H, T, K, V, chunk,
     # states, flags, device, stream
@@ -73,10 +73,10 @@ _SIGNATURES = {
     "wkv6_generic_f32": [_vp, _vp, _vp, _vp, _vp, _vp, _vp, _i64p, _i32,
                          _i32, _i32, _i32, _i32, _i32, _vp, _vp, _i32, _vp],
     # q, k, v, o, dO, lse, dQ, dK, dV, delta, strides[8][3] (b, h, s), B,
-    # H, KV, S, D, Dv, scale, causal, window, softcap, device, stream
-    "flash_attention_bwd_f32": [_vp] * 10 + [_i64p] + [_i32] * 6 + [
+    # H, KV, S, Sk, D, Dv, scale, causal, window, softcap, device, stream
+    "flash_attention_bwd_f32": [_vp] * 10 + [_i64p] + [_i32] * 7 + [
         _f32, _i32, _i32, _f32, _i32, _vp],
-    "flash_attention_bwd_bf16": [_vp] * 10 + [_i64p] + [_i32] * 6 + [
+    "flash_attention_bwd_bf16": [_vp] * 10 + [_i64p] + [_i32] * 7 + [
         _f32, _i32, _i32, _f32, _i32, _vp],
     # r, k, v, logw, s0, dO, dS_T (or null), dr, dk, dv, dlogw, ds0,
     # states, xfer, flags, strides[7][4], B, H, T, K, V, chunk, device,

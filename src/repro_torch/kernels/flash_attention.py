@@ -1,6 +1,10 @@
 """CUDA kernel wrapper: flash attention (causal / sliding-window /
-softcapped GQA) over positions 0..S-1, with values of head dim Dv, which
-may differ from the queries' and keys' D (MLA).
+softcapped GQA) of S queries at positions 0..S-1 against Sk keys at
+0..Sk-1, with values of head dim Dv, which may differ from the queries'
+and keys' D (MLA). Sk = S but for cross-attention (whisper's decoder
+against its encoder's frames), which takes no mask: a causal or windowed
+call at Sk != S raises, since what such a mask means across two lengths
+is not defined by the reference.
 
 Port of the Pallas TPU kernel `repro.kernels.flash_attention`
 (`flash_attention`, `_flash_kernel`): online-softmax attention with f32
@@ -54,15 +58,15 @@ _BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     softcap: float | None = None, return_lse: bool = False):
-    """Launch the kernel on CUDA tensors. q: (B, H, S, D); k: (B, KV, S,
-    D) and v: (B, KV, S, Dv) with H % KV == 0; one dtype, f32 or bf16;
-    (D, Dv) in HEAD_DIM_PAIRS of that dtype; the scale is D^-1/2. A
-    (q, k) pair counts if `kpos <= qpos` (causal) and `qpos - kpos <
-    window`. Returns (B, H, S, Dv) in q's dtype and memory layout; with
-    `return_lse`, also each row's log-sum-exp, a dense (B, H, S) float32
-    tensor."""
-    B, H, S, D, KV, Dv = _check(q, k, v, HEAD_DIM_PAIRS, window, softcap,
-                                "flash_attention")
+    """Launch the kernel on CUDA tensors. q: (B, H, S, D); k: (B, KV, Sk,
+    D) and v: (B, KV, Sk, Dv) with H % KV == 0 and Sk >= 1 (Sk = S where
+    `causal` or `window` is set); one dtype, f32 or bf16; (D, Dv) in
+    HEAD_DIM_PAIRS of that dtype; the scale is D^-1/2. A (q, k) pair
+    counts if `kpos <= qpos` (causal) and `qpos - kpos < window`. Returns
+    (B, H, S, Dv) in q's dtype and memory layout; with `return_lse`, also
+    each row's log-sum-exp, a dense (B, H, S) float32 tensor."""
+    B, H, S, D, KV, Dv, Sk = _check(q, k, v, HEAD_DIM_PAIRS, causal, window,
+                                    softcap, "flash_attention")
     out = _empty_like(q, Dv)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device) \
         if return_lse else None
@@ -74,7 +78,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         fn = build.entry(_DTYPES[q.dtype])
         build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                        out.data_ptr(), None if lse is None else lse.data_ptr(),
-                       strides, B, H, KV, S, D, Dv, float(D ** -0.5),
+                       strides, B, H, KV, S, Sk, D, Dv, float(D ** -0.5),
                        int(causal), int(window or 0), float(softcap or 0.0),
                        q.device.index, current_stream(q.device.index)),
                     "flash_attention")
@@ -93,9 +97,9 @@ def _empty_like(q: torch.Tensor, width: int) -> torch.Tensor:
     return out.permute(*[order.index(i) for i in range(3)], 3)
 
 
-def _check(q, k, v, pairs, window, softcap, what: str):
+def _check(q, k, v, pairs, causal, window, softcap, what: str):
     """Raise on inputs the kernels do not take; returns (B, H, S, D, KV,
-    Dv)."""
+    Dv, Sk)."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda" or t.device != q.device:
             raise ValueError(f"{what}: {name} must be a CUDA tensor on "
@@ -109,11 +113,14 @@ def _check(q, k, v, pairs, window, softcap, what: str):
         raise TypeError(f"{what}: dtype {q.dtype} not supported (float32 or "
                         "bfloat16)")
     B, H, S, D = q.shape
-    KV, Dv = k.shape[1], v.shape[-1]
-    if k.shape != (B, KV, S, D) or v.shape != (B, KV, S, Dv):
-        raise ValueError(f"{what}: k must be ({B}, KV, {S}, {D}) and v "
-                         f"({B}, KV, {S}, Dv), got {tuple(k.shape)} and "
-                         f"{tuple(v.shape)}")
+    KV, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
+    if k.shape != (B, KV, Sk, D) or v.shape != (B, KV, Sk, Dv) or Sk < 1:
+        raise ValueError(f"{what}: k must be ({B}, KV, Sk, {D}) and v "
+                         f"({B}, KV, Sk, Dv) with Sk >= 1, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    if Sk != S and (causal or window is not None):
+        raise ValueError(f"{what}: keys of their own length ({Sk} against "
+                         f"{S} queries) take no causal or window mask")
     if KV == 0 or H % KV:
         raise ValueError(f"{what}: H = {H} is not a multiple of KV = {KV}")
     if (D, Dv) not in pairs[q.dtype]:
@@ -123,7 +130,7 @@ def _check(q, k, v, pairs, window, softcap, what: str):
         raise ValueError(f"{what}: window must be >= 1, got {window}")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"{what}: softcap must be > 0, got {softcap}")
-    return B, H, S, D, KV, Dv
+    return B, H, S, D, KV, Dv, Sk
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -135,11 +142,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     tensors: q, k, v as for `flash_attention`, o its output, do the
     gradient of o (both (B, H, S, Dv), q's dtype) and lse the forward's
     (`return_lse`; dense (B, H, S) float32). Returns (dq, dk, dv) in the
-    input dtype, each in its input's memory layout. (D, Dv) in
+    input dtype, each in its input's memory layout (dk and dv of the keys'
+    length Sk). (D, Dv) in
     BWD_HEAD_DIM_PAIRS of that dtype: the bf16 backward at Dv != D is not
     written yet and raises."""
-    B, H, S, D, KV, Dv = _check(q, k, v, BWD_HEAD_DIM_PAIRS, window,
-                                softcap, "flash_attention_bwd")
+    B, H, S, D, KV, Dv, Sk = _check(q, k, v, BWD_HEAD_DIM_PAIRS, causal,
+                                    window, softcap, "flash_attention_bwd")
     for name, t in (("o", o), ("do", do)):
         if t.shape != (B, H, S, Dv) or t.dtype != q.dtype \
                 or t.device != q.device or t.stride(-1) != 1:
@@ -151,8 +159,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention_bwd: lse must be a contiguous "
                          f"({B}, {H}, {S}) float32 tensor on {q.device}")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    if q.numel() == 0:
-        return dq, dk, dv
+    if q.numel() == 0:                   # no query reaches a key
+        return dq, dk.zero_(), dv.zero_()
     if q.dtype == torch.bfloat16:
         q, k, v, o, do = (_aligned(t) for t in (q, k, v, o, do))
     # dO . O per row: computed by the dq kernel, read by the dk/dv kernel.
@@ -163,7 +171,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                    do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
                    dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), strides,
-                   B, H, KV, S, D, Dv, float(D ** -0.5), int(causal),
+                   B, H, KV, S, Sk, D, Dv, float(D ** -0.5), int(causal),
                    int(window or 0), float(softcap or 0.0), q.device.index,
                    current_stream(q.device.index)),
                 "flash_attention_bwd")

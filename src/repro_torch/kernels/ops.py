@@ -107,10 +107,12 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        *, causal: bool = True, window: int | None = None,
                        softcap: float | None = None) -> torch.Tensor:
-    """GQA attention over positions 0..S-1: q (B, H, S, D), k (B, KV, S,
-    D), v (B, KV, S, Dv) -> (B, H, S, Dv), Dv = D or MLA's smaller value
-    head dim. The kernel's tiles are fixed, so the reference's `bq`/`bk`
-    have no counterpart. Differentiable."""
+    """GQA attention of queries at positions 0..S-1 against keys at
+    0..Sk-1: q (B, H, S, D), k (B, KV, Sk, D), v (B, KV, Sk, Dv) -> (B,
+    H, S, Dv), Dv = D or MLA's smaller value head dim; Sk = S but for
+    cross-attention, which takes no mask. The kernel's tiles are fixed,
+    so the reference's `bq`/`bk` have no counterpart. Differentiable (dk
+    and dv of the keys' length)."""
     return _FlashAttention.apply(q, k, v, causal, window, softcap)
 
 

@@ -70,12 +70,13 @@ def fedagg_batched_ref(x: torch.Tensor, w: torch.Tensor,
                    scale_of(s)) for s in range(x.shape[0])])
 
 
-def _pair_mask(S: int, causal: bool, window: int | None,
+def _pair_mask(S: int, Sk: int, causal: bool, window: int | None,
                device) -> torch.Tensor:
-    """(S, S) bool: whether query qpos attends to key kpos."""
+    """(S, Sk) bool: whether query qpos (0..S-1) attends to key kpos
+    (0..Sk-1)."""
     qpos = torch.arange(S, device=device)[:, None]
-    kpos = torch.arange(S, device=device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    kpos = torch.arange(Sk, device=device)[None, :]
+    mask = torch.ones((S, Sk), dtype=torch.bool, device=device)
     if causal:
         mask &= qpos >= kpos
     if window is not None:
@@ -95,9 +96,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True, window: int | None = None,
                         softcap: float | None = None,
                         return_lse: bool = False):
-    """q: (B,H,S,D), k: (B,KV,S,D), v: (B,KV,S,Dv) -> (B,H,S,Dv) in
+    """q: (B,H,S,D), k: (B,KV,Sk,D), v: (B,KV,Sk,Dv) -> (B,H,S,Dv) in
     q.dtype (Dv = D, or MLA's value head dim), scaled by D^-1/2. Naive
-    softmax in f32 over positions 0..S-1; query head h reads KV head
+    softmax in f32 of queries at positions 0..S-1 against keys at
+    0..Sk-1 (Sk = S but for cross-attention); query head h reads KV head
     h // (H / KV). A pair counts if `kpos <= qpos` (causal) and
     `qpos - kpos < window`. With `return_lse`, also each row's
     log-sum-exp over its counted pairs, (B,H,S) float32, as the kernel
@@ -109,7 +111,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
-    s = torch.where(_pair_mask(S, causal, window, q.device), s, -1e30)
+    s = torch.where(_pair_mask(S, k.shape[2], causal, window, q.device), s,
+                    -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
     return (o, _row_lse(s)) if return_lse else o
@@ -171,9 +174,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
                             ) -> tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
     """The backward kernel's formulas (`csrc/flash_attention_bwd.cu`), in
-    f32: q (B,H,S,D), k (B,KV,S,D), v (B,KV,S,Dv), o the forward's
+    f32: q (B,H,S,D), k (B,KV,Sk,D), v (B,KV,Sk,Dv), o the forward's
     output and do its gradient (B,H,S,Dv) -> (dq, dk, dv) in the input
-    dtypes (dv of v's Dv).
+    dtypes (dk and dv of the keys' length Sk, dv of v's Dv).
 
     Row statistics first: lse = log sum_k exp(s) over the counted pairs
     (the forward's, `flash_attention_ref(..., return_lse=True)`, when
@@ -184,7 +187,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
       dq = ds k,  dk = sum over the KV head's query heads of ds^T q,
     with raw = q.k scale and softcap'(raw) = 1 - tanh(raw / cap)^2."""
     B, H, S, D = q.shape
-    KV = k.shape[1]
+    KV, Sk = k.shape[1], k.shape[2]
     rep = H // KV
     scale = D ** -0.5
     qf, of, dof = q.float(), o.float(), do.float()
@@ -196,7 +199,7 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
         t = torch.tanh(s / softcap)
         s = softcap * t
         dscore = (1.0 - t * t) * scale
-    mask = _pair_mask(S, causal, window, q.device)
+    mask = _pair_mask(S, Sk, causal, window, q.device)
     s = torch.where(mask, s, -1e30)
     lse = (_row_lse(s) if lse is None else lse.float())[..., None]
     delta = (dof * of).sum(-1, keepdim=True)
@@ -204,8 +207,9 @@ def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
     dp = torch.einsum("bhqd,bhkd->bhqk", dof, vf)
     ds = p * (dp - delta) * dscore
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf)
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf).view(B, KV, rep, S, D).sum(2)
-    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).view(B, KV, rep, S, -1) \
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf).view(B, KV, rep, Sk, D) \
+        .sum(2)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof).view(B, KV, rep, Sk, -1) \
         .sum(2)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 

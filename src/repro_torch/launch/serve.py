@@ -3,8 +3,11 @@
 Port of `repro.launch.serve`. A minimal production-shaped server: a
 request queue, one prefill per arrival batch, then lock-step batched
 greedy decode (the KV cache is slot-stable). The prefill runs every
-attention layer through the `flash_attention` kernel and every SSD head
-through the `wkv6` kernel; decode is plain torch. Runs on the card
+attention layer through the `flash_attention` kernel (an enc-dec model's
+encoder and cross-attention too: the encoder runs once a batch, over
+zero frame embeddings as in the reference's launcher, and prefill caches
+the cross K/V that every decode step reads) and every SSD head through
+the `wkv6` kernel; decode is plain torch. Runs on the card
 unless `--device cpu` is given; reduced configs by default, the full
 published widths with `--full-config` (random weights from a seed).
 
@@ -126,9 +129,14 @@ def main(argv=None):
         queue = queue[args.batch:]
         prompts = torch.as_tensor(np.stack(batch), dtype=torch.int64,
                                   device=device)
+        enc = None
+        if cfg.encoder is not None:          # the stubbed audio frontend
+            enc = torch.zeros((prompts.shape[0], cfg.encoder.n_frames,
+                               cfg.d_model), dtype=getattr(torch, cfg.dtype),
+                              device=device)
         with span("launch.serve_batch", batch=prompts.shape[0]):
             gen, lat_s, logits = serve_batch(cfg, params, prompts,
-                                             args.max_new)
+                                             args.max_new, enc=enc)
         served += prompts.shape[0]
         count("launch.requests_served", prompts.shape[0])
         lat_all.extend(lat_s)

@@ -5,8 +5,11 @@ given (which runs the kernels' plain versions); reduced configs by
 default, the published widths with `--full-config` (one H100 holds
 full-width hymba-1.5b with its f32 Adam moments at batch 2 x 2048
 tokens). Every attention layer runs through the `flash_attention`
-kernel and its backward kernel, every SSD head through `wkv6` and its
-backward kernel. Weights are random, from a seed.
+kernel and its backward kernel (an enc-dec model's encoder and
+cross-attention too), every SSD head through `wkv6` and its backward
+kernel. Weights are random, from a seed. Each batch carries zero
+prefix embeddings (VLM) and zero frame embeddings (enc-dec) where the
+config takes them, as the reference's launcher.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
       --steps 2 --device cpu
@@ -37,6 +40,22 @@ from repro_torch.obs import count, enabled as obs_enabled
 from repro_torch.obs import log_enabled, log_record, set_logging, span
 from repro_torch.optim.adam import adam_init
 from repro_torch.train.step import make_train_step
+
+
+def stub_embeds(cfg, batch: int, device) -> dict:
+    """The stubbed modality inputs a batch of `cfg` takes, zeros in the
+    model's dtype as the reference's launcher gives them: the vision
+    tower's "prefix_embeds" (batch, n_prefix_tokens, d) and the audio
+    frontend's "enc_embeds" (batch, n_frames, d)."""
+    out = {}
+    zeros = lambda n: torch.zeros((batch, n, cfg.d_model),
+                                  dtype=getattr(torch, cfg.dtype),
+                                  device=device)
+    if cfg.n_prefix_tokens:
+        out["prefix_embeds"] = zeros(cfg.n_prefix_tokens)
+    if cfg.encoder is not None:
+        out["enc_embeds"] = zeros(cfg.encoder.n_frames)
+    return out
 
 
 def main(argv=None):
@@ -84,6 +103,7 @@ def main(argv=None):
                                      seed=int(rng.integers(1 << 30)))
         batch = {"tokens": torch.as_tensor(toks, dtype=torch.int64,
                                            device=device)}
+        batch.update(stub_embeds(cfg, args.batch, device))
         t0 = time.perf_counter()
         with span("launch.train_step", step=i):
             params, opt, metrics = step(params, opt, batch)

@@ -2,10 +2,12 @@
 ring cache.
 
 Port of `repro.models.lm.attention`. The reference's prefill streams
-query chunks against K/V in jnp; the Pallas `flash_attention` kernel
-computes the same function for positions 0..S-1, which is all prefill
-ever gives. Here prefill is that kernel: `kernels.ops.flash_attention_op`
-(CUDA on the card, its plain version on the CPU). The model's layout is
+query chunks against K/V in jnp at positions `q_pos` and `k_pos`; the
+callers give it queries at 0..S-1 and keys at 0..S-1, or, for
+cross-attention, at 0..Sk-1 (the encoder's frames) with no mask. Here
+prefill is the `flash_attention` kernel, which takes exactly those:
+`kernels.ops.flash_attention_op` (CUDA on the card, its plain version on
+the CPU). The model's layout is
 (B, S, H, D) and the kernel's (B, H, S, D): the kernel takes strides, so
 the transposes below are views, and its output keeps q's memory layout,
 so `o.reshape(B, S, -1)` needs no copy either.
@@ -34,8 +36,14 @@ def attention_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       window: int | None = None,
                       softcap: float | None = None,
                       causal: bool = True) -> torch.Tensor:
-    """q: (B,S,H,D), k/v: (B,S,KV,D), positions 0..S-1 for queries and
-    keys. Returns (B,S,H,D). H must be a multiple of KV (GQA)."""
+    """q: (B,S,H,D), k/v: (B,Sk,KV,D), queries at positions 0..S-1 and
+    keys at 0..Sk-1. Returns (B,S,H,D). H must be a multiple of KV (GQA).
+    Keys of their own length (Sk != S, cross-attention) take no causal or
+    window mask: such a call raises ValueError."""
+    if k.shape[1] != q.shape[1] and (causal or window is not None):
+        raise ValueError(f"attention_prefill: {k.shape[1]} keys against "
+                         f"{q.shape[1]} queries take no causal or window "
+                         "mask")
     o = flash_attention_op(q.transpose(1, 2), k.transpose(1, 2),
                            v.transpose(1, 2), causal=causal, window=window,
                            softcap=softcap)

@@ -30,8 +30,8 @@ Usage::
         count("comms.routes")
     metrics_summary()  # {"counters": ..., "spans": ..., ...}
 
-Exporters (Chrome/Perfetto trace.json, flat JSONL) are not ported yet
-(ROADMAP queue item 'Serving extras').
+Exporters (Chrome/Perfetto trace.json, flat JSONL) live in
+`repro_torch.obs.export`.
 """
 from __future__ import annotations
 

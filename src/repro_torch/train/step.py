@@ -57,19 +57,21 @@ def lm_loss(cfg: ModelConfig, params, batch: Batch):
     """Next-token CE + the MoE aux term (zero without MoE layers) + 0.3 x
     the MTP head's next-next-token CE where the config has one.
 
-    batch: {"tokens": (B, S) integer}. Returns (loss, metrics) with the
-    reference's metric names ("ce", "moe_aux", "mtp" with the MTP head,
-    "loss")."""
+    batch: {"tokens": (B, S) integer, optional "prefix_embeds" (B, P, d),
+    optional "enc_embeds" (B, F, d)}; the prefix positions carry no loss.
+    Returns (loss, metrics) with the reference's metric names ("ce",
+    "moe_aux", "mtp" with the MTP head, "loss")."""
     tokens = batch["tokens"]
     logits, aux = forward_train(cfg, params, tokens,
                                 prefix_embeds=batch.get("prefix_embeds"),
                                 enc_embeds=batch.get("enc_embeds"))
-    loss = _ce(logits[:, :-1], tokens[:, 1:])
+    P = logits.shape[1] - tokens.shape[1]          # prefix length
+    loss = _ce(logits[:, P:-1], tokens[:, 1:])
     metrics = {"ce": loss}
     loss = loss + aux["moe_aux"]
     metrics["moe_aux"] = aux["moe_aux"]
     if "mtp_logits" in aux:
-        mtp = _ce(aux["mtp_logits"][:, :-2], tokens[:, 2:])
+        mtp = _ce(aux["mtp_logits"][:, P:-2], tokens[:, 2:])
         loss = loss + MTP_WEIGHT * mtp
         metrics["mtp"] = mtp
     metrics["loss"] = loss

@@ -1186,3 +1186,151 @@ def test_reduced_deepseek_card_matches_cpu(dev):
     assert abs(out["card"][3] - out["cpu"][3]) <= 1e-4
     for a, b in zip(out["card"][4], out["cpu"][4]):
         _close(a, b, 1e-4, 1e-4 * max(1.0, float(b.abs().max())))
+
+
+# ------------------------- cross-attention: keys of their own length
+CROSS_CASES = [
+    # b, h, kv, s, sk, d, dtype
+    (4, 16, 16, 224, 1500, 64, torch.bfloat16),   # whisper serving
+    (4, 16, 16, 448, 1500, 64, torch.bfloat16),   # whisper training
+    (2, 8, 2, 1, 1500, 64, torch.bfloat16),       # one query
+    (2, 4, 4, 100, 37, 64, torch.bfloat16),       # fewer keys than queries
+    (1, 4, 2, 65, 64, 128, torch.bfloat16),
+    (2, 4, 4, 33, 64, 64, torch.float32),         # reduced whisper
+    (2, 4, 2, 100, 37, 64, torch.float32),
+    (1, 2, 1, 7, 300, 32, torch.float32),
+]
+
+
+def _cross_inputs(dev, b, h, kv, s, sk, d, dtype):
+    g = torch.Generator(device=dev).manual_seed(b * h * s + sk + d)
+    return [torch.randn(shape, generator=g, device=dev).to(dtype)
+            for shape in ((b, h, s, d), (b, kv, sk, d), (b, kv, sk, d),
+                          (b, h, s, d))]
+
+
+@pytest.mark.parametrize("b,h,kv,s,sk,d,dtype", CROSS_CASES)
+def test_flash_attention_cross_kernels_match_plain(dev, b, h, kv, s, sk, d,
+                                                   dtype):
+    """S queries against Sk keys, no mask: the forward (one launch, its
+    lse) and the backward (dk and dv of Sk rows; the same bits twice)
+    against their plain versions."""
+    from repro_torch.kernels.flash_attention import flash_attention, \
+        flash_attention_bwd
+    q, k, v, do = _cross_inputs(dev, b, h, kv, s, sk, d, dtype)
+    before = ops.LAUNCHES["flash_attention"]
+    got = ops.flash_attention_op(q, k, v, causal=False)
+    assert ops.LAUNCHES["flash_attention"] == before + 1
+    o, lse = ref.flash_attention_ref(q, k, v, causal=False, return_lse=True)
+    _, got_lse = flash_attention(q, k, v, causal=False, return_lse=True)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, s, d)
+    _close(got, o, *FLASH_TOL[dtype])
+    _close(got_lse, lse, *FLASH_TOL[torch.float32])
+    grads = flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    again = flash_attention_bwd(q, k, v, o, do, lse, causal=False)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, causal=False, lse=lse)
+    torch.cuda.synchronize()
+    for a, b_, w in zip(grads, again, want):
+        assert a.shape == w.shape and torch.equal(a, b_)
+        _close(a, w, *BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cross_reads_the_model_views(dev, dtype):
+    """Cross K/V as the model passes them: `enc_out @ wk` reshaped to (B,
+    F, KV, hd) and transposed, against queries of another length, through
+    the op forward and backward."""
+    B, S, F, H = 2, 40, 150, 4
+    g = torch.Generator(device=dev).manual_seed(11)
+    q = torch.randn((B, S, H, 64), generator=g, device=dev).to(dtype)
+    k, v = (torch.randn((B, F, H * 64), generator=g, device=dev).to(dtype)
+            .reshape(B, F, H, 64) for _ in range(2))
+    leaves = [t.transpose(1, 2).requires_grad_(True) for t in (q, k, v)]
+    o = ops.flash_attention_op(*leaves, causal=False)
+    do = torch.randn(o.shape, generator=g, device=dev).to(dtype)
+    got = torch.autograd.grad(o, leaves, do)
+    torch.cuda.synchronize()
+    want_o, lse = ref.flash_attention_ref(*leaves, causal=False,
+                                          return_lse=True)
+    _close(o, want_o, *FLASH_TOL[dtype])
+    want = ref.flash_attention_bwd_ref(*(t.detach() for t in leaves),
+                                       o.detach(), do, causal=False, lse=lse)
+    for a, w in zip(got, want):
+        _close(a, w, *BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 64)])
+def test_flash_attention_cross_refuses_masks(dev, causal, window):
+    from repro_torch.kernels.flash_attention import flash_attention, \
+        flash_attention_bwd
+    q, k, v, do = _cross_inputs(dev, 1, 2, 2, 32, 64, 64, torch.bfloat16)
+    with pytest.raises(ValueError, match="no causal or window mask"):
+        flash_attention(q, k, v, causal=causal, window=window)
+    lse = torch.zeros((1, 2, 32), device=dev)
+    with pytest.raises(ValueError, match="no causal or window mask"):
+        flash_attention_bwd(q, k, v, do, do, lse, causal=causal,
+                            window=window)
+
+
+def _stub_inputs(cfg, B: int, seed: int) -> dict:
+    """Seeded random frame or prefix embeddings (on the CPU) for cfg."""
+    g = torch.Generator().manual_seed(seed)
+    if cfg.encoder is not None:
+        return {"enc_embeds": torch.randn(
+            (B, cfg.encoder.n_frames, cfg.d_model), generator=g)}
+    return {"prefix_embeds": torch.randn(
+        (B, cfg.n_prefix_tokens, cfg.d_model), generator=g)}
+
+
+@pytest.mark.parametrize("arch,prompt_len", [("whisper-medium", 40),
+                                             ("llava-next-mistral-7b", 130)])
+def test_reduced_encdec_and_vlm_card_match_cpu(dev, arch, prompt_len):
+    """Reduced whisper-medium (64 random frames) and llava (16 random
+    prefix embeddings; 146 positions pass the 128-token window) from one
+    set of weights on the card and the CPU: prefill and 8 greedy decode
+    steps with identical tokens, logits within 1e-4; whisper's prefill
+    3 `flash_attention` launches a layer (encoder, self, cross); one
+    training step's loss within 1e-4 and each gradient leaf within 1e-4
+    of its largest element where that passes 1."""
+    from repro_torch.models.lm.params import map_tree
+    from repro_torch.models.lm.transformer import init_decode_cache
+    from repro_torch.train.step import lm_loss, make_serve_step
+    cfg = get_config(arch).reduced()
+    cpu_params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card_params = lm_params_from_jax(lm_params_to_numpy(cpu_params), dev)
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len),
+                            generator=torch.Generator().manual_seed(1))
+    stub = _stub_inputs(cfg, 2, 2)
+    out = {}
+    for where, params in (("cpu", cpu_params), ("card", card_params)):
+        at = params["embed"].device
+        extra = {k: t.to(at) for k, t in stub.items()}
+        before = dict(ops.LAUNCHES)
+        with torch.inference_mode():
+            logits, cache = init_decode_cache(
+                cfg, params, 2, prompt_len + 16 + 16, prompt=prompts.to(at),
+                **extra)
+            moved = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES}
+            step = make_serve_step(cfg)
+            tok = torch.argmax(logits, -1).to(torch.int32)[:, None]
+            toks, all_logits = [tok], [logits]
+            for _ in range(8):
+                tok, logits, cache = step(params, tok, cache)
+                toks.append(tok)
+                all_logits.append(logits)
+        leaves = []
+        map_tree(lambda t: leaves.append(t.requires_grad_(True)), params)
+        loss, _ = lm_loss(cfg, params, {"tokens": prompts[:, :33].to(at),
+                                        **extra})
+        grads = [g.cpu() for g in torch.autograd.grad(loss, leaves)]
+        out[where] = (torch.cat(toks, 1).cpu(), torch.stack(all_logits).cpu(),
+                      moved, float(loss), grads)
+    assert torch.equal(out["card"][0], out["cpu"][0])
+    _close(out["card"][1], out["cpu"][1], 1e-4)
+    enc_layers = cfg.encoder.n_layers if cfg.encoder is not None else 0
+    assert out["card"][2]["flash_attention"] == enc_layers + cfg.n_layers * (
+        2 if enc_layers else 1)
+    assert abs(out["card"][3] - out["cpu"][3]) <= 1e-4
+    for a, b in zip(out["card"][4], out["cpu"][4]):
+        _close(a, b, 1e-4, 1e-4 * max(1.0, float(b.abs().max())))

@@ -40,7 +40,8 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert proc.returncode == 0, proc.stderr
     assert len(_modules()) >= 30
     assert {"repro_torch.models.lm.rwkv", "repro_torch.models.lm.moe",
-            "repro_torch.models.lm.mla"} <= set(_modules())
+            "repro_torch.models.lm.mla",
+            "repro_torch.obs.export"} <= set(_modules())
 
 
 _FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b|"

@@ -220,7 +220,8 @@ def _leaves(tree, prefix=""):
 
 
 @pytest.mark.parametrize("arch", ["hymba-1.5b", "gemma-2b", "rwkv6-1.6b",
-                                  "grok-1-314b"])
+                                  "grok-1-314b", "whisper-medium",
+                                  "llava-next-mistral-7b"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_lm_params_round_trip(arch, dtype):
     tree = _jax_init(arch, dtype)
@@ -387,18 +388,34 @@ def test_every_arch_resolves():
     ("whisper-medium", "encoder"),
 ])
 def test_unported_kinds_raise(arch, what):
+    """The enc-dec kind runs (`tests/test_torch_encdec.py` holds it to the
+    reference); without its frame embeddings prefill and the training
+    forward raise by name, where the reference fails inside its encoder."""
     cfg = get_config(arch).reduced()
-    with pytest.raises(NotImplementedError, match=what):
-        init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        prefill(cfg, {}, torch.zeros((1, 4), dtype=torch.int64), 8)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        forward_train(cfg, {}, torch.zeros((1, 4), dtype=torch.int64))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert what in params and "xattn" in params["segments"][0]
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(ValueError, match="enc_embeds"):
+        prefill(cfg, params, toks, 8)
+    with pytest.raises(ValueError, match="enc_embeds"):
+        forward_train(cfg, params, toks)
+    frames = torch.zeros((1, cfg.encoder.n_frames, cfg.d_model))
+    logits, cache = prefill(cfg, params, toks, 8, enc_embeds=frames)
+    assert logits.shape == (1, cfg.vocab_size) and cache["pos"] == 4
+    assert forward_train(cfg, params, toks, enc_embeds=frames)[0].shape \
+        == (1, 4, cfg.vocab_size)
 
 
 def test_prefix_embeds_raise():
+    """Prefix embeddings run (`tests/test_torch_vlm.py` holds them to the
+    reference): they go before the text and the decode position counts
+    them; embeddings of another width than the model's raise."""
     cfg = get_config("llava-next-mistral-7b").reduced()
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="prefix"):
-        prefill(cfg, params, torch.zeros((1, 4), dtype=torch.int64), 8,
-                prefix_embeds=torch.zeros((1, 16, cfg.d_model)))
+    toks = torch.zeros((1, 4), dtype=torch.int64)
+    with pytest.raises(ValueError, match="prefix"):
+        prefill(cfg, params, toks, 30,
+                prefix_embeds=torch.zeros((1, 16, cfg.d_model + 1)))
+    logits, cache = prefill(cfg, params, toks, 30,
+                            prefix_embeds=torch.zeros((1, 16, cfg.d_model)))
+    assert logits.shape == (1, cfg.vocab_size) and cache["pos"] == 20
