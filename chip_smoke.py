@@ -28,18 +28,33 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              time of one wrapper call (`host_us`); the batched sweep's
              extended forms at 32 scenarios x 10 clients of femnist_cnn
              (prox_sgd with per-row mu and grouped or per-client anchors,
-             fedagg over a scenario axis, plain and delta);
+             fedagg over a scenario axis, plain and delta); fedagg in
+             its plain, delta and partial forms (the partial form is a
+             mesh rank's weighted deltas, beside one `addmv`);
   main_path  ConstellationSim.run() for all 8 Table-1 algorithms on the
              paper's largest cell (100 satellites, 13 stations), with the
              kernels' launch counters zeroed just before and read just
              after;
+  mesh_path  the same 8 runs with execution="mesh" on a one-rank process
+             group whose CUDA backend is NCCL (`sharding.default_group`),
+             launch and collective counters zeroed just before and read
+             just after: RoundRecords identical to main_path's, final
+             params within 1e-5 (one rank rounds as the host path: the
+             gap is reported), prox_sgd launches equal to main_path's,
+             one fedagg launch (the plain form for the synchronous
+             algorithms, the partial form for fedbuff) and two
+             all-reduces a round; for fedavg, fedprox and fedbuff every
+             round's params against a host run's (1e-5); walls beside
+             main_path's;
   where_time_goes  fedprox for 5 rounds on the same cell: host wall
              clock, per-span walls (repro_torch.obs) and, from
              torch.profiler, the device's busy time, idle share and
              kernel time by name;
   cpu_vs_card  fedprox on a small cell on the card and on the CPU with
-             the same access windows, init params and minibatch draws:
-             RoundRecords identical, final params within 1e-4.
+             the same access windows, init params and minibatch draws,
+             through the host path and through the mesh path (NCCL on
+             the card, gloo on the CPU): RoundRecords identical, final
+             params within 1e-4.
   comms_path ConstellationSim.run() on the main-path cell for the ISL
              algorithms (fedavg_intracc_isl, fedprox_intracc_isl; ISL
              windows computed on the card), the connectivity-aware ones
@@ -81,10 +96,10 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              scenarios) as one timing-only BatchedSweep (7 days, 10
              rounds), every 32nd cell held to the loop path bitwise;
              (b) 32 scenarios trained through BatchedSweep on femnist_cnn
-             (one prox_sgd launch a local step, one fedagg a round,
-             counted) with device busy time and idle share, then through
-             the loop path (identical records, params and curves within
-             1e-4);
+             for 5 rounds (one prox_sgd launch a local step, one fedagg a
+             round, counted) with device busy time and idle share, then
+             through the loop path (identical records, params and curves
+             within 1e-4);
              (c) a fedavg/fedprox/fedbuff batch on the card and the CPU.
   lm_kernels flash_attention and wkv6 against their plain versions at
              hymba-1.5b's serving shapes (wkv6 also in the SSD heads'
@@ -188,6 +203,22 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              torch.profiler: idle share, time by kernel), whose loss
              must fall by more than 3x the spread of the initial
              weights' loss over 4 other batches;
+  mesh_lm_round  `launch.fl_round.make_fl_round_step` on full-width
+             hymba-1.5b (bf16) as one pod of the NCCL group: 2 local
+             proximal SGD steps on a (2, 2048) batch, seconds a round,
+             peak memory, a launch of each LM kernel a layer a step, two
+             all-reduces; weight 0 and steps 0 give the params back bit
+             for bit; a participating round's delta (out - params)
+             within one bfloat16 rounding an element, and 0.125 in L2,
+             of an oracle's: two plain SGD steps in bf16 and
+             `weighted_delta_update` on the card; the same check must
+             reject the round at half the lr and with its sign flipped;
+  ep_moe     one grok-1 MoE block at full width (d 6144, 8 experts of
+             32,768, top-2, capacity factor 1.5, bf16, x (4, 2048, 6144))
+             through `apply_moe_ep` on the NCCL group against `apply_moe`
+             on the (1, 8192, 6144) view: output, aux and gradients
+             within 2e-2; forward and backward ms of both; all-to-all
+             bytes;
   lm_cpu_vs_card  lm_tiny and lm_moe_tiny fedprox on the card and on the
              CPU from the same init and draws: RoundRecords identical,
              params within 1e-4; one training step of reduced hymba-1.5b,
@@ -197,7 +228,8 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              leaf's largest where that passes 1).
 
 Each phase prints one JSON line; any failure exits non-zero before the
-last line, which is {"ok": true, "device": {...}}.
+last line, which is {"ok": true, "device": {...}}. The process group is
+destroyed before the last lines.
 """
 from __future__ import annotations
 
@@ -212,6 +244,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
@@ -232,6 +265,7 @@ from repro_torch.core import (  # noqa: E402
     FedProxSat,
     spaceify,
 )
+from repro_torch.core.aggregation import weighted_delta_update  # noqa: E402
 from repro_torch.core.timing import HardwareModel  # noqa: E402
 from repro_torch.data import synth_femnist  # noqa: E402
 from repro_torch.data.tokens import synthetic_token_batch  # noqa: E402
@@ -242,11 +276,17 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 )
 from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd  # noqa: E402
 from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.launch.fl_round import make_fl_round_step  # noqa: E402
 from repro_torch.core.client import vmapped_client_update  # noqa: E402
 from repro_torch.core.workload import get_workload  # noqa: E402
 from repro_torch.models.femnist_cnn import femnist_cnn_init  # noqa: E402
 from repro_torch.models.femnist_mlp import femnist_mlp_init  # noqa: E402
 from repro_torch.models.lm.config import Segment  # noqa: E402
+from repro_torch.models.lm.moe import (  # noqa: E402
+    apply_moe,
+    apply_moe_ep,
+    init_moe,
+)
 from repro_torch.models.lm.params import (  # noqa: E402
     lm_params_from_jax,
     lm_params_to_numpy,
@@ -272,6 +312,12 @@ from repro_torch.sim import (  # noqa: E402
     TorchSampler,
 )
 from repro_torch.sim.batched import _fast_plannable  # noqa: E402
+from repro_torch.sharding import (  # noqa: E402
+    COLLECTIVES,
+    default_group,
+    reset_collectives,
+)
+from repro_torch.sharding.compat import backend_for  # noqa: E402
 from repro_torch.sim.engine import client_steps  # noqa: E402
 from repro_torch.train.step import (  # noqa: E402
     lm_loss,
@@ -456,41 +502,54 @@ def _max_err(got, want, rtol: float, atol: float | None = None) -> float:
     return float(err.max())
 
 
-def check_fedagg(dev, K: int, P: int, dtype: str, delta: bool,
+FEDAGG_FORMS = ("plain", "delta", "partial")
+
+
+def check_fedagg(dev, K: int, P: int, dtype: str, form: str,
                  flush: torch.Tensor | None) -> dict:
-    """The kernel against its plain version, then timed; with no `flush`
-    buffer only the comparison is made."""
+    """The kernel in `form` (FEDAGG_FORMS: the weighted sum, its delta
+    form against a base, or the partial form a mesh rank contributes)
+    against its plain version, then timed; with no `flush` buffer only
+    the comparison is made."""
     dt = getattr(torch, dtype)
     g = torch.Generator(device=dev).manual_seed(K * P)
     x = torch.randn((K, P), generator=g, device=dev).to(dt)
     w = torch.rand((K,), generator=g, device=dev)
-    base = torch.randn((P,), generator=g, device=dev).to(dt) if delta \
-        else None
-    scale = 0.5 if delta else 1.0
-    got = ops.fedagg_op(x, w, base, scale)
-    want = ref.fedagg_ref(x, w, base, scale)
+    base = torch.randn((P,), generator=g, device=dev).to(dt) \
+        if form != "plain" else None
+    scale = 0.5 if form == "delta" else 1.0
+    partial = form == "partial"
+    got = ops.fedagg_op(x, w, base, scale, partial)
+    want = ref.fedagg_ref(x, w, base, scale, partial)
     torch.cuda.synchronize()
     err = _max_err(got, want, TOL[dtype])
+    row = dict(name="fedagg", form=form, K=K, P=P, dtype=dtype,
+               max_abs_err=err, tol=TOL[dtype])
     if flush is None:
-        return dict(name="fedagg", form="delta" if delta else "plain", K=K,
-                    P=P, dtype=dtype, max_abs_err=err, tol=TOL[dtype])
+        return row
     es = x.element_size()
-    n_bytes = K * P * es + K * 4 + P * es + (P * es if delta else 0)
-    n_flops = 3 * K * P + 2 * P if delta else 2 * K * P
+    n_bytes = K * P * es + K * 4 + P * es + (P * es if base is not None
+                                             else 0)
+    n_flops = {"plain": 2 * K * P, "delta": 3 * K * P + 2 * P,
+               "partial": 3 * K * P}[form]
     b_ms, b_by = bound_ms(n_bytes, n_flops)
     wl = w.to(dt)
-    kernel = lambda: ops.fedagg_op(x, w, base, scale)  # noqa: E731
+    # One PyTorch call computing the same function (a yardstick only):
+    # sum_k w_k x_k - beta * base is one addmv, with beta precomputed.
+    sw = float(w.sum())
+    library = {
+        "plain": lambda: torch.mv(x.t(), wl),
+        "delta": lambda: torch.addmv(base, x.t(), wl, beta=1 - scale * sw,
+                                     alpha=scale),
+        "partial": lambda: torch.addmv(base, x.t(), wl, beta=-sw)}[form]
+    kernel = lambda: ops.fedagg_op(x, w, base, scale, partial)  # noqa: E731
     return dict(
-        name="fedagg", form="delta" if delta else "plain", K=K, P=P,
-        dtype=dtype, max_abs_err=err, tol=TOL[dtype],
-        ms=device_ms(kernel), ms_cold=device_ms_cold(kernel, flush),
+        row, ms=device_ms(kernel), ms_cold=device_ms_cold(kernel, flush),
         ms_back_to_back=device_ms_back_to_back(kernel),
         host_us=host_us(kernel),
-        plain_ms=device_ms(lambda: ref.fedagg_ref(x, w, base, scale)),
-        # One PyTorch call computing the plain form (a yardstick only).
-        library_ms=(None if delta else
-                    device_ms(lambda: torch.mv(x.t(), wl))),
-        bound_ms=b_ms, bound_by=b_by)
+        plain_ms=device_ms(lambda: ref.fedagg_ref(x, w, base, scale,
+                                                  partial)),
+        library_ms=device_ms(library), bound_ms=b_ms, bound_by=b_by)
 
 
 def check_prox_sgd(dev, C: int, P: int, dtype: str, mu: float,
@@ -646,8 +705,8 @@ def phase_kernels(dev) -> list[dict]:
     rows = []
     for dtype in ("float32", "bfloat16"):
         for K, P in ((10, P_MLP), (100, P_MLP), (7, 12345)):
-            for delta in (False, True):
-                rows.append(check_fedagg(dev, K, P, dtype, delta, flush))
+            for form in FEDAGG_FORMS:
+                rows.append(check_fedagg(dev, K, P, dtype, form, flush))
         for C in (10, 100):
             for mu in (0.0, 0.1):
                 for shared in (True, False):
@@ -728,12 +787,13 @@ class LaunchShapes:
         for name, launcher in self._lm_launchers.items():
             setattr(ops, name, self._record_lm(name, launcher))
 
-        def record_fedagg(x, w, base, scale):
+        def record_fedagg(x, w, base, scale, partial=False):
             self.fedagg.add((x.shape[0] if x.dim() == 3 else 0,
                              x.shape[-2], x.shape[-1],
                              str(x.dtype).removeprefix("torch."),
-                             base is not None))
-            return fedagg(x, w, base, scale)
+                             "partial" if partial else
+                             "plain" if base is None else "delta"))
+            return fedagg(x, w, base, scale, partial)
 
         def record_prox_sgd(w, g, w0, steps, step, lr, mu):
             rows = w0.shape[0] if w0.dim() == 2 else 1
@@ -840,9 +900,9 @@ def phase_path_shapes(dev, shapes: dict[str, LaunchShapes]) -> dict:
     for path, rec in shapes.items():
         missing = [k for k in rec.kernels if not rec.launched(k)]
         require(not missing, f"{path}: no launch of {missing} was recorded")
-        rows = [check_fedagg_batched(dev, S, K, P, delta, None) if S
-                else check_fedagg(dev, K, P, dtype, delta, None)
-                for S, K, P, dtype, delta in sorted(rec.fedagg)]
+        rows = [check_fedagg_batched(dev, S, K, P, form == "delta", None)
+                if S else check_fedagg(dev, K, P, dtype, form, None)
+                for S, K, P, dtype, form in sorted(rec.fedagg)]
         for C, P, dtype, mu, anchor in sorted(rec.prox_sgd, key=str):
             if isinstance(mu, float) and anchor in ("shared", "per_client"):
                 rows.append(check_prox_sgd(dev, C, P, dtype, mu,
@@ -930,6 +990,7 @@ def phase_main_path(dev, setup: dict) -> dict:
         per_alg.append(dict(algorithm=name, rounds=res.n_rounds,
                             wall_s=wall, accuracy=accs,
                             launches=launches))
+        setup.setdefault("main_runs", {})[name] = res   # for mesh_path
         require(res.n_rounds >= 10,
                 f"{name}: {res.n_rounds} rounds (< 10) in 2 days")
         require(launches["prox_sgd"] > 0 and launches["fedagg"] > 0,
@@ -945,6 +1006,93 @@ def phase_main_path(dev, setup: dict) -> dict:
                access_windows_s=setup["access_windows_s"],
                algorithms=per_alg, launches=totals)
     emit("main_path", **out)
+    return out
+
+
+# ------------------------------------------------------------- mesh path
+# The algorithms whose every round's params the mesh path holds to the
+# host path's (`SimConfig(record_params=True)`).
+MESH_RECORDED = ("fedavg", "fedprox", "fedbuff")
+
+
+def _nccl_group(dev):
+    """The one-rank default group (`sharding.default_group`), whose CUDA
+    tensors must reduce through NCCL."""
+    group = default_group(dev)
+    backend = backend_for(torch.zeros(1, device=dev), group)
+    require(backend == "nccl", f"CUDA collectives run on {backend}")
+    return group
+
+
+def phase_mesh_path(dev, setup: dict) -> dict:
+    """The main path again with execution="mesh" (all 8 Table-1
+    algorithms, the same cell, 20 rounds), on a one-rank group whose CUDA
+    backend is NCCL, launch and collective counters zeroed just before
+    and read just after: RoundRecords identical to main_path's, final
+    params within 1e-5 of its; prox_sgd launches equal to main_path's,
+    one fedagg launch and two all-reduces a round or flush.
+    For fedavg, fedprox and fedbuff every round's params against a host
+    run's, within 1e-5. Walls beside main_path's."""
+    cst, st, data, aw = (setup[k] for k in ("cst", "st", "data", "aw"))
+    group = _nccl_group(dev)
+    main_runs = setup["main_runs"]
+    per_alg = []
+    ops.reset_launches()          # the mesh path's counts start here
+    reset_collectives()
+    for name in TABLE1_NAMES:
+        cfg = SimConfig(max_rounds=20, horizon_s=MAIN_HORIZON_S,
+                        eval_every=5, record_params=name in MESH_RECORDED)
+        before, coll = dict(ops.LAUNCHES), dict(COLLECTIVES)
+        t0 = time.perf_counter()
+        res = ConstellationSim(cst, st, ALGORITHMS[name], data=data,
+                               cfg=cfg, access=aw, device=dev,
+                               execution="mesh").run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+        colls = {k: COLLECTIVES[k] - coll[k] for k in COLLECTIVES}
+        host = main_runs[name]
+        require(res.execution == "mesh"
+                and all(r.execution == "mesh" for r in res.rounds),
+                f"{name}: not a mesh run")
+        require(_records(res) == _records(host),
+                f"{name}: mesh RoundRecords differ from main_path's")
+        gap = float(np.abs(_flat_params(res.final_params)
+                           - _flat_params(host.final_params)).max())
+        require(gap <= 1e-5, f"{name}: mesh final params {gap} from "
+                             "main_path's")
+        host_launches = next(a["launches"] for a in
+                             setup["main_path"]["algorithms"]
+                             if a["algorithm"] == name)
+        require(launches["prox_sgd"] == host_launches["prox_sgd"]
+                and launches["fedagg"] == res.n_rounds
+                and colls["all_reduce"] == 2 * res.n_rounds,
+                f"{name}: mesh launches {launches}, collectives {colls}, "
+                f"{res.n_rounds} rounds; main_path {host_launches}")
+        row = dict(algorithm=name, rounds=res.n_rounds, wall_s=wall,
+                   main_path_wall_s=next(
+                       a["wall_s"] for a in setup["main_path"]["algorithms"]
+                       if a["algorithm"] == name),
+                   final_params_max_abs_gap=gap, launches=launches,
+                   collectives=colls)
+        if name in MESH_RECORDED:
+            ref_run = ConstellationSim(cst, st, ALGORITHMS[name], data=data,
+                                       cfg=cfg, access=aw, device=dev).run()
+            gaps = [float(np.abs(_flat_params(a) - _flat_params(b)).max())
+                    for a, b in zip(res.params_history,
+                                    ref_run.params_history)]
+            require(len(gaps) == res.n_rounds and max(gaps) <= 1e-5,
+                    f"{name}: per-round params gaps {gaps}")
+            row["round_params_max_abs_gap"] = max(gaps)
+        per_alg.append(row)
+    # The mesh runs' counts (not the host runs' beside three of them).
+    out = dict(cell=MAIN_CELL, backend="nccl",
+               world_size=dist.get_world_size(group), algorithms=per_alg,
+               launches={k: sum(a["launches"][k] for a in per_alg)
+                         for k in ops.LAUNCHES},
+               collectives={k: sum(a["collectives"][k] for a in per_alg)
+                            for k in COLLECTIVES})
+    emit("mesh_path", **out)
     return out
 
 
@@ -969,8 +1117,6 @@ def phase_where_time_goes(dev, setup: dict) -> dict:
     (per-span walls; each traced span ends in a device sync) and under
     `torch.profiler` (device busy time and kernel time by name). The
     device's idle share is 1 - busy / the plain run's wall time."""
-    from torch.profiler import ProfilerActivity, profile
-
     cst, st, data, aw = (setup[k] for k in ("cst", "st", "data", "aw"))
     cfg = SimConfig(max_rounds=PROFILE_ROUNDS, horizon_s=MAIN_HORIZON_S,
                     eval_every=5)
@@ -986,8 +1132,7 @@ def phase_where_time_goes(dev, setup: dict) -> dict:
     with obs.tracing():
         traced_wall = run()
         spans = obs.metrics_summary()["spans"]
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _device_profile() as prof:
         profiled_wall = run()
     out = dict(
         algorithm=PROFILE_ALGORITHM, cell=MAIN_CELL, rounds=PROFILE_ROUNDS,
@@ -1003,25 +1148,40 @@ PORT_KERNEL_NAMES = ("prox_sgd_kernel", "fedagg_kernel", "flash_f32_kernel",
                      "flash_bf16_kernel", "flash_bwd_", "wkv6_")
 
 
+def _device_profile():
+    """`torch.profiler` recording the card's activity only: the kernels
+    and the runtime calls that launch them. Host operators are left out:
+    recording them cost more than the profiled work itself."""
+    from torch.profiler import ProfilerActivity, profile
+
+    return profile(activities=[ProfilerActivity.CUDA])
+
+
 def _device_time(prof, wall_s: float) -> dict:
     """Device events of a `torch.profiler` run: their count, the busy
     time (union of their intervals), the idle share against `wall_s` (a
     plain run's wall), time by kernel name (top 12) and the launches,
-    time and mean time a launch of each of the port's own kernels."""
+    time and mean time a launch of each of the port's own kernels. Reads
+    the profiler's raw events: `prof.events()` first builds a tree of
+    every event, which is slow at hundreds of thousands of events.
+    `profile_read_s` is this function's own time."""
     from torch.autograd import DeviceType
 
-    device_events = [e for e in prof.events()
-                     if e.device_type == DeviceType.CUDA]
+    t0 = time.perf_counter()
+    device_events = [(e.name(), e.start_ns(), e.end_ns())
+                     for e in prof.profiler.kineto_results.events()
+                     if e.device_type() == DeviceType.CUDA]
     by_name: dict[str, list] = {}
-    for e in device_events:
-        row = by_name.setdefault(e.name, [0, 0.0])
+    for name, start, end in device_events:
+        row = by_name.setdefault(name, [0, 0.0])
         row[0] += 1
-        row[1] += e.time_range.elapsed_us()
-    busy_s = _busy_us([(e.time_range.start, e.time_range.end)
-                       for e in device_events]) / 1e6
+        row[1] += (end - start) / 1e3
+    busy_s = _busy_us([(start / 1e3, end / 1e3)
+                       for _, start, end in device_events]) / 1e6
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
     return dict(
         device_events=len(device_events),
+        profile_read_s=time.perf_counter() - t0,
         device_busy_s=busy_s if device_events else None,
         device_idle_share=(1.0 - busy_s / wall_s) if device_events else None,
         device_time_by_name=[dict(name=k[:100], count=n, total_s=us / 1e6)
@@ -1062,25 +1222,35 @@ def phase_cpu_vs_card(dev) -> dict:
     cfg = SimConfig(max_rounds=3, horizon_s=horizon, eval_every=1,
                     max_steps=16)
     alg = ALGORITHMS["fedprox"]
-    runs = {}
-    for where, device, sampler in (
-            ("cpu", "cpu", TorchSampler(0, "cpu")),
-            ("card", dev, _OnDevice(TorchSampler(0, "cpu"), dev))):
-        runs[where] = ConstellationSim(
-            cst, st, alg, data=data, cfg=cfg, access=aw, device=device,
-            sampler=sampler, init_params=init).run()
-    recs = {k: _records(v) for k, v in runs.items()}
-    require(len(recs["card"]) == 3 and recs["card"] == recs["cpu"],
-            "RoundRecords differ between the card and the CPU")
-    gap = float(np.abs(_flat_params(runs["card"].final_params)
-                       - _flat_params(runs["cpu"].final_params)).max())
-    out = dict(algorithm="fedprox", cell="c2s2/g1", rounds=3,
-               records_identical=True, final_params_max_abs_gap=gap,
-               tol=1e-4,
-               accuracy_card=[a for _, _, a in runs["card"].accuracy_curve],
-               accuracy_cpu=[a for _, _, a in runs["cpu"].accuracy_curve])
+    out = dict(algorithm="fedprox", cell="c2s2/g1", rounds=3, tol=1e-4)
+    # The host path, then the mesh path (the one-rank group: NCCL for
+    # the card's tensors, gloo for the CPU's).
+    for execution in ("host", "mesh"):
+        runs = {}
+        for where, device, sampler in (
+                ("cpu", "cpu", TorchSampler(0, "cpu")),
+                ("card", dev, _OnDevice(TorchSampler(0, "cpu"), dev))):
+            runs[where] = ConstellationSim(
+                cst, st, alg, data=data, cfg=cfg, access=aw, device=device,
+                sampler=sampler, init_params=init,
+                execution=execution).run()
+        recs = {k: _records(v) for k, v in runs.items()}
+        require(len(recs["card"]) == 3 and recs["card"] == recs["cpu"],
+                f"{execution}: RoundRecords differ between the card and "
+                "the CPU")
+        gap = float(np.abs(_flat_params(runs["card"].final_params)
+                           - _flat_params(runs["cpu"].final_params)).max())
+        pre = "" if execution == "host" else "mesh_"
+        out.update({
+            f"{pre}records_identical": True,
+            f"{pre}final_params_max_abs_gap": gap,
+            f"{pre}accuracy_card": [a for _, _, a in
+                                    runs["card"].accuracy_curve],
+            f"{pre}accuracy_cpu": [a for _, _, a in
+                                   runs["cpu"].accuracy_curve]})
+        require(gap <= 1e-4, f"{execution}: final params differ by {gap} "
+                             "> 1e-4")
     emit("cpu_vs_card", **out)
-    require(gap <= 1e-4, f"final params differ by {gap} > 1e-4")
     return out
 
 
@@ -1505,7 +1675,7 @@ SWEEP_STATIONS = (1, 2, 3, 5, 10, 13)
 SWEEP_SAMPLE = slice(7, None, 32)
 TRAIN_ALGS = ("fedavg", "fedprox", "fedavg_sched", "fedbuff")
 TRAIN_CLUSTERS, TRAIN_SATS, TRAIN_STATIONS = (2, 10), (2, 10), (1, 13)
-TRAIN_ROUNDS = 10                    # cut from 20 to fit the time limit
+TRAIN_ROUNDS = 5                     # cut from 20 to fit the time limit
 TRAIN_HORIZON_S = 2 * 86400.0
 
 
@@ -1580,8 +1750,6 @@ def phase_batched_sweep(dev) -> dict:
     more under torch.profiler), then through the loop path: identical
     records, final params and curves within 1e-4; (c) a small batch on
     the card and on the CPU."""
-    from torch.profiler import ProfilerActivity, profile
-
     out = {}
     # (a) timing only.
     walls = {}
@@ -1669,8 +1837,7 @@ def phase_batched_sweep(dev) -> dict:
                     f"{wl} batched {res.algorithm}: bad accuracy curve")
         if wl == "femnist_cnn":
             sims = _train_cells_sims(dev, wl, aws, datas, cells)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with _device_profile() as prof:
                 BatchedSweep(sims).run()
                 torch.cuda.synchronize()
             row["profiled"] = _device_time(prof, row["batched_wall_s"])
@@ -2082,8 +2249,6 @@ def _serve_main(dev, arch: str) -> dict:
 def _profiled_batch(cfg, params, prompts, stub: dict | None = None) -> dict:
     """One warm serving batch (`_serve`) plain (wall), then the same batch
     under torch.profiler: device busy time, idle share, time by kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
     run = lambda: _serve(cfg, params, prompts, SERVE_NEW, stub)
     run()
     torch.cuda.synchronize()
@@ -2091,8 +2256,7 @@ def _profiled_batch(cfg, params, prompts, stub: dict | None = None) -> dict:
     run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with _device_profile() as prof:
         run()
         torch.cuda.synchronize()
     return dict(wall_s=wall, **_device_time(prof, wall))
@@ -2725,8 +2889,6 @@ def phase_lm_train(dev, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
     plain) and the loss after them, which must fall by more than
     TRAIN_DROP_SPREADS spreads: the full-width gradient trains the
     model. Tokens are text tokens (`batch` x `seq`)."""
-    from torch.profiler import ProfilerActivity, profile
-
     cfg = get_config(arch)
     if n_layers is not None:
         cfg = dataclasses.replace(cfg, n_layers=n_layers)
@@ -2772,8 +2934,7 @@ def phase_lm_train(dev, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
     for i in range(TRAIN_STEPS):
         t0 = time.perf_counter()
         if i == 2:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            with _device_profile() as prof:
                 params, opt, metrics = train_step(params, opt, fixed)
                 torch.cuda.synchronize()
             profiled = dict(wall_s=walls[-1], **_device_time(prof,
@@ -2808,6 +2969,270 @@ def phase_lm_train(dev, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
         fixed_batch_losses=fixed_losses, fixed_batch_drop=drop,
         plain_step_walls_s=walls, profiled_step=profiled)
     emit(name, **out)
+    return out
+
+
+# ------------------------------------------------- the round as a pod
+# make_fl_round_step on full-width hymba-1.5b: one pod, its local steps,
+# the proximal coefficient.
+ROUND_ARCH, ROUND_STEPS, ROUND_MU = "hymba-1.5b", 2, 0.01
+
+
+def _leaves_of(tree) -> list[torch.Tensor]:
+    out: list[torch.Tensor] = []
+    map_tree(out.append, tree)
+    return out
+
+
+def _rebuild(tree, leaves: list[torch.Tensor]):
+    """`tree`'s structure with `leaves` (in `_leaves_of` order)."""
+    it = iter(leaves)
+    return map_tree(lambda _: next(it), tree)
+
+
+def _flat(tree) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in _leaves_of(tree)])
+
+
+# The round's delta must agree with the oracle's to one bfloat16 rounding
+# of the result an element, and in L2 within this fraction of the
+# oracle's delta (a round at half the lr, or with the delta's sign
+# flipped, is far outside it: the phase checks that it is).
+ROUND_DELTA_REL_L2 = 0.125
+
+
+def _ulp_bf16(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bfloat16 numbers at |x| (8 significant bits)."""
+    _, e = torch.frexp(x)
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def _round_delta(params, out, want_flat: torch.Tensor,
+                 sign: float = 1.0) -> dict:
+    """The round's delta sign * (out - params) against the oracle's
+    (want - params), leaf by leaf in f32: the elements the oracle moves
+    and its largest move, the elements that differ, the largest
+    difference in units of bfloat16's spacing at the result, and the
+    difference's L2 norm over the oracle delta's."""
+    moved = differ = 0
+    max_moved = max_ulps = sq_err = sq_ref = 0.0
+    off = 0
+    for p, o in zip(_leaves_of(params), _leaves_of(out)):
+        n = p.numel()
+        pf = p.float()
+        want = want_flat[off:off + n].view_as(p).float()
+        off += n
+        d, dw = sign * (o.float() - pf), want - pf
+        err = (d - dw).abs()
+        mag = torch.maximum(torch.maximum(pf.abs(), want.abs()),
+                            (pf + d).abs())
+        moved += int((dw != 0).sum())
+        differ += int((err != 0).sum())
+        max_moved = max(max_moved, float(dw.abs().max()))
+        max_ulps = max(max_ulps, float((err / _ulp_bf16(mag)).max()))
+        sq_err += float(err.double().square().sum())
+        sq_ref += float(dw.double().square().sum())
+    return dict(moved=moved, max_moved=max_moved, differ=differ,
+                max_ulps=max_ulps,
+                rel_l2=(sq_err / sq_ref) ** 0.5 if sq_ref else math.inf)
+
+
+def _delta_agrees(stats: dict) -> bool:
+    return (stats["moved"] > 0 and stats["max_ulps"] <= 1.0
+            and stats["rel_l2"] <= ROUND_DELTA_REL_L2)
+
+
+def phase_mesh_lm_round(dev) -> dict:
+    """`launch.fl_round.make_fl_round_step` on full-width hymba-1.5b
+    (bf16, random weights from a seed) as one pod of a one-rank NCCL
+    group: ROUND_STEPS local proximal SGD steps (mu ROUND_MU, the
+    launcher's lr) on a (2, 2048) batch of the launcher's data, then the
+    masked all-reduce. One warm round, then one timed with the launch
+    and collective counters zeroed just before and read just after (a
+    launch of each LM kernel a layer a local step) and the peak device
+    memory. Weight 0 and steps 0 must each give the params back bit for
+    bit. With weight > 0 the round's delta (out - params) is held
+    against an oracle's: two plain SGD steps computed separately, in the
+    params' dtype as the reference computes them, then
+    `weighted_delta_update` (the fedagg kernel's delta form) on the card.
+    Each element within one bfloat16 rounding of the result, and the
+    delta's L2 error within ROUND_DELTA_REL_L2 of the oracle delta's.
+    The same check must reject the round at half the lr and the round
+    with its delta's sign flipped. The proximal term's reach is reported
+    (the elements a round at mu 0 leaves elsewhere)."""
+    cfg = get_config(ROUND_ARCH)
+    _nccl_group(dev)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    batch = _token_batch(cfg, 0, dev, TRAIN_BATCH, TRAIN_SEQ)
+    step = make_fl_round_step(cfg, lr=TRAIN_LR, local_steps=ROUND_STEPS,
+                              prox_mu=ROUND_MU)
+    w = [float(TRAIN_BATCH * TRAIN_SEQ)]
+    step(params, batch, w)                      # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()                        # this path's counts
+    reset_collectives()
+    t0 = time.perf_counter()
+    out = step(params, batch, w)
+    torch.cuda.synchronize()
+    round_s = time.perf_counter() - t0
+    launches, colls = dict(ops.LAUNCHES), dict(COLLECTIVES)
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: n * ROUND_STEPS for k, n in _layer_launches(cfg).items()}
+    require(all(launches[k] == n for k, n in want.items()),
+            f"fl round launched {launches}; expected {want}")
+    require(colls["all_reduce"] == 2,
+            f"fl round collectives {colls}: expected the weights' total "
+            "and one bf16 bucket")
+    moved = float(max((a.float() - b.float()).abs().max() for a, b in
+                      zip(_leaves_of(out), _leaves_of(params))))
+    require(moved > 0, "a participating round left the params unchanged")
+    for label, kw in (("weight 0", dict(weights=[0.0])),
+                      ("steps 0", dict(weights=w, steps=[0]))):
+        same = step(params, batch, **kw)
+        require(all(torch.equal(a, b) for a, b in
+                    zip(_leaves_of(same), _leaves_of(params))),
+                f"{label}: the params moved")
+        del same
+    # The oracle: plain SGD steps in the params' dtype (the reference's
+    # p - lr * (g + mu * (p - p0))), then the host path's server update.
+    anchors = _leaves_of(params)
+    leaves = [p.detach().clone() for p in anchors]
+    for _ in range(ROUND_STEPS):
+        for p in leaves:
+            p.requires_grad_(True)
+        grads = torch.autograd.grad(
+            lm_loss(cfg, _rebuild(params, leaves), batch)[0], leaves)
+        with torch.no_grad():
+            leaves = [p - TRAIN_LR * (g + ROUND_MU * (p - p0))
+                      for p, g, p0 in zip(leaves, grads, anchors)]
+        del grads
+    local = _rebuild(params, leaves)
+    del leaves
+    with torch.no_grad():
+        want_flat = weighted_delta_update(
+            _flat(params), _flat(local)[None],
+            torch.tensor(w, device=dev), torch.zeros(1, device=dev))
+        del local
+        delta = _round_delta(params, out, want_flat)
+        flipped = _round_delta(params, out, want_flat, sign=-1.0)
+    half = make_fl_round_step(cfg, lr=TRAIN_LR / 2, local_steps=ROUND_STEPS,
+                              prox_mu=ROUND_MU)(params, batch, w)
+    no_mu = make_fl_round_step(cfg, lr=TRAIN_LR, local_steps=ROUND_STEPS,
+                               prox_mu=0.0)(params, batch, w)
+    with torch.no_grad():
+        half_lr = _round_delta(params, half, want_flat)
+        del half
+        mu_reach = sum(int((a != b).sum()) for a, b in
+                       zip(_leaves_of(no_mu), _leaves_of(out)))
+        del no_mu
+    emit("mesh_lm_round_delta", delta=delta, flipped=flipped,
+         half_lr=half_lr, mu_reach_elements=mu_reach,
+         rel_l2_tol=ROUND_DELTA_REL_L2)
+    require(_delta_agrees(delta),
+            f"fl round's delta disagrees with the oracle's: {delta}")
+    require(not _delta_agrees(flipped) and not _delta_agrees(half_lr),
+            "the delta check passes a flipped or a half-lr round: "
+            f"{flipped}, {half_lr}")
+    n_params = count_params(params)
+    del params, out, want_flat
+    torch.cuda.empty_cache()
+    res = dict(arch=ROUND_ARCH, params=n_params, dtype=cfg.dtype,
+               batch=TRAIN_BATCH, seq=TRAIN_SEQ, local_steps=ROUND_STEPS,
+               prox_mu=ROUND_MU, lr=TRAIN_LR, backend="nccl",
+               round_s=round_s, peak_device_memory_bytes=peak,
+               launches=launches, collectives=colls, params_max_moved=moved,
+               identity_rounds_bitwise=True, delta=delta,
+               delta_rel_l2_tol=ROUND_DELTA_REL_L2,
+               rejects=dict(flipped=flipped, half_lr=half_lr),
+               mu_reach_elements=mu_reach)
+    emit("mesh_lm_round", **res)
+    return res
+
+
+# One grok-1 MoE block at full width (d 6144, 8 experts of 32,768, top-2,
+# capacity factor 1.5, bf16) on x of (EP_BATCH, EP_SEQ, d).
+EP_ARCH, EP_BATCH, EP_SEQ, EP_REPS = "grok-1-314b", 4, 2048, 5
+
+
+def phase_ep_moe(dev) -> dict:
+    """`apply_moe_ep` over a one-rank NCCL group against `apply_moe` on
+    the one-row view (B * S tokens as one row: the same capacity, drops
+    included): output, aux and the gradients in x, the router and the
+    experts within the bf16 tolerance; forward and backward ms (CUDA
+    events, median of EP_REPS after a warm run) of both, and the
+    all-to-all bytes of one forward and backward."""
+    cfg = get_config(EP_ARCH)
+    group = _nccl_group(dev)
+    d = cfg.d_model
+    g = torch.Generator(dev).manual_seed(0)
+    p = init_moe(g, d, cfg.moe, cfg.mlp, device=dev, dtype=torch.bfloat16)
+    x = torch.randn((EP_BATCH, EP_SEQ, d), generator=g, device=dev
+                    ).to(torch.bfloat16)
+    dy = torch.randn(x.shape, generator=g, device=dev).to(torch.bfloat16)
+    leaves = _leaves_of(p)
+    for t in leaves:
+        t.requires_grad_(True)
+    xx = x.clone().requires_grad_(True)
+
+    def forward(ep: bool):
+        if ep:
+            return apply_moe_ep(p, xx, cfg.moe, cfg.mlp, group)
+        y, aux = apply_moe(p, xx.reshape(1, -1, d), cfg.moe, cfg.mlp)
+        return y.view(x.shape), aux
+
+    def run(ep: bool):
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        y, aux = forward(ep)
+        e[1].record()
+        loss = (y.float() * dy.float()).sum() + aux["load_balance"] \
+            + aux["router_z"]
+        grads = torch.autograd.grad(loss, [xx] + leaves)
+        e[2].record()
+        torch.cuda.synchronize()
+        return (y.detach(), {k: v.detach() for k, v in aux.items()},
+                grads, e[0].elapsed_time(e[1]), e[1].elapsed_time(e[2]))
+
+    res = {}
+    for ep in (True, False):
+        run(ep)                                 # warm
+        fwd, bwd = [], []
+        for _ in range(EP_REPS):
+            reset_collectives()
+            y, aux, grads, f_ms, b_ms = run(ep)
+            fwd.append(f_ms)
+            bwd.append(b_ms)
+        res[ep] = (y, aux, grads, statistics.median(fwd),
+                   statistics.median(bwd), dict(COLLECTIVES))
+        del y, aux, grads
+    (y, aux, grads, f_ms, b_ms, colls), (y1, aux1, grads1, f1, b1, _) = \
+        res[True], res[False]
+    require(colls["all_to_all"] == 4,
+            f"EP: {colls['all_to_all']} all-to-alls a forward and backward")
+    tol = TOL["bfloat16"]
+    err = dict(y=_max_err(y, y1, tol))
+    for k in aux:
+        err[k] = _max_err(aux[k], aux1[k], tol)
+    names = ["x"] + list(p)               # router, w1, w2: no nesting
+    for name, a, b in zip(names, grads, grads1):
+        scale = max(1.0, float(b.float().abs().max()))
+        err[f"grad_{name}"] = _max_err(a, b, tol, tol * scale)
+    E, K, cf = cfg.moe.n_experts, cfg.moe.top_k, cfg.moe.capacity_factor
+    C = int(max(1, round(EP_BATCH * EP_SEQ * K * cf / E)))
+    del p, leaves, xx, grads, grads1
+    torch.cuda.empty_cache()
+    out = dict(arch=EP_ARCH, d_model=d, n_experts=E, d_ff_expert=cfg.moe
+               .d_ff_expert, top_k=K, capacity_factor=cf, capacity=C,
+               x_shape=list(x.shape), dtype="bfloat16", backend="nccl",
+               ep_forward_ms=f_ms, ep_backward_ms=b_ms,
+               row_local_forward_ms=f1, row_local_backward_ms=b1,
+               all_to_all=colls["all_to_all"],
+               all_to_all_bytes=colls["all_to_all_bytes"],
+               all_to_all_bytes_each=E * C * d * 2, max_abs_err=err,
+               tol=tol)
+    emit("ep_moe", **out)
     return out
 
 
@@ -2968,7 +3393,8 @@ def main() -> int:
     setup = timed("main_path_setup", main_path_setup, dev)
     sim = ("fedagg", "prox_sgd")
     shapes = {name: LaunchShapes(*sim) for name in (
-        "main_path", "comms_path", "cnn_path", "batched_sweep")}
+        "main_path", "mesh_path", "comms_path", "cnn_path",
+        "batched_sweep")}
     shapes.update(serve=LaunchShapes("flash_attention", "wkv6"),
                   serve_rwkv=LaunchShapes("wkv6"),
                   serve_moe=LaunchShapes("flash_attention"),
@@ -2981,9 +3407,13 @@ def main() -> int:
                   lm_train_audio=LaunchShapes("flash_attention",
                                               "flash_attention_bwd"),
                   lm_train_vlm=LaunchShapes("flash_attention",
-                                            "flash_attention_bwd"))
+                                            "flash_attention_bwd"),
+                  mesh_lm_round=LaunchShapes(*LM_KERNELS))
     with shapes["main_path"]:
         main_path = timed("main_path", phase_main_path, dev, setup)
+    setup["main_path"] = main_path
+    with shapes["mesh_path"]:
+        mesh_path = timed("mesh_path", phase_mesh_path, dev, setup)
     timed("where_time_goes", phase_where_time_goes, dev, setup)
     timed("cpu_vs_card", phase_cpu_vs_card, dev)
     with shapes["comms_path"]:
@@ -3025,6 +3455,9 @@ def main() -> int:
         trained_vlm = timed("lm_train_vlm", phase_lm_train, dev, VLM_ARCH,
                             TRAIN_BATCH, TRAIN_SEQ, VLM_TRAIN_LAYERS,
                             "lm_train_vlm")
+    with shapes["mesh_lm_round"]:
+        lm_round = timed("mesh_lm_round", phase_mesh_lm_round, dev)
+    timed("ep_moe", phase_ep_moe, dev)
     timed("path_shapes", phase_path_shapes, dev, shapes)
     timed("lm_cpu_vs_card", phase_lm_cpu_vs_card, dev)
 
@@ -3074,9 +3507,12 @@ def main() -> int:
                                                "whisper_cross")],
              "wkv6_bwd": [_pick(train_rows, name="wkv6_bwd",
                                 case="rwkv6_train")]}
-    row_keys = ("case", "build", "S", "Sk", "D", "Dv", "max_abs_err", "ms",
-                "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "library_backend", "library_note")
+    # The mesh path's server update: fedagg's partial form at its shape.
+    other["fedagg"] = [_pick(rows, name="fedagg", form="partial", K=10,
+                             dtype="float32")]
+    row_keys = ("case", "build", "form", "K", "P", "S", "Sk", "D", "Dv",
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library_backend", "library_note")
     kernels = []
     for row, source, replaces, launches in (
             (prox, "src/repro_torch/csrc/prox_sgd.cu",
@@ -3108,11 +3544,17 @@ def main() -> int:
             batched_sweep_launches=sweep["train"]["femnist_cnn"][
                 "launches"].get(row["name"], 0),
             lm_fl_launches=fl_total.get(row["name"], 0),
+            # The main path through execution="mesh" (8 runs) and the
+            # full-width hymba-1.5b round as a pod, each counted from 0.
+            mesh_path_launches=mesh_path["launches"][row["name"]],
+            mesh_lm_round_launches=lm_round["launches"][row["name"]],
             **{f"{path}_launches": run["launches"][row["name"]]
                for path, run in (serve_runs | train_runs).items()},
             other_shapes=[{k: r.get(k) for k in row_keys}
                           for r in other.get(row["name"], [])]))
     emit("done", wall_s=time.perf_counter() - t_start, phases_s=phases_s)
+    if dist.is_initialized():
+        dist.destroy_process_group()
     print(smi_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

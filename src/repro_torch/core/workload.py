@@ -63,9 +63,16 @@ class Workload:
     sample_shape: tuple[int, ...]        # batch schema: per-sample x shape
     sample_dtype: str = "float32"        #   ... and dtype
     layout: ParamLayout = FEMNIST_MLP    # flat parameter layout
-    # "host" runs the client stack on one device; "mesh" (clients as
-    # devices) waits for the multi-device slice (ROADMAP).
+    # "host" runs the client stack on one device and aggregates it there;
+    # "mesh" makes every participating client a pod slot of a process
+    # group (`launch.fl_round.make_mesh_round_step`): each rank trains its
+    # block of slots and one masked, weighted all-reduce aggregates.
+    # `ConstellationSim(..., execution=...)` overrides per run.
     execution: str = "host"
+    # Batch-key ranks for the launch-style dict-batch contract
+    # (`make_fl_round_step`; leading dim split over the pods); None = the
+    # engine's (x, y) schema.
+    mesh_batch_dims: dict[str, int] | None = None
     # --- cost model -----------------------------------------------------
     flops_per_sample: float | None = None
     train_flops_per_param: float | None = None
@@ -268,6 +275,7 @@ def lm_workload(cfg, *, name: str | None = None, seq_len: int = 32,
         sample_shape=(seq_len + 1,),
         sample_dtype="int32",
         layout=layout,
+        mesh_batch_dims={"tokens": 2},
         train_flops_per_param=6.0 * (seq_len + 1),
         inactive_params=lm_inactive_params(cfg),
         samples_per_epoch=samples_per_client,

@@ -2,6 +2,7 @@
 //
 //   out[p] = sum_k w[k] * x[k, p]                                (plain form)
 //   out[p] = base[p] + scale * sum_k w[k] * (x[k, p] - base[p])  (delta form)
+//   out[p] = sum_k w[k] * (x[k, p] - base[p])                  (partial form)
 //
 // Replaces the Pallas TPU kernel `repro/kernels/fedagg.py::fedagg`
 // (`_fedagg_kernel`). The TPU kernel walks P in sequential grid steps of
@@ -12,6 +13,11 @@
 // `weighted_delta_update` (FedBuff), so the staleness-discounted server
 // update is one pass too. x is read as the (K, P) buffer it already is:
 // no copy like the reference's `jnp.concatenate` in `fedagg_pytree`.
+// The partial form is one rank's share of the mesh round's server update
+// (`masked_delta_allreduce`): its block of clients' weighted deltas, the
+// base not added back, so that the ranks' partials are summed by an
+// all-reduce before the update is applied. It is the delta form's loop
+// with the last multiply-add left out.
 //
 // Bound on the H100: bytes. K*P reads (+ P for base) and P writes for 2*K*P
 // flops. At the simulator's shape (K = 10, P = 46,639, f32) that is
@@ -85,7 +91,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
 }
 
-template <typename T, bool BASE>
+// BASE: the delta form; BASE and PARTIAL: the partial form.
+template <typename T, bool BASE, bool PARTIAL = false>
 __global__ void fedagg_kernel(const T* __restrict__ x,
                               const float* __restrict__ w,
                               const T* __restrict__ base, float scale,
@@ -99,7 +106,8 @@ __global__ void fedagg_kernel(const T* __restrict__ x,
       for (int k = 0; k < K; ++k)
         acc = __fadd_rn(acc, __fmul_rn(__ldg(w + k),
                                        __fsub_rn(to_f32(x[k * P + p]), b)));
-      out[p] = from_f32<T>(__fadd_rn(b, __fmul_rn(scale, acc)));
+      out[p] = from_f32<T>(PARTIAL ? acc
+                                   : __fadd_rn(b, __fmul_rn(scale, acc)));
     } else {
       for (int k = 0; k < K; ++k)
         acc = __fadd_rn(acc, __fmul_rn(__ldg(w + k), to_f32(x[k * P + p])));
@@ -143,7 +151,8 @@ __global__ void fedagg_batched_kernel(const T* __restrict__ x,
 
 template <typename T>
 int launch(const void* x, const void* w, const void* base, float scale,
-           void* out, int K, int64_t P, int device, void* stream) {
+           int partial, void* out, int K, int64_t P, int device,
+           void* stream) {
   // Launch on the tensors' device and give the calling thread back its
   // current device, which PyTorch reads for its own defaults.
   int prev = device;
@@ -155,7 +164,11 @@ int launch(const void* x, const void* w, const void* base, float scale,
   if (blocks > 4096) blocks = 4096;
   if (blocks < 1) blocks = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (base != nullptr)
+  if (base != nullptr && partial)
+    fedagg_kernel<T, true, true><<<(unsigned)blocks, threads, 0, s>>>(
+        static_cast<const T*>(x), static_cast<const float*>(w),
+        static_cast<const T*>(base), scale, static_cast<T*>(out), K, P);
+  else if (base != nullptr)
     fedagg_kernel<T, true><<<(unsigned)blocks, threads, 0, s>>>(
         static_cast<const T*>(x), static_cast<const float*>(w),
         static_cast<const T*>(base), scale, static_cast<T*>(out), K, P);
@@ -198,18 +211,20 @@ int launch_batched(const void* x, const void* w, const void* base,
 
 }  // namespace
 
-// C entry points (bound with ctypes). `base` may be null (plain form).
+// C entry points (bound with ctypes). `base` may be null (plain form);
+// with a base, `partial` != 0 selects the partial form (scale unused).
 // Return cudaGetLastError() after the launch: 0 on success.
 extern "C" int fedagg_f32(const void* x, const void* w, const void* base,
-                          float scale, void* out, int K, int64_t P, int device,
-                          void* stream) {
-  return launch<float>(x, w, base, scale, out, K, P, device, stream);
+                          float scale, int partial, void* out, int K,
+                          int64_t P, int device, void* stream) {
+  return launch<float>(x, w, base, scale, partial, out, K, P, device, stream);
 }
 
 extern "C" int fedagg_bf16(const void* x, const void* w, const void* base,
-                           float scale, void* out, int K, int64_t P,
-                           int device, void* stream) {
-  return launch<__nv_bfloat16>(x, w, base, scale, out, K, P, device, stream);
+                           float scale, int partial, void* out, int K,
+                           int64_t P, int device, void* stream) {
+  return launch<__nv_bfloat16>(x, w, base, scale, partial, out, K, P, device,
+                               stream);
 }
 
 // The batched form: x (S, K, P), w (S, K), base (S, P) or null, scale (S,)

@@ -51,9 +51,9 @@ _SIGNATURES = {
                           _f32, _f32, _i32, _vp],
     "prox_sgd_rows_bf16": [_vp, _vp, _vp, _i64, _vp, _vp, _i32, _i32, _i64,
                            _f32, _f32, _i32, _vp],
-    # x, w, base, scale, out, K, P, device, stream
-    "fedagg_f32": [_vp, _vp, _vp, _f32, _vp, _i32, _i64, _i32, _vp],
-    "fedagg_bf16": [_vp, _vp, _vp, _f32, _vp, _i32, _i64, _i32, _vp],
+    # x, w, base, scale, partial, out, K, P, device, stream
+    "fedagg_f32": [_vp, _vp, _vp, _f32, _i32, _vp, _i32, _i64, _i32, _vp],
+    "fedagg_bf16": [_vp, _vp, _vp, _f32, _i32, _vp, _i32, _i64, _i32, _vp],
     # x, w, base, scale (S,), out, S, K, P, device, stream
     "fedagg_batched_f32": [_vp, _vp, _vp, _vp, _vp, _i32, _i32, _i64, _i32,
                            _vp],

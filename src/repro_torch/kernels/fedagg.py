@@ -2,12 +2,15 @@
 
     out[p] = sum_k w[k] * x[k, p]
     out[p] = base[p] + scale * sum_k w[k] * (x[k, p] - base[p])   (with base)
+    out[p] = sum_k w[k] * (x[k, p] - base[p])          (with base, partial)
 
 Port of the Pallas TPU kernel `repro.kernels.fedagg.fedagg`, plus the
 delta form that `weighted_delta_update` (FedBuff) needs, in the same
-single pass, and a batched form over a leading scenario axis (x
-(S, K, P), w (S, K), base (S, P), a per-scenario scale (S,)) that
-aggregates a whole batch of scenarios in one launch. The kernel is
+single pass, the partial form that one rank of a mesh round contributes
+to the all-reduce of `masked_delta_allreduce` (its block's weighted
+deltas, the base not added back), and a batched form over a leading
+scenario axis (x (S, K, P), w (S, K), base (S, P), a per-scenario scale
+(S,)) that aggregates a whole batch of scenarios in one launch. The kernel is
 `repro_torch/csrc/fedagg.cu`; it is bound by bytes on the H100 (see the
 source's header note).
 """
@@ -37,13 +40,18 @@ def _check(x: torch.Tensor, named: list) -> int:
 
 def fedagg(x: torch.Tensor, w: torch.Tensor,
            base: torch.Tensor | None = None,
-           scale: float | torch.Tensor = 1.0) -> torch.Tensor:
+           scale: float | torch.Tensor = 1.0,
+           partial: bool = False) -> torch.Tensor:
     """Launch the kernel on CUDA tensors. x: (K, P) contiguous f32 or
-    bf16; w: (K,) f32; base: optional (P,) in x's dtype. Returns (P,) in
-    x's dtype, accumulated in f32. With a leading scenario axis — x
-    (S, K, P), w (S, K), base (S, P), scale an (S,) float32 tensor —
-    returns (S, P)."""
+    bf16; w: (K,) f32; base: optional (P,) in x's dtype; `partial` (with
+    a base) leaves the base and `scale` out. Returns (P,) in x's dtype,
+    accumulated in f32. With a leading scenario axis — x (S, K, P), w
+    (S, K), base (S, P), scale an (S,) float32 tensor — returns (S, P)."""
+    if partial and base is None:
+        raise ValueError("fedagg: the partial form needs a base")
     if x.dim() == 3:
+        if partial:
+            raise ValueError("fedagg: no partial form over a scenario axis")
         return fedagg_batched(x, w, base, scale)
     named = [("x", x), ("w", w)] + ([("base", base)] if base is not None
                                     else [])
@@ -64,7 +72,7 @@ def fedagg(x: torch.Tensor, w: torch.Tensor,
         return out
     build.check(build.entry(f"fedagg_{_DTYPES[x.dtype]}")(
         x.data_ptr(), w.data_ptr(), None if base is None else base.data_ptr(),
-        float(scale), out.data_ptr(), K, P, index,
+        float(scale), int(partial), out.data_ptr(), K, P, index,
         current_stream(index)), "fedagg")
     return out
 

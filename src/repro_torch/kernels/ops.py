@@ -42,15 +42,18 @@ def reset_launches() -> None:
 
 def fedagg_op(x: torch.Tensor, w: torch.Tensor,
               base: torch.Tensor | None = None,
-              scale: float | torch.Tensor = 1.0) -> torch.Tensor:
-    """sum_k w[k] * x[k] over (K, P), or its delta form against `base`;
-    over (S, K, P) with a leading scenario axis (w (S, K), base (S, P),
-    scale an (S,) float32 tensor), one launch for every scenario."""
+              scale: float | torch.Tensor = 1.0,
+              partial: bool = False) -> torch.Tensor:
+    """sum_k w[k] * x[k] over (K, P), or its delta form against `base`
+    (with `partial`, its weighted deltas alone: a mesh rank's share of
+    the round); over (S, K, P) with a leading scenario axis (w (S, K),
+    base (S, P), scale an (S,) float32 tensor), one launch for every
+    scenario."""
     if x.device.type == "cpu":
         if x.dim() == 3:
             return ref.fedagg_batched_ref(x, w, base, scale)
-        return ref.fedagg_ref(x, w, base, scale)
-    out = fedagg(x, w, base, scale)
+        return ref.fedagg_ref(x, w, base, scale, partial)
+    out = fedagg(x, w, base, scale, partial)
     LAUNCHES["fedagg"] += 1
     return out
 

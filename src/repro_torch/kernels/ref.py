@@ -14,14 +14,20 @@ import torch.nn.functional as F
 
 def fedagg_ref(x: torch.Tensor, w: torch.Tensor,
                base: torch.Tensor | None = None,
-               scale: float = 1.0) -> torch.Tensor:
+               scale: float = 1.0, partial: bool = False) -> torch.Tensor:
     """x (K, P), w (K,) -> (P,): sum_k w[k] * x[k] in float32, stored in
-    x.dtype. With `base` (P,): base + scale * sum_k w[k] * (x[k] - base)."""
+    x.dtype. With `base` (P,): base + scale * sum_k w[k] * (x[k] - base),
+    or with `partial` only the sum, sum_k w[k] * (x[k] - base)."""
     x32, w32 = x.float(), w.float()[:, None]
     if base is None:
+        if partial:
+            raise ValueError("fedagg: the partial form needs a base")
         return (w32 * x32).sum(0).to(x.dtype)
     b32 = base.float()
-    return (b32 + scale * (w32 * (x32 - b32)).sum(0)).to(x.dtype)
+    acc = (w32 * (x32 - b32)).sum(0)
+    if partial:
+        return acc.to(x.dtype)
+    return (b32 + scale * acc).to(x.dtype)
 
 
 def prox_sgd_ref(w, g, w0, lr: float, mu: float) -> torch.Tensor:

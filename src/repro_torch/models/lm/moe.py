@@ -1,7 +1,7 @@
 """Top-k routed mixture-of-experts with sort-based capacity dispatch.
 
-Port of `repro.models.lm.moe` (the row-local `apply_moe`; the
-expert-parallel `apply_moe_ep` waits for the multi-device slice). The
+Port of `repro.models.lm.moe`: the row-local `apply_moe`, and the
+expert-parallel `apply_moe_ep` over the ranks of a process group. The
 dispatch is GShard-style without the (T, E, C) one-hot tensor: token ->
 expert assignments are sorted (a stable sort, as `jnp.argsort`, so which
 tokens overflow a full expert is the reference's), positions within each
@@ -31,6 +31,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lm.config import MoEConfig
 from repro_torch.models.lm.layers import apply_mlp, dense_init, init_mlp
 from repro_torch.models.lm.params import map_tree
+from repro_torch.sharding.compat import all_reduce_mean, all_to_all
 
 # Rows shorter than this use one global dispatch (decode: S == 1).
 _ROW_DISPATCH_MIN_S = 64
@@ -173,3 +174,54 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str
     y, aux = apply_moe_stacked(map_tree(lambda t: t[None], p),
                                x.reshape(1, B * S, d), cfg, mlp_kind, S)
     return y.view(B, S, d), {k: v[0] for k, v in aux.items()}
+
+
+# ======================================================================= #
+# Expert-parallel dispatch (token all-to-all)
+# ======================================================================= #
+def apply_moe_ep(p: dict, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str,
+                 group) -> tuple[torch.Tensor, dict]:
+    """GShard-style expert parallelism over the `n_shards` ranks of
+    `group` (its world size). x (b_loc, S, d) is this rank's shard of the batch; `p` holds
+    every expert (each rank reads only its own E / n_shards of them:
+    rank r owns experts r * E_loc .. (r + 1) * E_loc - 1), the router and
+    the shared experts, which run locally.
+
+    Each rank routes its own tokens and buffers them per (destination
+    rank, local expert, slot), (n_shards, E_loc, C, d) with the capacity
+    C = round(T_loc * K * cf / E) of this source shard's T_loc = b_loc * S
+    tokens; one all-to-all moves them to their experts and a second one
+    brings the outputs back. The aux losses are averaged over the group
+    (the reference's `pmean`). Differentiable: the all-to-all's backward
+    is the reverse all-to-all.
+
+    Capacity is per source shard, not per row: the result on rank r is
+    the row-local `apply_moe` of that shard's tokens as one row,
+    x.reshape(1, b_loc * S, d) (its drops included), not of x's rows.
+    """
+    b_loc, S, d = x.shape
+    E, K = cfg.n_experts, cfg.top_k
+    n_shards = torch.distributed.get_world_size(group)
+    if E % n_shards:
+        raise ValueError(f"{E} experts do not split over {n_shards} ranks")
+    E_loc = E // n_shards
+    r = torch.distributed.get_rank(group)
+    T = b_loc * S
+    xf = x.reshape(1, T, d)
+    gate_vals, expert_ids, aux = _route(p, xf, cfg)
+    aux = {k: all_reduce_mean(v[0], group) for k, v in aux.items()}
+    C = int(max(1, round(T * K * cfg.capacity_factor / E)))
+    buf, meta = _dispatch_tokens(xf, gate_vals, expert_ids, E, C)
+    # (1, E, C, d) = (n_shards, E_loc, C, d): destination-rank-major.
+    recv = all_to_all(buf.view(n_shards, E_loc, C, d), group)
+    # recv: (n_shards, E_loc, C, d), source-rank-major rows of MY experts.
+    h_in = recv.transpose(0, 1).reshape(E_loc, n_shards * C, d)
+    mine = slice(r * E_loc, (r + 1) * E_loc)
+    h = _expert_ffn({k: p[k][mine] for k in ("w1", "w2", "w3") if k in p},
+                    h_in, mlp_kind)
+    back = h.view(E_loc, n_shards, C, d).transpose(0, 1)
+    got = all_to_all(back, group)
+    y = _combine_tokens(got.reshape(1, E * C, d), meta, T, x.dtype)
+    if cfg.n_shared:
+        y = y + apply_mlp(p["shared"], xf, mlp_kind)
+    return y.view(b_loc, S, d), aux

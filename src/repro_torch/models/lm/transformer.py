@@ -4,7 +4,10 @@
 Port of `repro.models.lm.transformer` for the segment kinds
   attn    — [MLA|GQA] attention + dense MLP
   moe     — [MLA|GQA] attention + routed experts (+ shared), row-local
-            dispatch
+            dispatch, or expert-parallel (one all-to-all each way) over
+            full sequences under a declared `sharding.expert_parallel`
+            context whose size divides the expert count; decode (S = 1)
+            stays row-local
   rwkv    — RWKV6 time mix + channel mix
   hybrid  — parallel GQA attention + SSD heads, then dense MLP
 (MLA where `cfg.mla` is set, as deepseek-v3) with the reference's
@@ -72,6 +75,8 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
+import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
@@ -94,8 +99,10 @@ from repro_torch.models.lm.mla import (
     mla_prefill,
     mla_stacked,
 )
-from repro_torch.models.lm.moe import apply_moe, apply_moe_stacked, init_moe
+from repro_torch.models.lm.moe import apply_moe, apply_moe_ep, \
+    apply_moe_stacked, init_moe
 from repro_torch.models.lm.params import map_tree
+from repro_torch.sharding.ctx import ep_axis
 from repro_torch.models.lm.rwkv import (
     init_rwkv_channel_mix,
     init_rwkv_time_mix,
@@ -381,11 +388,26 @@ def _apply_layer_prefill(cfg: ModelConfig, seg: Segment, lp: dict, x,
     return x + _ffn(cfg, seg, lp, h2)
 
 
+def _moe_ep(cfg: ModelConfig, S: int):
+    """The group when a routed-expert layer over S positions takes the
+    expert-parallel dispatch (the reference's `_moe_block`): an EP
+    context is declared, the expert count divides its world size, and
+    S > 1; else None (row-local)."""
+    group = ep_axis()
+    if (group is not None and S > 1
+            and cfg.moe.n_experts % dist.get_world_size(group) == 0):
+        return group
+    return None
+
+
 def _ffn(cfg: ModelConfig, seg: Segment, lp: dict, h2):
     """The layer's feed-forward piece on one model: routed experts (their
     aux loss dropped, as the reference's prefill and decode drop it) or
     the dense MLP."""
     if seg.kind == "moe":
+        ep = _moe_ep(cfg, h2.shape[1])
+        if ep is not None:
+            return apply_moe_ep(lp["moe"], h2, cfg.moe, cfg.mlp, ep)[0]
         return apply_moe(lp["moe"], h2, cfg.moe, cfg.mlp)[0]
     return apply_mlp(lp["mlp"], h2, cfg.mlp)
 
@@ -617,7 +639,21 @@ def _apply_layer_train(cfg: ModelConfig, seg: Segment, lp: dict, x,
                            causal=False, kv=kv)
     h2 = rmsnorm(x, _row(lp["norm2"]), cfg.norm_eps)
     if seg.kind == "moe":
-        o, aux = apply_moe_stacked(lp["moe"], h2, cfg.moe, cfg.mlp, seq_len)
+        ep = _moe_ep(cfg, seq_len)
+        if ep is not None:
+            G, n, d = h2.shape
+            if G != 1:
+                raise ValueError(
+                    f"expert-parallel MoE trains one model, not a stack of "
+                    f"{G} clients")
+            lp1 = map_tree(lambda t: t[0], lp["moe"])
+            o, aux = apply_moe_ep(lp1, h2.view(n // seq_len, seq_len, d),
+                                  cfg.moe, cfg.mlp, ep)
+            o = o.reshape(1, n, d)
+            aux = {k: v.reshape(1) for k, v in aux.items()}
+        else:
+            o, aux = apply_moe_stacked(lp["moe"], h2, cfg.moe, cfg.mlp,
+                                       seq_len)
         return x + o, aux["load_balance"] + aux["router_z"]
     return x + apply_mlp(lp["mlp"], h2, cfg.mlp), None
 
@@ -657,8 +693,14 @@ def forward_train_stacked(cfg: ModelConfig, params, tokens: torch.Tensor,
                              "enc_embeds")
         enc_out = _encoder_stacked(cfg, params, enc_embeds)
         n_frames = enc_embeds.shape[2]
-    clients = torch.arange(G, device=tokens.device)[:, None, None]
-    x, positions = _place(cfg, params["embed"][clients, tokens],
+    # Each client's rows of its own table, through `F.embedding`: its
+    # backward sums a token's repeats in a fixed order, where indexing's
+    # accumulating backward on several CPU threads does not (a routed
+    # model's training then drifts from run to run).
+    emb = params["embed"]
+    V = emb.shape[1]
+    rows = torch.arange(G, device=tokens.device)[:, None, None] * V + tokens
+    x, positions = _place(cfg, F.embedding(rows, emb.reshape(G * V, -1)),
                           prefix_embeds)
     S = x.shape[2]
     x = x.reshape(G, B * S, -1)

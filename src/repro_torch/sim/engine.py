@@ -25,10 +25,23 @@ the two (`repro_torch.comms.codec`). Random draws (initial params,
 minibatch indices, the codec's stochastic-rounding uniforms) come from a
 `sampler`; the default `TorchSampler` holds one `torch.Generator`.
 
+`_train_round` dispatches on the execution mode (a `Workload` capability,
+overridable per run with `ConstellationSim(..., execution=...)`):
+
+  * "host" — the stack above, then `Strategy.aggregate`;
+  * "mesh" — cluster-as-collective (`launch.fl_round.make_mesh_round_step`):
+    each participating satellite is a pod slot of the ranks of a
+    `torch.distributed` group (`sharding.client_mesh`; a one-rank group
+    when the program has none), each rank trains its block of slots, and
+    aggregation is one participation-masked, weighted all-reduce. Covers
+    every strategy in the (weighted-average / staleness-discounted
+    weighted-delta, server-lr) family, i.e. the whole registered suite;
+    a custom `Strategy.aggregate` outside that family must run on "host".
+    Every rank runs the whole event loop and makes the same draws, so
+    all ranks agree on every record; one rank is bitwise the host path.
+
 The workloads are `femnist_mlp`, `femnist_cnn`, `lm_tiny`,
-`lm_hybrid_tiny`, `lm_rwkv6_tiny` and `lm_moe_tiny`. Not ported yet
-(raising NotImplementedError naming its ROADMAP item):
-`execution="mesh"` (multi-device slice).
+`lm_hybrid_tiny`, `lm_rwkv6_tiny` and `lm_moe_tiny`.
 """
 from __future__ import annotations
 
@@ -50,17 +63,21 @@ from repro_torch.comms.links import ConstantRate, LinkModel
 from repro_torch.core.aggregation import admission_weights
 from repro_torch.core.client import vmapped_client_update
 from repro_torch.core.spaceify import SpaceifiedAlgorithm
-from repro_torch.core.strategies.base import BufferState, PendingUpdate
+from repro_torch.core.strategies.base import BufferState, PendingUpdate, \
+    Strategy
+from repro_torch.core.strategies.fedbuff import FedBuffSat
 from repro_torch.core.timing import HardwareModel
 from repro_torch.core.workload import Workload, get_workload, \
     validate_execution
 from repro_torch.data.federated import FederatedDataset
 from repro_torch.device import resolve_device
+from repro_torch.launch.fl_round import make_mesh_round_step
 from repro_torch.obs import count, enabled as obs_enabled, span
 from repro_torch.orbits.access import AccessWindows, compute_access_windows
 from repro_torch.orbits.walker import WalkerStar
 from repro_torch.params import ParamLayout, params_from_jax, \
     params_to_numpy
+from repro_torch.sharding.flmesh import client_mesh, pad_client_count
 from repro_torch.sim.metrics import RoundRecord, SimResult
 
 
@@ -247,8 +264,33 @@ class ConstellationSim:
         self.execution = validate_execution(
             execution or self.workload.execution)
         if self.execution == "mesh":
-            raise NotImplementedError(
-                "execution='mesh': ROADMAP multi-device slice")
+            # The mesh round step stacks one (x, y) sample stream per pod
+            # slot. A workload whose launch-style dict-batch schema
+            # declares extra streams (prefix/encoder embeddings) cannot
+            # be expressed that way: refuse instead of silently dropping
+            # the extra keys.
+            dims = self.workload.mesh_batch_dims
+            streams = [k for k in (dims or {}) if k != "labels"]
+            if len(streams) > 1:
+                raise ValueError(
+                    f"workload {self.workload.name!r} declares a "
+                    f"multi-stream mesh batch schema {sorted(dims)}; the "
+                    "engine's mesh path carries a single (x, y) sample "
+                    "stream per pod slot — run with execution='host' or "
+                    "drive launch.fl_round.make_fl_round_step directly")
+            # The collective realizes exactly the weighted-average /
+            # discounted-delta family; a custom Strategy.aggregate would
+            # be silently bypassed, so refuse instead.
+            agg = type(algorithm.strategy).aggregate
+            if agg not in (Strategy.aggregate, FedBuffSat.aggregate):
+                raise ValueError(
+                    f"strategy {algorithm.strategy.name!r} overrides "
+                    "aggregate() outside the weighted-average / "
+                    "staleness-discounted-delta family; mesh execution "
+                    "would bypass it — run with execution='host'")
+            # The collective rounds as the strategy's own form does (the
+            # synchronous average, or FedBuff's discounted delta).
+            self._mesh_delta = agg is FedBuffSat.aggregate
         self.sampler = sampler or TorchSampler(self.cfg.seed, self.device)
         self.init_params = init_params
         self._params_hist: list = []
@@ -333,6 +375,65 @@ class ConstellationSim:
             self._sync_if_traced()
         return out
 
+    def _run_clients_mesh(self, global_params: torch.Tensor, ks: list[int],
+                          epochs: list[int], *, weights, staleness,
+                          anchors: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+        """Cluster-as-collective round: clients are pod slots on the
+        client mesh; local SGD and aggregation happen in one round step
+        (`launch.fl_round.make_mesh_round_step`). Returns the *new global
+        params*: aggregation is part of the collective.
+
+        The draws are the host path's (`_run_clients`, then
+        `_codec_roundtrip`), in the same order and for the real clients
+        only; the pod axis is then padded to a multiple of the mesh size
+        with zero-weight, zero-step slots that repeat `ks[0]`'s rows (the
+        dense equivalent of an out-of-contact satellite), and FedBuff's
+        anchors with the current global model.
+        """
+        steps_np = [self._steps_for(k, e) for k, e in zip(ks, epochs)]
+        mesh = client_mesh(device=self.device)
+        total = pad_client_count(len(ks), mesh)
+        pad = total - len(ks)
+        bound = self._bound(steps_np)
+        idx = self.sampler.minibatches([int(self.data.n[k]) for k in ks],
+                                       bound, self.cfg.batch_size)
+        layout = self.workload.layout
+        u = (self.sampler.codec_uniforms(len(ks), layout)
+             if self.codec.lossy and self.codec.stochastic else None)
+
+        def padded(t: torch.Tensor) -> torch.Tensor:
+            return torch.cat([t, t[:1].expand(pad, *t.shape[1:])]) if pad \
+                else t
+
+        rows = torch.as_tensor(list(ks) + [ks[0]] * pad, device=self.device)
+        dev = self.device
+        w = torch.cat([torch.as_tensor(weights, dtype=torch.float32,
+                                       device=dev),
+                       torch.zeros((pad,), dtype=torch.float32, device=dev)])
+        stale = torch.cat([torch.as_tensor(staleness, device=dev).long(),
+                           torch.zeros((pad,), dtype=torch.long,
+                                       device=dev)])
+        if anchors is None:                  # sync barrier: one anchor
+            anchors = global_params
+        elif pad:                            # FedBuff: pad with current
+            anchors = torch.cat([anchors,
+                                 global_params.expand(pad, -1)])
+        step_fn = make_mesh_round_step(
+            self.workload.loss_fn, mesh, lr=self.cfg.lr,
+            batch_size=self.cfg.batch_size, max_steps=bound,
+            server_lr=getattr(self.alg.strategy, "server_lr", 1.0),
+            layout=layout, codec=self.codec if self.codec.lossy else None,
+            delta=self._mesh_delta)
+        with span("sim.client_train", mode="mesh", clients=len(ks),
+                  slots=total, ranks=mesh.size, step_bound=bound):
+            out = step_fn(global_params, anchors, self._x[rows],
+                          self._y[rows], steps_np + [0] * pad, w, stale,
+                          self.alg.strategy.prox_mu, padded(idx),
+                          None if u is None else padded(u))
+            self._sync_if_traced()
+        return out
+
     def _codec_roundtrip(self, stacked: torch.Tensor, anchors: torch.Tensor
                          ) -> torch.Tensor:
         """Each client's return re-expressed as anchor + codec.apply(delta)
@@ -350,8 +451,12 @@ class ConstellationSim:
 
     def _train_round(self, global_params, ks: list[int], epochs: list[int],
                      *, weights, staleness, anchors=None) -> torch.Tensor:
-        """Client updates + aggregation for one round (or buffer flush).
-        Returns the new global params."""
+        """Client updates + aggregation for one round (or buffer flush),
+        dispatched on the execution mode. Returns the new global params."""
+        if self.execution == "mesh":
+            return self._run_clients_mesh(
+                global_params, ks, epochs, weights=weights,
+                staleness=staleness, anchors=anchors)
         stacked = self._run_clients(global_params, ks, epochs,
                                     anchors=anchors)
         if self.codec.lossy:

@@ -1334,3 +1334,121 @@ def test_reduced_encdec_and_vlm_card_match_cpu(dev, arch, prompt_len):
     assert abs(out["card"][3] - out["cpu"][3]) <= 1e-4
     for a, b in zip(out["card"][4], out["cpu"][4]):
         _close(a, b, 1e-4, 1e-4 * max(1.0, float(b.abs().max())))
+
+
+# ------------------------------------------------------------- the mesh
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,p", SIM_SHAPES + [(1, 4099), (5, 12345)])
+def test_fedagg_partial_form_matches_plain(dev, k, p, dtype):
+    """The partial form (a mesh rank's weighted deltas, no base added):
+    f32 bitwise the ordered sum, bf16 within 2e-2 of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(k * p + 1)
+    x = torch.randn((k, p), generator=g, device=dev).to(dtype)
+    w = torch.rand((k,), generator=g, device=dev)
+    base = torch.randn((p,), generator=g, device=dev).to(dtype)
+    before = ops.LAUNCHES["fedagg"]
+    got = ops.fedagg_op(x, w, base, partial=True)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["fedagg"] == before + 1
+    assert got.dtype == dtype and got.shape == (p,)
+    _close(got, ref.fedagg_ref(x, w, base, partial=True), TOL[dtype])
+    if dtype == torch.float32:
+        xf, b = x.float(), base.float()
+        acc = torch.zeros(p, device=dev)
+        for i in range(k):
+            acc = acc + w[i] * (xf[i] - b)
+        assert torch.equal(got, acc)
+
+
+def test_mesh_run_on_nccl_matches_host_run(dev, monkeypatch):
+    """fedprox and fedbuff on c2s2/g1 through `execution="mesh"` on the
+    card: a one-rank group whose CUDA backend is NCCL, one fedagg launch
+    and two all-reduces a round, records and every round's params equal
+    to the card's host run bit for bit (one rank rounds as the host
+    path); a CUDA tensor on a group without NCCL is refused."""
+    import torch.distributed as dist
+
+    from repro_torch.sharding import COLLECTIVES, all_reduce_sum, \
+        default_group, reset_collectives
+    from repro_torch.sharding.compat import backend_for
+    cst, st = WalkerStar(2, 2), station_subnetwork(1)
+    horizon = 4 * 86400.0
+    aw = compute_access_windows(cst, st, horizon_s=horizon, device="cpu")
+    data = synth_femnist(cst.n_sats, seed=0)
+    cfg = SimConfig(max_rounds=3, horizon_s=horizon, eval_every=1,
+                    max_steps=16, record_params=True)
+    group = default_group(dev)
+    assert backend_for(torch.zeros(1, device=dev), group) == "nccl"
+    for name in ("fedprox", "fedbuff"):
+        runs = {}
+        for mode in ("host", "mesh"):
+            reset_collectives()
+            before = dict(ops.LAUNCHES)
+            runs[mode] = ConstellationSim(
+                cst, st, ALGORITHMS[name], data=data, cfg=cfg, access=aw,
+                device=dev, sampler=TorchSampler(0, dev),
+                execution=mode).run()
+            moved = {k: ops.LAUNCHES[k] - before[k] for k in ops.LAUNCHES}
+            rounds = runs[mode].n_rounds
+            assert moved["fedagg"] == rounds and moved["prox_sgd"] > 0
+            assert COLLECTIVES["all_reduce"] == (2 * rounds if mode == "mesh"
+                                                 else 0)
+        host, mesh = runs["host"], runs["mesh"]
+        assert [r.participants for r in host.rounds] == \
+            [r.participants for r in mesh.rounds]
+        for a, b in zip(host.params_history, mesh.params_history):
+            for layer in a:
+                for leaf in a[layer]:
+                    assert (b[layer][leaf] == a[layer][leaf]).all()
+    # A group whose CUDA backend is gloo: the collective is refused before
+    # it runs.
+    monkeypatch.setattr(dist, "get_backend_config",
+                        lambda group=None: "cpu:gloo,cuda:gloo")
+    t = torch.ones(2, device=dev)
+    with pytest.raises(RuntimeError, match="NCCL"):
+        all_reduce_sum(t, group)
+    assert torch.equal(t, torch.ones(2, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_apply_moe_ep_on_card_matches_one_row_view(dev, dtype):
+    """Expert parallelism at one rank on NCCL against the row-local
+    apply_moe on the one-row view (the same capacity, drops included):
+    outputs, aux and gradients (f32 1e-5; bf16 2e-2)."""
+    import dataclasses
+
+    from repro_torch.models.lm.moe import apply_moe, apply_moe_ep, init_moe
+    from repro_torch.models.lm.params import map_tree
+    from repro_torch.sharding import COLLECTIVES, default_group, \
+        reset_collectives
+    cfg = dataclasses.replace(get_config("grok-1-314b").reduced().moe,
+                              capacity_factor=1.5, n_shared=1)
+    p = init_moe(torch.Generator(device=dev).manual_seed(0), 256, cfg,
+                 "swiglu", device=dev, dtype=dtype)
+    x = torch.randn((4, 96, 256), generator=torch.Generator(
+        device=dev).manual_seed(1), device=dev).to(dtype)
+    group = default_group(dev)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    outs = []
+    for ep in (True, False):
+        leaves = []
+        pp = map_tree(lambda t: t.detach().clone().requires_grad_(True), p)
+        map_tree(leaves.append, pp)
+        xx = x.clone().requires_grad_(True)
+        reset_collectives()
+        if ep:
+            y, aux = apply_moe_ep(pp, xx, cfg, "swiglu", group)
+        else:
+            y, aux = apply_moe(pp, xx.reshape(1, -1, 256), cfg, "swiglu")
+            y = y.view(x.shape)
+        loss = (y.float() ** 2).sum() + aux["load_balance"]
+        grads = torch.autograd.grad(loss, [xx] + leaves)
+        torch.cuda.synchronize()
+        assert COLLECTIVES["all_to_all"] == (4 if ep else 0)
+        outs.append((y, aux, grads))
+    (y, aux, g), (y1, aux1, g1) = outs
+    _close(y, y1, tol)
+    for name in aux:
+        _close(aux[name], aux1[name], tol)
+    for a, b in zip(g, g1):
+        _close(a, b, tol, tol * max(1.0, float(b.float().abs().max())))

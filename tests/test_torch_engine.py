@@ -9,8 +9,8 @@
     windows) and dataset, the reference's init params, and the
     reference's minibatch and codec draws (`torch_parity.JaxReplaySampler`);
 (c) the comms kwargs, the codec knob and the strategy outlook give the
-    reference's plans and views; requests outside the port still raise
-    NotImplementedError.
+    reference's plans and views; the mesh execution constructs (its runs
+    are `tests/test_torch_mesh.py`'s).
 """
 from __future__ import annotations
 
@@ -391,8 +391,7 @@ def _fields(strategy) -> dict:
 def test_isl_codec_mesh_and_workload_requests_raise():
     """`isl=True`, every registry codec and every reference algorithm
     (which raised NotImplementedError before the comms layer was ported)
-    now construct as the reference's; the mesh execution and workloads
-    outside the port still raise."""
+    now construct as the reference's, and so does the mesh execution."""
     from repro.comms import codec_names as jax_codec_names
     from repro.core import FedAvgSat as JaxFedAvgSat
     assert sorted(ALGORITHMS) == sorted(JAX_ALGORITHMS)
@@ -421,8 +420,7 @@ def test_isl_codec_mesh_and_workload_requests_raise():
         spaceify(FedAvgSat(), codec="no_such_codec")
     with pytest.raises(KeyError, match="registered algorithms"):
         ALGORITHMS["no_such_algorithm"]
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        _small_sim(execution="mesh")
+    assert _small_sim(execution="mesh").execution == "mesh"
     # The paper's CNN resolves, priced by its derived cost model exactly
     # as the reference prices it.
     from repro.core.timing import HardwareModel as JaxHardwareModel
