@@ -226,6 +226,15 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              random frames and prefix embeddings) and deepseek-v3 from the
              same weights: loss and every gradient within 1e-4 (of the
              leaf's largest where that passes 1).
+  dryrun     `repro_torch.launch.dryrun` (no GPU: DTensors on `meta`
+             over a fake process group) for hymba-1.5b train_4k on the
+             16 x 16 mesh (probe-checked) and prefill_32k on the 2 x 16
+             x 16 mesh, each in a process of its own: status ok; and the
+             dry run's one-device count of lm_train's step and serve's
+             prefill: the roofline terms (H100 data-sheet constants) and
+             measured / bound beside the times measured above, each
+             measured time at least its compute term, the training
+             step's useful_flops_ratio in [0.5, 1.0].
 
 Each phase prints one JSON line; any failure exits non-zero before the
 last line, which is {"ok": true, "device": {...}}. The process group is
@@ -275,7 +284,13 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bwd,
 )
 from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd  # noqa: E402
-from repro_torch.launch import serve, train  # noqa: E402
+from repro_torch.analysis.roofline import (  # noqa: E402
+    model_flops,
+    roofline_terms,
+)
+from repro_torch.configs.shapes import InputShape  # noqa: E402
+from repro_torch.launch import dryrun, serve, train  # noqa: E402
+from repro_torch.launch import mesh as mesh_consts  # noqa: E402
 from repro_torch.launch.fl_round import make_fl_round_step  # noqa: E402
 from repro_torch.core.client import vmapped_client_update  # noqa: E402
 from repro_torch.core.workload import get_workload  # noqa: E402
@@ -326,11 +341,12 @@ from repro_torch.train.step import (  # noqa: E402
 )
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-# H100 SXM data sheet: HBM3 bandwidth, float32 rate outside the tensor
-# cores, and the dense bf16 tensor-core rate.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12
+# H100 SXM data sheet (`repro_torch.launch.mesh`, the dry run's roofline
+# constants): HBM3 bandwidth, float32 rate outside the tensor cores, and
+# the dense bf16 tensor-core rate.
+HBM_BYTES_PER_S = mesh_consts.HBM_BW
+F32_FLOPS_PER_S = mesh_consts.F32_FLOPS_PER_S
+BF16_FLOPS_PER_S = mesh_consts.PEAK_FLOPS_BF16
 TIMED_LAUNCHES = 100
 SLEEP_CYCLES = 100_000_000           # ~50 ms of device sleep at ~2 GHz
 COLD_LAUNCHES = 50
@@ -3366,6 +3382,104 @@ def phase_lm_cpu_vs_card(dev) -> dict:
 
 
 # ------------------------------------------------------------------ main
+# -------------------------------------------------------------- dry run
+# The dry run's CLI pairs, each in a process of its own (it makes a fake
+# process group of 256 or 512 ranks): the calibrated single-pod pair of
+# the training cell's model, and one multi-pod pair.
+DRYRUN_PAIRS = (("hymba-1.5b", "train_4k", ()),
+                ("hymba-1.5b", "prefill_32k", ("--multi-pod",
+                                               "--no-calibrate")))
+DRYRUN_TIMEOUT_S = 120
+
+
+def _dryrun_terms(cfg, shape, remat: bool) -> dict:
+    """The dry run's count of one step of `cfg` at `shape` on one device
+    (plain `meta` tensors, no group) and its roofline terms."""
+    t0 = time.perf_counter()
+    m, _ = dryrun.run_step(cfg, shape, mesh_consts.make_host_mesh(), None,
+                           remat=remat)
+    terms = roofline_terms({"chips": 1, "cost_flops": m.flops,
+                            "cost_bytes": m.bytes, "collective_bytes": m.coll,
+                            "model_flops": model_flops(cfg, shape)})
+    return dict(flops=m.flops, bytes=m.bytes, count_s=time.perf_counter() - t0,
+                bound_s=max(terms["compute_s"], terms["memory_s"],
+                            terms["collective_s"]), **terms)
+
+
+def phase_dryrun(trained: dict, served: dict) -> dict:
+    """(b) `python -m repro_torch.launch.dryrun` on the production meshes,
+    each pair in a process of its own (started first, run alongside (a));
+    each must end `status: ok`, the calibrated one probe-checked. (a) The
+    dry run's one-device count of the full-width hymba-1.5b training step
+    at lm_train's shape (2 x 2048, bf16; with remat, the dry run's
+    default, and without, as the launcher lm_train times it runs) and of
+    serve's 4 x 2048 prefill, with the three roofline terms,
+    useful_flops_ratio and measured/bound beside the times measured in
+    this run: each measured time must be at least its compute term, and
+    the training step's useful_flops_ratio in [0.5, 1.0]."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    procs = []
+    for arch, shape, flags in DRYRUN_PAIRS:
+        out = os.path.join(ROOT, "build", f"dryrun_{arch}_{shape}.json")
+        if os.path.exists(out):
+            os.remove(out)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", out, *flags]
+        procs.append((cmd, out, subprocess.Popen(
+            cmd, cwd=ROOT, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)))
+    cfg = get_config(TRAIN_ARCH)
+    train_shape = InputShape("lm_train", TRAIN_SEQ, TRAIN_BATCH, "train")
+    prefill_shape = InputShape("serve_prefill", SERVE_PROMPT, SERVE_BATCH,
+                               "prefill")
+    counts = {"train_remat": _dryrun_terms(cfg, train_shape, True),
+              "train": _dryrun_terms(cfg, train_shape, False),
+              "prefill": _dryrun_terms(cfg, prefill_shape, True)}
+    measured = {"train": trained["s_per_step"],
+                "prefill": served["prefill_ms_per_batch"] / 1e3}
+    for name, t in measured.items():
+        c = counts[name]
+        c.update(measured_s=t, measured_over_bound=t / c["bound_s"],
+                 measured_over_compute=t / c["compute_s"])
+        require(t >= c["compute_s"],
+                f"dry run: measured {name} {t} s is below its compute term "
+                f"{c['compute_s']} s")
+    for name in ("train", "train_remat"):
+        ratio = counts[name]["useful_flops_ratio"]
+        require(0.5 <= ratio <= 1.0,
+                f"dry run: {name} useful_flops_ratio {ratio} outside "
+                "[0.5, 1.0]")
+    pairs = []
+    t0 = time.perf_counter()
+    for cmd, out, proc in procs:
+        try:
+            _, err = proc.communicate(
+                timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter()
+                                                     - t0)))
+        except subprocess.TimeoutExpired:
+            for _, _, p in procs:
+                p.kill()
+                p.wait()
+            raise SmokeFailure(f"dry run {cmd} still running after "
+                               f"{DRYRUN_TIMEOUT_S} s")
+        require(proc.returncode == 0 and os.path.exists(out),
+                f"dry run {cmd} exited {proc.returncode}: {err[-2000:]}")
+        with open(out) as f:
+            (r,) = json.load(f)
+        require(r["status"] == "ok", f"dry run {cmd}: {r}")
+        if "--no-calibrate" not in cmd:
+            require(r["calibration"].startswith("probe-checked"),
+                    f"dry run {cmd}: {r['calibration']}")
+        pairs.append({k: r[k] for k in (
+            "arch", "shape", "mesh", "chips", "status", "compile_s",
+            "cost_flops", "cost_bytes", "collective_bytes", "calibration",
+            "model_flops", "roofline", "memory")})
+    out = dict(counts=counts, cli_pairs=pairs,
+               cli_wall_s=time.perf_counter() - t0)
+    emit("dryrun", **out)
+    return out
+
+
 def _pick(rows: list[dict], **match) -> dict:
     for r in rows:
         if all(r.get(k) == v for k, v in match.items()):
@@ -3460,6 +3574,7 @@ def main() -> int:
     timed("ep_moe", phase_ep_moe, dev)
     timed("path_shapes", phase_path_shapes, dev, shapes)
     timed("lm_cpu_vs_card", phase_lm_cpu_vs_card, dev)
+    timed("dryrun", phase_dryrun, trained, served)
 
     # Main-path shapes: 10 clients per flush, femnist_mlp, f32.
     fed = _pick(rows, name="fedagg", form="plain", K=10, dtype="float32")

@@ -9,11 +9,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
 
     Raises when CUDA is requested (explicitly or by default) but absent:
     the port never carries on quietly on the CPU. `"cpu"` runs the plain
-    PyTorch versions of the kernels (the tests use it).
+    PyTorch versions of the kernels (the tests use it). `"meta"` runs
+    them on shapes alone, allocating and computing nothing: the dry run's
+    counterpart of `jax.eval_shape` (`repro_torch.launch.dryrun`).
     """
     dev = torch.device("cuda:0" if device is None else device)
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; expected cuda or cpu")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; expected cuda, cpu or "
+                         "meta")
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(

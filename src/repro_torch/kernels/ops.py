@@ -1,8 +1,11 @@
 """Dispatch for the port's kernels, with launch counters.
 
 A tensor on the CPU takes the kernel's plain PyTorch version
-(`repro_torch.kernels.ref`); any other tensor goes to the CUDA kernel,
-which launches or raises — there is no fallback. `LAUNCHES` counts kernel
+(`repro_torch.kernels.ref`), and so does one on the `meta` device (the
+dry run's shapes-only tensors, DTensor shards included), as the
+reference's dry run keeps its jnp attention; any other tensor goes to
+the CUDA kernel, which launches or raises — there is no fallback.
+`LAUNCHES` counts kernel
 launches (and only those), so a run can show that its main path went
 through the kernels. Port of `repro.kernels.ops`: the simulator's two
 kernels (`fedagg`, `prox_sgd`) and the LM's two (`flash_attention`,
@@ -40,6 +43,14 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+# Devices whose tensors take the plain versions (and count no launch).
+PLAIN_DEVICES = ("cpu", "meta")
+
+
+def _plain(t: torch.Tensor) -> bool:
+    return t.device.type in PLAIN_DEVICES
+
+
 def fedagg_op(x: torch.Tensor, w: torch.Tensor,
               base: torch.Tensor | None = None,
               scale: float | torch.Tensor = 1.0,
@@ -49,7 +60,7 @@ def fedagg_op(x: torch.Tensor, w: torch.Tensor,
     the round); over (S, K, P) with a leading scenario axis (w (S, K),
     base (S, P), scale an (S,) float32 tensor), one launch for every
     scenario."""
-    if x.device.type == "cpu":
+    if _plain(x):
         if x.dim() == 3:
             return ref.fedagg_batched_ref(x, w, base, scale)
         return ref.fedagg_ref(x, w, base, scale, partial)
@@ -64,7 +75,7 @@ def prox_sgd_op(w: torch.Tensor, g: torch.Tensor, w0: torch.Tensor,
     """In-place masked proximal SGD step over a (C, P) client stack; `mu`
     a float or a (C,) tensor, `w0` (P,), (C, P) or (G, P) anchors (row c
     reads row c // (C / G))."""
-    if w.device.type == "cpu":
+    if _plain(w):
         if isinstance(mu, torch.Tensor) or (
                 w0.dim() == 2 and w0.shape[0] not in (1, w.shape[0])):
             return ref.prox_sgd_rows_ref_(w, g, w0, steps, step, lr, mu)
@@ -78,7 +89,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
         keep = any(ctx.needs_input_grad[:3])     # lse, for the backward
-        if q.device.type == "cpu":
+        if _plain(q):
             out = ref.flash_attention_ref(q, k, v, causal, window, softcap,
                                           return_lse=keep)
         else:
@@ -94,7 +105,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         causal, window, softcap = ctx.masks
-        if q.device.type == "cpu":
+        if _plain(q):
             dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, o, do,
                                                      *ctx.masks, lse=lse)
         else:
@@ -125,7 +136,7 @@ class _Wkv6(torch.autograd.Function):
         # Each chunk's start state, for the backward (13 MB a layer at
         # full-width hymba-1.5b, batch 2 x 2048).
         keep = any(ctx.needs_input_grad[:5])
-        if r.device.type == "cpu":
+        if _plain(r):
             out = ref.wkv6_ref(r, k, v, logw, s0, chunk, return_states=keep)
         else:
             out = wkv6(r, k, v, logw, s0, chunk=chunk, return_states=keep)
@@ -141,7 +152,7 @@ class _Wkv6(torch.autograd.Function):
         r, k, v, logw, s0, states = ctx.saved_tensors
         if do is None:
             do = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-        if r.device.type == "cpu":
+        if _plain(r):
             grads = ref.wkv6_bwd_ref(r, k, v, logw, s0, do, ds_final,
                                      ctx.chunk, states)
         else:

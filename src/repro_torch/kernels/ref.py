@@ -134,12 +134,16 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     them for the backward.
 
     T is zero-padded to a multiple of `chunk` (zero r/k/v with logw = 0
-    leave the state unchanged). Per chunk, with logc the inclusive and
+    leave the state unchanged). On `meta` tensors the chunk loop runs
+    as one step over a chunk axis (`_wkv6_shapes`). Per chunk, with logc
+    the inclusive and
     logb = logc - logw the exclusive cumulative log decay:
       o = (r exp(logb)) @ S + A @ v,
       A[t, i] = sum_k r[t,k] k[i,k] exp(min(logb[t,k] - logc[i,k], 0)), i < t
       S = S exp(logc[-1]) + (k exp(logc[-1] - logc))^T v
     """
+    if r.device.type == "meta":
+        return _wkv6_shapes(r, k, v, logw, s0, chunk, return_states)
     B, H, T, K = r.shape
     pad = (-T) % chunk
     r, k, v, logw = (F.pad(x.float(), (0, 0, 0, pad))
@@ -244,7 +248,12 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                + exp(logc[-1] - logc[i]) (dS v[i])
       dS    <- dS exp(logc[-1]) + sum_t (r[t] exp(logb[t]))^T do[t]
     and dlogw[s] = sum_{t>=s} (q_t - p_t) - q_s + sum_v dS_T S_T over the
-    whole sequence, with q = r dr and p = k dk."""
+    whole sequence, with q = r dr and p = k dk. On `meta` tensors the
+    chunk loops run as one step over a chunk axis
+    (`_wkv6_bwd_shapes`)."""
+    if r.device.type == "meta":
+        return _wkv6_bwd_shapes(r, k, v, logw, s0, do, ds_final, chunk,
+                                states)
     B, H, T, K = r.shape
     pad = (-T) % chunk
     r, k, v, logw, do = (F.pad(x.float(), (0, 0, 0, pad))
@@ -295,3 +304,97 @@ def wkv6_bwd_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dr, dk, dv, dlogw = (torch.cat(g[::-1], dim=2)[:, :, :T]
                          for g in zip(*grads))
     return dr, dk, dv, dlogw, ds
+
+
+# ----------------------------------------------------------------------- #
+# The scans on `meta` tensors (the dry run): shapes, FLOPs and bytes only
+# ----------------------------------------------------------------------- #
+# A meta tensor has no values, so the chunk loops above carry nothing from
+# one chunk to the next; what a shapes-only run needs of them is each
+# chunk's ops at their shapes. These forms run the n chunk steps as one
+# step over a chunk axis (B, H, n, L, .): every product is the loop's at
+# the loop's shapes, batched, so the FLOPs and the elements touched are
+# the loop's, in a handful of ops where the loop dispatches ~50 per chunk
+# (512 chunks a layer at 32k positions). Only meta tensors take them.
+def _chunks(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """(B, H, T, E) f32, zero-padded to n chunks -> (B, H, n, chunk, E)."""
+    B, H, T, E = x.shape
+    x = x.float()
+    if T % chunk:
+        x = F.pad(x, (0, 0, 0, (-T) % chunk))
+    return x.reshape(B, H, -1, chunk, E)
+
+
+def _chunk_terms(rc, kc, wc, tri):
+    """Per chunk (batched over the chunk axis): the decays and the
+    intra-chunk matrix A (masked strictly below the diagonal)."""
+    logc = torch.cumsum(wc, dim=3)
+    logb = logc - wc
+    e = torch.exp(torch.clamp(logb[..., :, None, :] - logc[..., None, :, :],
+                              max=0.0))
+    a = torch.where(tri, (rc[..., :, None, :] * kc[..., None, :, :]
+                          * e).sum(-1), 0.0)
+    return logc, logb, logc[..., -1:, :], e, a
+
+
+def _wkv6_shapes(r, k, v, logw, s0, chunk: int, return_states: bool):
+    if r.device.type != "meta":
+        raise ValueError("_wkv6_shapes takes meta tensors only")
+    B, H, T, K = r.shape
+    rc, kc, vc, wc = (_chunks(x, chunk) for x in (r, k, v, logw))
+    n = rc.shape[2]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    starts = s0.float()[:, :, None].expand(B, H, n, K, v.shape[-1])
+    logc, logb, total, _, a = _chunk_terms(rc, kc, wc, tri)
+    o = torch.einsum("bhntk,bhnkv->bhntv", rc * torch.exp(logb), starts) \
+        + torch.einsum("bhnti,bhniv->bhntv", a, vc)
+    ends = starts * torch.exp(total[..., 0, :, None]) + torch.einsum(
+        "bhnik,bhniv->bhnkv", kc * torch.exp(total - logc), vc)
+    o = o.reshape(B, H, -1, v.shape[-1])[:, :, :T]
+    s = ends[:, :, -1]
+    if not return_states:
+        return o, s
+    return o, s, ends[:, :, :-1].permute(2, 0, 1, 3, 4)
+
+
+def _wkv6_bwd_shapes(r, k, v, logw, s0, do, ds_final, chunk: int, states):
+    if r.device.type != "meta":
+        raise ValueError("_wkv6_bwd_shapes takes meta tensors only")
+    B, H, T, K = r.shape
+    V = v.shape[-1]
+    rc, kc, vc, wc, gc = (_chunks(x, chunk) for x in (r, k, v, logw, do))
+    n = rc.shape[2]
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=r.device), diagonal=-1)
+    logc, logb, total, e, a = _chunk_terms(rc, kc, wc, tri)
+    decay_k = kc * torch.exp(total - logc)
+    s0 = s0.float()[:, :, None]
+    if states is None:          # the loop's forward pass over n - 1 chunks
+        past = s0 * torch.exp(total[:, :, :-1, 0, :, None]) + torch.einsum(
+            "bhnik,bhniv->bhnkv", decay_k[:, :, :-1], vc[:, :, :-1])
+        starts = torch.cat([s0, past], dim=2)
+    else:
+        starts = torch.cat([s0, states.float().permute(1, 2, 0, 3, 4)], 2)
+    s = starts[:, :, -1] * torch.exp(total[:, :, -1, 0, :, None]) \
+        + torch.einsum("bhik,bhiv->bhkv", decay_k[:, :, -1], vc[:, :, -1])
+    ds = torch.zeros_like(s) if ds_final is None else ds_final.float()
+    carry = (ds * s).sum(-1)
+    ds = ds[:, :, None].expand(B, H, n, K, V)
+    da = torch.where(tri, torch.einsum("bhntv,bhniv->bhnti", gc, vc), 0.0)
+    dv = torch.einsum("bhnti,bhntv->bhniv", a, gc) + torch.einsum(
+        "bhnik,bhnkv->bhniv", decay_k, ds)
+    dr = torch.exp(logb) * torch.einsum("bhnkv,bhntv->bhntk", starts, gc) \
+        + (da[..., None] * kc[..., None, :, :] * e).sum(4)
+    dk = (da[..., None] * rc[..., :, None, :] * e).sum(3) \
+        + torch.exp(total - logc) * torch.einsum("bhnkv,bhniv->bhnik", ds,
+                                                 vc)
+    q, p = rc * dr, kc * dk
+    suffix = torch.flip(torch.cumsum(torch.flip(q - p, (3,)), 3), (3,))
+    dlogw = carry[:, :, None, None, :] + suffix - q
+    carry = carry[:, :, None] + (q - p).sum(3)
+    ds = ds * torch.exp(total[..., 0, :, None]) + torch.einsum(
+        "bhntk,bhntv->bhnkv", rc * torch.exp(logb), gc)
+    dr, dk, dv, dlogw = (g.reshape(B, H, -1, g.shape[-1])[:, :, :T]
+                         for g in (dr, dk, dv, dlogw))
+    return dr, dk, dv, dlogw, ds[:, :, 0]

@@ -102,7 +102,12 @@ from repro_torch.models.lm.mla import (
 from repro_torch.models.lm.moe import apply_moe, apply_moe_ep, \
     apply_moe_stacked, init_moe
 from repro_torch.models.lm.params import map_tree
-from repro_torch.sharding.ctx import ep_axis
+from repro_torch.sharding.ctx import (
+    batch_zeros,
+    constrain_batch,
+    constrain_kv,
+    ep_axis,
+)
 from repro_torch.models.lm.rwkv import (
     init_rwkv_channel_mix,
     init_rwkv_time_mix,
@@ -290,6 +295,9 @@ def _gqa_step(p, x, cfg: ModelConfig, cache_k, cache_v, pos: int, window):
     B = x.shape[0]
     positions = torch.full((1,), pos, device=x.device)
     q, k, v = _gqa_qkv(p, x, cfg, positions)
+    # Align the fresh K/V with the cache's layout before the in-place
+    # write (a hint: only a declared mesh context acts on it; `sharding.ctx`).
+    k, v = constrain_kv(k), constrain_kv(v)
     cache_update(cache_k, k, pos, window)
     cache_update(cache_v, v, pos, window)
     o = attention_decode(q, cache_k, cache_v, pos, window=window,
@@ -306,17 +314,19 @@ def _seg_window(cfg: ModelConfig, seg: Segment):
 # ======================================================================= #
 # Layer application (one call per layer)
 # ======================================================================= #
-def _init_segment_cache(cfg: ModelConfig, seg: Segment, B: int,
-                        max_seq: int, dt, device,
-                        n_frames: int | None = None) -> dict:
-    """One segment's decode cache, every leaf with a leading layer axis;
-    with `n_frames` (an enc-dec decoder), also each layer's cross K/V
-    over the encoder's frames (`xk`, `xv`), written once by prefill."""
+def _init_segment_cache(cfg: ModelConfig, seg: Segment, like, B: int,
+                        max_seq: int, n_frames: int | None = None) -> dict:
+    """One segment's decode cache, every leaf with a leading layer axis,
+    in the dtype and on the device of `like` (the prompt's embeddings,
+    (B, S, d); a DTensor's batch layout carries over, `sharding.ctx.
+    batch_zeros`); with `n_frames` (an enc-dec decoder), also each
+    layer's cross K/V over the encoder's frames (`xk`, `xv`), written
+    once by prefill."""
     hd = cfg.resolved_head_dim
     window = _seg_window(cfg, seg)
     slots = min(max_seq, window) if window else max_seq
-    zeros = lambda *shape: torch.zeros((seg.n_layers, B) + shape, dtype=dt,
-                                       device=device)
+    zeros = lambda *shape: batch_zeros((seg.n_layers, B) + shape, like,
+                                       batch_dim=1)
     if seg.kind == "rwkv":
         H = cfg.d_model // hd
         return {"tm_x": zeros(cfg.d_model), "cm_x": zeros(cfg.d_model),
@@ -341,6 +351,7 @@ def _apply_layer_prefill(cfg: ModelConfig, seg: Segment, lp: dict, x,
                          positions, cache: dict, enc_out=None):
     """Returns x; fills this layer's `cache` views in place (with
     `enc_out`, the cross K/V too)."""
+    x = constrain_batch(x)
     if seg.kind == "rwkv":
         h = rmsnorm(x, lp["norm1"], cfg.norm_eps)
         o, (tm_x, s) = rwkv_time_mix(lp["tm"], h, cfg.resolved_head_dim)
@@ -490,7 +501,9 @@ def _embed(cfg: ModelConfig, params, tokens, prefix_embeds=None,
     """tokens (B, S_text); prefix_embeds (B, P, d), the stubbed modality's
     embeddings, go first. Returns (x (B, S, d), positions (S,)): S = P +
     S_text at positions pos_offset + 0..S-1."""
-    return _place(cfg, params["embed"][tokens], prefix_embeds, pos_offset)
+    x, positions = _place(cfg, params["embed"][tokens], prefix_embeds,
+                          pos_offset)
+    return constrain_batch(x), positions
 
 
 def _place(cfg: ModelConfig, x, prefix_embeds=None, pos_offset: int = 0):
@@ -531,8 +544,7 @@ def prefill(cfg: ModelConfig, params, tokens: torch.Tensor, max_seq: int,
     n_frames = None if enc_out is None else enc_out.shape[1]
     caches = []
     for seg, sp in zip(cfg.resolved_segments, params["segments"]):
-        cache = _init_segment_cache(cfg, seg, B, max_seq, x.dtype, x.device,
-                                    n_frames)
+        cache = _init_segment_cache(cfg, seg, x, B, max_seq, n_frames)
         for i in range(seg.n_layers):
             x = _apply_layer_prefill(cfg, seg, _layer(sp, i), x, positions,
                                      _layer(cache, i), enc_out)
@@ -568,6 +580,18 @@ def init_decode_cache(cfg: ModelConfig, params, B: int, max_seq: int,
 # ======================================================================= #
 # Training forward (a leading client axis)
 # ======================================================================= #
+def _layer_views(tree: dict) -> list[dict]:
+    """Each layer's views of a segment's stacked leaves (G, n_layers,
+    ...), through one `unbind` a leaf: its backward stacks the layers'
+    gradients once, where indexing a layer at a time would zero-fill and
+    add a whole stacked gradient per layer (traffic quadratic in the
+    depth)."""
+    parts = {k: (_layer_views(v) if isinstance(v, dict) else v.unbind(1))
+             for k, v in tree.items()}
+    n = len(next(iter(parts.values())))
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
 def _row(w: torch.Tensor) -> torch.Tensor:
     """A (G, e) per-client vector, shaped to broadcast against (G, N, e)."""
     return w.unsqueeze(-2)
@@ -611,6 +635,7 @@ def _apply_layer_train(cfg: ModelConfig, seg: Segment, lp: dict, x,
     the encoder's output, a decoder layer's cross-attention too. Returns
     (x, the layer's MoE aux loss per client (G,), or None for the other
     kinds)."""
+    x = constrain_batch(x, dim=1)     # hint: the batch stays data-parallel
     if seg.kind == "rwkv":
         hd = cfg.resolved_head_dim
         o, _ = rwkv_time_mix_stacked(
@@ -667,8 +692,7 @@ def _encoder_stacked(cfg: ModelConfig, params, enc_embeds: torch.Tensor):
     G, B, F, _ = enc_embeds.shape
     positions = torch.arange(F, device=enc_embeds.device)
     x = _add_sinusoidal(cfg, enc_embeds, positions).reshape(G, B * F, -1)
-    for i in range(cfg.encoder.n_layers):
-        lp = map_tree(lambda t: t[:, i], params["encoder"])
+    for lp in _layer_views(params["encoder"]):
         h = rmsnorm(x, _row(lp["norm1"]), cfg.norm_eps)
         x = x + _gqa_train(lp["attn"], h, cfg, positions, None, F,
                            causal=False)
@@ -702,12 +726,12 @@ def forward_train_stacked(cfg: ModelConfig, params, tokens: torch.Tensor,
     rows = torch.arange(G, device=tokens.device)[:, None, None] * V + tokens
     x, positions = _place(cfg, F.embedding(rows, emb.reshape(G * V, -1)),
                           prefix_embeds)
+    x = constrain_batch(x, dim=1)
     S = x.shape[2]
     x = x.reshape(G, B * S, -1)
     moe_aux = torch.zeros((G,), dtype=torch.float32, device=tokens.device)
     for seg, sp in zip(cfg.resolved_segments, params["segments"]):
-        for i in range(seg.n_layers):
-            lp = map_tree(lambda t: t[:, i], sp)
+        for lp in _layer_views(sp):
             if cfg.remat:
                 x, aux = checkpoint(_apply_layer_train, cfg, seg, lp, x,
                                     positions, S, enc_out, n_frames,

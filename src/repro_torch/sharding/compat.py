@@ -21,10 +21,26 @@ keeps what its collectives need from `torch.distributed`:
 Every collective counts itself and its bytes in `COLLECTIVES` (reset and
 read like `kernels.ops.LAUNCHES`), and refuses a CUDA tensor on a group
 whose CUDA backend is not NCCL: a CUDA tensor never goes through gloo.
+
+And what the dry run needs (`repro_torch.launch.dryrun`):
+
+  * `abstract_mesh(axis_sizes, axis_names)` — a device-free mesh: axis
+    names, a name -> size `shape` and the device count, all that the
+    partition specs read (the reference's `jax.sharding.AbstractMesh`);
+  * `device_mesh(mesh)` — a `DeviceMesh` of its shape over torch's
+    `"fake"` process group (no communication; collectives return at
+    once), for DTensors whose shards lie on the `meta` device. It makes
+    the group if the process has none, and refuses one of another size
+    or backend: the dry run owns its process, as the reference's does
+    (its XLA flag precedes every jax import). The fake group's store
+    lives in a private torch module (`torch.testing._internal`), imported
+    here only, so that a move between torch versions touches this file.
 """
 from __future__ import annotations
 
+import dataclasses
 import datetime
+import math
 
 import torch
 import torch.distributed as dist
@@ -134,3 +150,62 @@ def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
                          f"multiple of the group size "
                          f"{dist.get_world_size(group)}")
     return _AllToAll.apply(t, group)
+
+
+# ----------------------------------------------------------------------- #
+# Device-free meshes for the dry run
+# ----------------------------------------------------------------------- #
+@dataclasses.dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh without devices: what the partition specs read of one."""
+
+    axis_sizes: tuple[int, ...]
+    axis_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.axis_sizes) != len(self.axis_names):
+            raise ValueError(f"{self.axis_sizes} sizes for "
+                             f"{self.axis_names} axes")
+
+    @property
+    def shape(self) -> dict[str, int]:
+        """Axis name -> size, in mesh order."""
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def size(self) -> int:
+        """The number of devices."""
+        return math.prod(self.axis_sizes)
+
+
+def abstract_mesh(axis_sizes: tuple[int, ...],
+                  axis_names: tuple[str, ...]) -> AbstractMesh:
+    """Device-free mesh for symbolic runs (the reference's)."""
+    return AbstractMesh(tuple(int(n) for n in axis_sizes), tuple(axis_names))
+
+
+def device_mesh(mesh: AbstractMesh):
+    """A `DeviceMesh` of `mesh`'s shape and axis names over a fake
+    process group of `mesh.size` ranks, this process rank 0; None for a
+    one-device mesh (no group is made: plain tensors stand for it)."""
+    if mesh.size == 1:
+        return None
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        backend, world = dist.get_backend(), dist.get_world_size()
+        if backend != "fake" or world != mesh.size:
+            raise RuntimeError(
+                f"device_mesh: this process already has a {backend!r} "
+                f"group of {world} ranks; a {mesh.size}-device dry-run mesh "
+                "needs a fake group of its own (run the dry run in a "
+                "process of its own)")
+    else:
+        dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                world_size=mesh.size)
+    # A mesh of H100s: DTensor plans its collectives for "cuda" meshes
+    # (on a "cpu" one it would gather where the card exchanges shards
+    # all-to-all); no CUDA tensor is made, the shards lie on `meta`.
+    return init_device_mesh("cuda", mesh.axis_sizes,
+                            mesh_dim_names=mesh.axis_names)

@@ -17,6 +17,7 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.models.lm.config import ModelConfig
 from repro_torch.models.lm.params import map_tree
@@ -99,12 +100,13 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
 
     `remat` recomputes each layer in the backward (`torch.utils.
     checkpoint`), the reference's per-layer `jax.checkpoint`.
-    `replicate_weights` is the reference's sharding hint (gather the
-    weights once per step on a mesh); on one device there is nothing to
-    gather, so it is accepted and changes nothing. Params and the
-    optimizer state are updated in place (`adam_update`) and returned.
+    `replicate_weights` is the reference's sharding hint: DTensor params
+    (the dry run's) are gathered to `Replicate()` once at the step's start
+    and the loss differentiated through the gather, so each gradient
+    comes back in its param's placements; on plain tensors there is
+    nothing to gather, and it changes nothing. Params and the optimizer
+    state are updated in place (`adam_update`) and returned.
     """
-    del replicate_weights                # a no-op on one device
     if remat:
         cfg = dataclasses.replace(cfg, remat=True)
 
@@ -112,17 +114,36 @@ def make_train_step(cfg: ModelConfig, lr: float = 3e-4,
         leaves: list[torch.Tensor] = []
         map_tree(lambda p: leaves.append(p.requires_grad_(True)), params)
         try:
-            loss, metrics = lm_loss(cfg, params, batch)
+            model = map_tree(_replicated, params) if replicate_weights \
+                else params
+            loss, metrics = lm_loss(cfg, model, batch)
             grads = iter(torch.autograd.grad(loss, leaves))
         finally:
             for p in leaves:
                 p.requires_grad_(False)
-        grads = map_tree(lambda _: next(grads), params)
+        grads = map_tree(lambda p: _laid_out_as(next(grads), p), params)
         params, opt_state = adam_update(params, grads, opt_state, lr=lr,
                                         weight_decay=weight_decay)
         return params, opt_state, {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def _laid_out_as(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """A DTensor gradient in its param's placements (the reference's
+    gradient takes its param's sharding): one redistribution a leaf, so
+    the optimizer's ops need none. A plain gradient as it is."""
+    if not isinstance(g, DTensor) or tuple(g.placements) == \
+            tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def _replicated(p: torch.Tensor) -> torch.Tensor:
+    if not isinstance(p, DTensor):
+        return p
+    return p.redistribute(p.device_mesh,
+                          [Replicate()] * p.device_mesh.ndim)
 
 
 def make_optimizer_state(params):

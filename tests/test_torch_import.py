@@ -41,7 +41,21 @@ def test_every_module_imports_with_jax_and_repro_blocked():
     assert len(_modules()) >= 30
     assert {"repro_torch.models.lm.rwkv", "repro_torch.models.lm.moe",
             "repro_torch.models.lm.mla",
-            "repro_torch.obs.export"} <= set(_modules())
+            "repro_torch.obs.export", "repro_torch.launch.dryrun",
+            "repro_torch.launch.mesh", "repro_torch.configs.shapes",
+            "repro_torch.sharding.specs", "repro_torch.analysis.calibration",
+            "repro_torch.analysis.collectives", "repro_torch.analysis.report",
+            "repro_torch.analysis.roofline"} <= set(_modules())
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The port's tree holds every module path of the reference's."""
+    def tree(pkg):
+        root = os.path.join(SRC, pkg)
+        return {os.path.relpath(os.path.join(d, f), root)
+                for d, _, files in os.walk(root) for f in files
+                if f.endswith(".py")}
+    assert tree("repro") - tree("repro_torch") == set()
 
 
 _FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b|"
@@ -72,8 +86,11 @@ def test_resolve_device_defaults_to_cuda_and_raises_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
-    with pytest.raises(ValueError):
-        resolve_device("meta")
+    # `meta` is the dry run's shapes-only device (jax.eval_shape's
+    # counterpart); any other device still raises.
+    assert resolve_device("meta") == torch.device("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("xpu")
 
 
 def test_femnist_mlp_init_defaults_to_cuda(monkeypatch):

@@ -186,10 +186,12 @@ def test_fedagg_batched_form_is_the_loop_over_scenarios(S, K, P, delta):
         assert torch.equal(got[S // 2], bt[S // 2])
 
 
-def test_cuda_path_never_falls_back_to_plain():
-    """A tensor that is not on the CPU goes to the kernel wrapper, which
+def test_cuda_path_never_falls_back_to_plain(monkeypatch):
+    """A tensor on no plain device goes to the kernel wrapper, which
     raises for anything but a CUDA tensor; the launch counters only move
-    on a real launch."""
+    on a real launch. `meta` is a plain device (the dry run's), so it is
+    taken off the plain devices here to stand for any other device."""
+    monkeypatch.setattr(ops, "PLAIN_DEVICES", ("cpu",))
     before = dict(ops.LAUNCHES)
     x = torch.empty((3, 8), device="meta")
     w = torch.empty((3,), device="meta")
