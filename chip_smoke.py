@@ -234,7 +234,13 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              prefill: the roofline terms (H100 data-sheet constants) and
              measured / bound beside the times measured above, each
              measured time at least its compute term, the training
-             step's useful_flops_ratio in [0.5, 1.0].
+             step's useful_flops_ratio in [0.5, 1.0]; and deepseek-v3
+             train_4k and prefill_32k on 16 x 16 with and without
+             `--ep` (uncalibrated): status ok, the expert-parallel runs'
+             all-to-all bytes exactly E * C * d * 2 a token exchange
+             times the exchanges a routed layer issues times its 58
+             routed layers, and their collective term below the
+             row-local runs'; one roofline line each.
 
 Each phase prints one JSON line; any failure exits non-zero before the
 last line, which is {"ok": true, "device": {...}}. The process group is
@@ -288,7 +294,7 @@ from repro_torch.analysis.roofline import (  # noqa: E402
     model_flops,
     roofline_terms,
 )
-from repro_torch.configs.shapes import InputShape  # noqa: E402
+from repro_torch.configs.shapes import INPUT_SHAPES, InputShape  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch import mesh as mesh_consts  # noqa: E402
 from repro_torch.launch.fl_round import make_fl_round_step  # noqa: E402
@@ -3385,11 +3391,36 @@ def phase_lm_cpu_vs_card(dev) -> dict:
 # -------------------------------------------------------------- dry run
 # The dry run's CLI pairs, each in a process of its own (it makes a fake
 # process group of 256 or 512 ranks): the calibrated single-pod pair of
-# the training cell's model, and one multi-pod pair.
+# the training cell's model, one multi-pod pair, and deepseek-v3's train
+# and prefill pairs with and without the expert-parallel MoE.
+EP_DRYRUN_ARCH = "deepseek-v3-671b"
 DRYRUN_PAIRS = (("hymba-1.5b", "train_4k", ()),
                 ("hymba-1.5b", "prefill_32k", ("--multi-pod",
-                                               "--no-calibrate")))
-DRYRUN_TIMEOUT_S = 120
+                                               "--no-calibrate")),
+                *((EP_DRYRUN_ARCH, shape, ("--no-calibrate", *ep))
+                  for shape in ("train_4k", "prefill_32k")
+                  for ep in ((), ("--ep",))))
+DRYRUN_TIMEOUT_S = 300
+
+
+def _ep_exchanges(r: dict) -> tuple[int, int]:
+    """The token exchanges (count, bytes) an `--ep` pair of deepseek-v3
+    on the 16 x 16 mesh issues: each E * C * d elements of the model's
+    dtype, C = round(T_loc * K * cf / E) of a data shard's T_loc tokens;
+    two a routed layer forward, two more backward and two again where
+    remat recomputes the layer (the dry run's default)."""
+    cfg = get_config(r["arch"])
+    shape = INPUT_SHAPES[r["shape"]]
+    mesh = mesh_consts.make_production_mesh()
+    moe = cfg.moe
+    T_loc = shape.global_batch // mesh.shape["data"] * shape.seq_len
+    C = int(max(1, round(T_loc * moe.top_k * moe.capacity_factor
+                         / moe.n_experts)))
+    each = moe.n_experts * C * cfg.d_model * torch.finfo(
+        getattr(torch, cfg.dtype)).bits // 8
+    n = (6 if shape.kind == "train" else 2) * sum(
+        s.n_layers for s in cfg.resolved_segments if s.kind == "moe")
+    return n, n * each
 
 
 def _dryrun_terms(cfg, shape, remat: bool) -> dict:
@@ -3420,7 +3451,8 @@ def phase_dryrun(trained: dict, served: dict) -> dict:
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     procs = []
     for arch, shape, flags in DRYRUN_PAIRS:
-        out = os.path.join(ROOT, "build", f"dryrun_{arch}_{shape}.json")
+        out = os.path.join(ROOT, "build", "dryrun_" + "_".join(
+            (arch, shape, *(f.strip("-") for f in flags))) + ".json")
         if os.path.exists(out):
             os.remove(out)
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
@@ -3470,10 +3502,37 @@ def phase_dryrun(trained: dict, served: dict) -> dict:
         if "--no-calibrate" not in cmd:
             require(r["calibration"].startswith("probe-checked"),
                     f"dry run {cmd}: {r['calibration']}")
-        pairs.append({k: r[k] for k in (
+        pairs.append(dict({k: r[k] for k in (
             "arch", "shape", "mesh", "chips", "status", "compile_s",
             "cost_flops", "cost_bytes", "collective_bytes", "calibration",
-            "model_flops", "roofline", "memory")})
+            "model_flops", "roofline", "memory") + tuple(
+                k for k in ("ep_all_to_all", "ep_all_to_all_bytes")
+                if k in r)}, ep="--ep" in cmd))
+    for p in pairs:
+        if p["arch"] != EP_DRYRUN_ARCH:
+            continue
+        if p["ep"]:
+            n, nbytes = _ep_exchanges(p)
+            require(p["ep_all_to_all"] == n
+                    and p["ep_all_to_all_bytes"] == nbytes,
+                    f"dry run --ep {p['shape']}: {p['ep_all_to_all']} "
+                    f"exchanges of {p['ep_all_to_all_bytes']} bytes, "
+                    f"expected {n} of {nbytes}")
+            require(p["collective_bytes"]["all-to-all"] >= nbytes,
+                    f"dry run --ep {p['shape']}: the count's all-to-all "
+                    f"bytes {p['collective_bytes']['all-to-all']} miss "
+                    f"the token exchanges' {nbytes}")
+            (row,) = [q for q in pairs if q["arch"] == EP_DRYRUN_ARCH
+                      and q["shape"] == p["shape"] and not q["ep"]]
+            require(p["roofline"]["collective_s"]
+                    < row["roofline"]["collective_s"],
+                    f"dry run --ep {p['shape']}: collective term "
+                    f"{p['roofline']['collective_s']} s not below the "
+                    f"row-local {row['roofline']['collective_s']} s")
+        print(json.dumps({"dryrun_row": {k: p.get(k) for k in (
+            "arch", "shape", "mesh", "ep", "cost_flops", "cost_bytes",
+            "collective_bytes", "ep_all_to_all", "ep_all_to_all_bytes",
+            "roofline")}}), flush=True)
     out = dict(counts=counts, cli_pairs=pairs,
                cli_wall_s=time.perf_counter() - t0)
     emit("dryrun", **out)

@@ -29,6 +29,7 @@ _OP_KINDS = {
     "_c10d_functional::all_gather_into_tensor": "all-gather",
     "_c10d_functional::all_gather_into_tensor_coalesced": "all-gather",
     "_c10d_functional::all_reduce": "all-reduce",
+    "_c10d_functional::all_reduce_": "all-reduce",
     "_c10d_functional::all_reduce_coalesced": "all-reduce",
     "_c10d_functional::reduce_scatter_tensor": "reduce-scatter",
     "_c10d_functional::reduce_scatter_tensor_coalesced": "reduce-scatter",

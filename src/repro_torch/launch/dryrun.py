@@ -51,9 +51,21 @@ Where the port's ops need what GSPMD gives the reference for free:
   * where DTensor has no strategy, `LayoutMode` redistributes explicitly
     (its docstring lists each case); every collective it adds is
     counted.
-No sharding strategy is registered with DTensor. `--ep` (the expert-
-parallel token all-to-all) is not ported: its group-based `apply_moe_ep`
-has no DTensor form, and the CLI refuses the flag by name (ROADMAP).
+No sharding strategy is registered with DTensor.
+
+`--ep` declares the reference's expert-parallel context
+(`sharding.ctx.expert_parallel(dp, "data", mesh)`) for the train and
+prefill pairs of a MoE config whose expert count divides the `data`
+axis, the full pair and every probe alike. Each routed layer then runs
+`models.lm.moe.apply_moe_ep_mesh`, the reference's `shard_map`: every
+rank routes and dispatches its own tokens on its local tensors, one
+all-to-all over `data` takes them to their experts (E sharded over
+`data`) and one brings them back, and the aux losses are averaged over
+the dp axes; the model axis stays tensor-parallel inside the block. The
+count holds the two all-to-alls a layer (two more in the backward, and
+two again where remat recomputes the layer), the aux all-reduces, the
+router's gather, the model axis's partial-sum reductions and, where the
+params lay E over ("pod", "data"), the experts' reshard to `data`.
 """
 from __future__ import annotations
 
@@ -77,7 +89,10 @@ from repro_torch.analysis.calibration import (
     probe_configs,
     probe_identity,
 )
-from repro_torch.analysis.collectives import collective_bytes_by_kind
+from repro_torch.analysis.collectives import (
+    collective_bytes_by_kind,
+    kind_of,
+)
 from repro_torch.analysis.roofline import model_flops, roofline_terms
 from repro_torch.configs import get_config, lm_arch_ids
 from repro_torch.configs.shapes import (
@@ -90,8 +105,16 @@ from repro_torch.models.lm.params import map_tree
 from repro_torch.models.lm.transformer import init_params, prefill
 from repro_torch.obs import log_record, set_logging, span
 from repro_torch.optim.adam import adam_init
-from repro_torch.sharding.compat import device_mesh
-from repro_torch.sharding.ctx import activation_sharding, model_axis
+from repro_torch.sharding.compat import (
+    COLLECTIVES,
+    device_mesh,
+    reset_collectives,
+)
+from repro_torch.sharding.ctx import (
+    activation_sharding,
+    expert_parallel,
+    model_axis,
+)
 from repro_torch.sharding.specs import (
     P,
     batch_pspec,
@@ -106,8 +129,9 @@ from repro_torch.train.step import (
     make_train_step,
 )
 
-# Op namespaces whose ops are collectives (`analysis.collectives`).
-_COLLECTIVE_NS = ("_c10d_functional", "_dtensor")
+# Op namespaces whose ops are collectives (`analysis.collectives`); an op
+# of one that has no kind there raises.
+_COLLECTIVE_NS = ("_c10d_functional", "_dtensor", "c10d")
 # Ops that allocate without writing: no bytes moved.
 _ALLOCS = ("aten::empty", "aten::empty_strided", "aten::empty_like",
            "aten::new_empty", "aten::new_empty_strided")
@@ -173,6 +197,8 @@ class CostMode(TorchDispatchMode):
                 out = func.decompose(*args, **kwargs)
             if out is not NotImplemented:
                 return out
+        if func.namespace in _COLLECTIVE_NS:
+            kind_of(func._schema.name)
         out = func(*args, **kwargs)
         if func.namespace in _COLLECTIVE_NS:
             self.collectives.append((func._schema.name, tuple(
@@ -460,6 +486,8 @@ class LayoutMode(TorchDispatchMode):
         dispatch's buffers, the router's expert counts) takes its
         DTensor operands whole (`full_tensor()`, gathered): the write
         is then rank 0's on the whole, as for every replicated tensor.
+        The expert-parallel block (`--ep`) never meets this rule: its
+        dispatch runs on each rank's local tensors.
     """
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -582,14 +610,24 @@ def _clear_sharding_caches() -> None:
         native()
 
 
+def use_ep(cfg, shape, mesh, dp, ep: bool) -> bool:
+    """The reference's predicate: `--ep` on a MoE config, not decode, a
+    batch over mesh axes, and the expert count divides the `data` axis."""
+    return (ep and cfg.moe is not None and shape.kind != "decode"
+            and isinstance(dp, tuple)
+            and cfg.moe.n_experts % mesh.shape["data"] == 0)
+
+
 def run_step(cfg, shape, mesh, dmesh, *, remat: bool = True,
-             force_small: bool | None = None) -> tuple[Metrics, dict]:
+             force_small: bool | None = None,
+             ep: bool = False) -> tuple[Metrics, dict]:
     """One step of (cfg, shape) on `mesh` (its `DeviceMesh` `dmesh`, None
     for one device), counted. Returns (Metrics, memory dict).
 
     force_small pins the sharding regime — calibration probes (1-2 layer
     variants) must run under the FULL model's regime or their body costs
-    are measured under the wrong parallelism."""
+    are measured under the wrong parallelism. `ep` asks for the
+    expert-parallel MoE where `use_ep` allows it."""
     _clear_sharding_caches()
     small, dp = _regime(cfg, shape, mesh, force_small)
     params = _meta_params(cfg)
@@ -619,8 +657,10 @@ def run_step(cfg, shape, mesh, dmesh, *, remat: bool = True,
                 _layout(cache, cache_specs, dmesh))
         step = make_serve_step(cfg)
     dtensors = dmesh is not None
+    epctx = expert_parallel(dp, "data", dmesh) \
+        if use_ep(cfg, shape, mesh, dp, ep) else contextlib.nullcontext()
     with activation_sharding(dp if isinstance(dp, tuple) else None), \
-            model_axis("model" if shape.kind == "decode" else None), \
+            model_axis("model" if shape.kind == "decode" else None), epctx, \
             implicit_replication() if dtensors else contextlib.nullcontext(), \
             cm, LayoutMode() if dtensors else contextlib.nullcontext():
         out = step(*args)
@@ -640,10 +680,6 @@ def lower_pair(arch: str, shape_name: str, mesh, *, remat: bool = True,
     the port's steps update params, moments and the cache in place
     (always donated), so it changes nothing here."""
     del donate
-    if ep:
-        raise NotImplementedError(
-            "--ep: the expert-parallel MoE has no DTensor form in the port "
-            "(ROADMAP)")
     cfg = get_config(arch)
     shape = INPUT_SHAPES[shape_name]
     note = ""
@@ -655,17 +691,22 @@ def lower_pair(arch: str, shape_name: str, mesh, *, remat: bool = True,
     dmesh = device_mesh(mesh)
 
     t0 = time.perf_counter()
+    reset_collectives()
     with span("launch.compile", arch=arch, shape=shape_name):
-        full, mem = run_step(cfg, shape, mesh, dmesh, remat=remat)
+        full, mem = run_step(cfg, shape, mesh, dmesh, remat=remat, ep=ep)
     compile_s = time.perf_counter() - t0
+    # The expert-parallel block's own exchanges (`sharding.compat` counts
+    # them); the count's all-to-all bytes hold them and DTensor's own.
+    experts = {"ep_all_to_all": COLLECTIVES["all_to_all"],
+               "ep_all_to_all_bytes": COLLECTIVES["all_to_all_bytes"]}
 
     calibration_note = "unchecked (--no-calibrate)"
     if calibrate:
         full_small = small_model_mode(_meta_params(cfg), mesh)
         probes = [(run_step(c1, shape, mesh, dmesh, remat=remat,
-                            force_small=full_small)[0],
+                            force_small=full_small, ep=ep)[0],
                    run_step(c2, shape, mesh, dmesh, remat=remat,
-                            force_small=full_small)[0], n)
+                            force_small=full_small, ep=ep)[0], n)
                   for _, c1, c2, n in probe_configs(cfg)]
         if probes:
             check = probe_identity(full, probes)
@@ -690,6 +731,7 @@ def lower_pair(arch: str, shape_name: str, mesh, *, remat: bool = True,
         "raw_cost_flops": full.flops,
         "calibration": calibration_note,
         "model_flops": model_flops(cfg, shape),
+        **(experts if ep else {}),
     }
     result["roofline"] = roofline_terms(result)
     return result
@@ -714,16 +756,13 @@ def main(argv=None):
     ap.add_argument("--no-calibrate", action="store_true",
                     help="skip the probe check (multi-pod proof pass)")
     ap.add_argument("--ep", action="store_true",
-                    help="expert-parallel token all-to-all MoE (not ported: "
-                         "refused)")
+                    help="expert-parallel token all-to-all MoE (train and "
+                         "prefill pairs whose experts divide the data axis)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--log", action="store_true",
                     help="emit structured progress records on stderr "
                          "(same as REPRO_LOG=1)")
     args = ap.parse_args(argv)
-    if args.ep:
-        ap.error("--ep: the expert-parallel MoE has no DTensor form in the "
-                 "port yet (ROADMAP); run without --ep")
     if args.log:
         set_logging(True)
 
@@ -743,7 +782,7 @@ def main(argv=None):
         for arch, shape in pairs:
             try:
                 r = lower_pair(arch, shape, mesh, remat=not args.no_remat,
-                               calibrate=not args.no_calibrate)
+                               calibrate=not args.no_calibrate, ep=args.ep)
                 results.append(r)
                 if r["status"] == "ok":
                     log_record("dryrun.pair", arch=arch, shape=shape,

@@ -1,7 +1,10 @@
 """Top-k routed mixture-of-experts with sort-based capacity dispatch.
 
 Port of `repro.models.lm.moe`: the row-local `apply_moe`, and the
-expert-parallel `apply_moe_ep` over the ranks of a process group. The
+expert-parallel MoE: `moe_ep_shard`, one rank's body (the reference's
+`shard_fn`), run by `apply_moe_ep` over the ranks of a process group and
+by `apply_moe_ep_mesh` over a `DeviceMesh` of DTensors (the dry run's
+form of the reference's `shard_map`). The
 dispatch is GShard-style without the (T, E, C) one-hot tensor: token ->
 expert assignments are sorted (a stable sort, as `jnp.argsort`, so which
 tokens overflow a full expert is the reference's), positions within each
@@ -26,6 +29,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.device import resolve_device
 from repro_torch.models.lm.config import MoEConfig
@@ -179,49 +183,155 @@ def apply_moe(p: dict, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str
 # ======================================================================= #
 # Expert-parallel dispatch (token all-to-all)
 # ======================================================================= #
-def apply_moe_ep(p: dict, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str,
-                 group) -> tuple[torch.Tensor, dict]:
-    """GShard-style expert parallelism over the `n_shards` ranks of
-    `group` (its world size). x (b_loc, S, d) is this rank's shard of the batch; `p` holds
-    every expert (each rank reads only its own E / n_shards of them:
-    rank r owns experts r * E_loc .. (r + 1) * E_loc - 1), the router and
-    the shared experts, which run locally.
+# The expert stacks (E, ...) of a MoE param tree.
+_EXPERTS = ("w1", "w2", "w3")
 
-    Each rank routes its own tokens and buffers them per (destination
+
+def _local(fn, a):
+    return fn(a)
+
+
+def moe_ep_shard(p: dict, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str,
+                 group, aux_group, tp=_local) -> tuple[torch.Tensor, dict]:
+    """One rank's expert-parallel MoE (the body of the reference's
+    `shard_fn`). x (b_loc, S, d) is this rank's shard of the batch; `p`
+    holds the router and the shared experts whole and this rank's own
+    E_loc = E / n_shards experts (w1, w2, w3 with a leading E_loc).
+    `group` (n_shards ranks) carries the two token all-to-alls, and the
+    aux losses are averaged over `aux_group` (the reference's `pmean`
+    over the data-parallel axes, which may span more ranks than the
+    experts do). `tp(fn, a)` applies the expert products `fn` to the
+    activation `a`; by default `fn(a)`, and the dry run's mesh form runs
+    them tensor-parallel over its model axis.
+
+    This rank routes its own tokens and buffers them per (destination
     rank, local expert, slot), (n_shards, E_loc, C, d) with the capacity
-    C = round(T_loc * K * cf / E) of this source shard's T_loc = b_loc * S
-    tokens; one all-to-all moves them to their experts and a second one
-    brings the outputs back. The aux losses are averaged over the group
-    (the reference's `pmean`). Differentiable: the all-to-all's backward
-    is the reverse all-to-all.
-
-    Capacity is per source shard, not per row: the result on rank r is
-    the row-local `apply_moe` of that shard's tokens as one row,
-    x.reshape(1, b_loc * S, d) (its drops included), not of x's rows.
-    """
+    C = round(T_loc * K * cf / E) of its T_loc = b_loc * S tokens; one
+    all-to-all moves them to their experts and a second one brings the
+    outputs back. Differentiable: the all-to-all's backward is the
+    reverse all-to-all."""
     b_loc, S, d = x.shape
     E, K = cfg.n_experts, cfg.top_k
     n_shards = torch.distributed.get_world_size(group)
+    E_loc = E // n_shards
     if E % n_shards:
         raise ValueError(f"{E} experts do not split over {n_shards} ranks")
-    E_loc = E // n_shards
-    r = torch.distributed.get_rank(group)
+    if p["w1"].shape[0] != E_loc:
+        raise ValueError(f"a rank of {n_shards} holds {E_loc} of the {E} "
+                         f"experts, not {p['w1'].shape[0]}")
     T = b_loc * S
     xf = x.reshape(1, T, d)
     gate_vals, expert_ids, aux = _route(p, xf, cfg)
-    aux = {k: all_reduce_mean(v[0], group) for k, v in aux.items()}
+    aux = {k: all_reduce_mean(v[0], aux_group) for k, v in aux.items()}
     C = int(max(1, round(T * K * cfg.capacity_factor / E)))
     buf, meta = _dispatch_tokens(xf, gate_vals, expert_ids, E, C)
     # (1, E, C, d) = (n_shards, E_loc, C, d): destination-rank-major.
     recv = all_to_all(buf.view(n_shards, E_loc, C, d), group)
     # recv: (n_shards, E_loc, C, d), source-rank-major rows of MY experts.
     h_in = recv.transpose(0, 1).reshape(E_loc, n_shards * C, d)
-    mine = slice(r * E_loc, (r + 1) * E_loc)
-    h = _expert_ffn({k: p[k][mine] for k in ("w1", "w2", "w3") if k in p},
-                    h_in, mlp_kind)
+    h = tp(lambda a: _expert_ffn(p, a, mlp_kind), h_in)
     back = h.view(E_loc, n_shards, C, d).transpose(0, 1)
     got = all_to_all(back, group)
     y = _combine_tokens(got.reshape(1, E * C, d), meta, T, x.dtype)
     if cfg.n_shared:
-        y = y + apply_mlp(p["shared"], xf, mlp_kind)
+        y = y + tp(lambda a: apply_mlp(p["shared"], a, mlp_kind), xf)
     return y.view(b_loc, S, d), aux
+
+
+def apply_moe_ep(p: dict, x: torch.Tensor, cfg: MoEConfig, mlp_kind: str,
+                 group) -> tuple[torch.Tensor, dict]:
+    """GShard-style expert parallelism over the `n_shards` ranks of
+    `group` (its world size): `moe_ep_shard` with the aux losses averaged
+    over the same group. x (b_loc, S, d) is this rank's shard of the
+    batch; `p` holds every expert (rank r takes its own, experts
+    r * E_loc .. (r + 1) * E_loc - 1), the router and the shared
+    experts, which run locally.
+
+    Capacity is per source shard, not per row: the result on rank r is
+    the row-local `apply_moe` of that shard's tokens as one row,
+    x.reshape(1, b_loc * S, d) (its drops included), not of x's rows.
+    """
+    E_loc = cfg.n_experts // torch.distributed.get_world_size(group)
+    r = torch.distributed.get_rank(group)
+    mine = slice(r * E_loc, (r + 1) * E_loc)
+    local = dict(p, **{k: p[k][mine] for k in _EXPERTS if k in p})
+    return moe_ep_shard(local, x, cfg, mlp_kind, group, group)
+
+
+# ----------------------------------------------------------------------- #
+# The dry run's form: DTensors on a DeviceMesh
+# ----------------------------------------------------------------------- #
+def _sub_mesh_tensor(local: torch.Tensor, sub, place) -> torch.Tensor:
+    """`local` as a DTensor on the sub-mesh `sub` laid out by `place`
+    (`local` itself without a sub-mesh)."""
+    if sub is None:
+        return local
+    shape = list(local.shape)
+    for i, q in enumerate(place):
+        if isinstance(q, Shard):
+            shape[q.dim] *= sub.size(i)
+    return DTensor.from_local(local, sub, place, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=torch.empty(shape, device="meta")
+                              .stride())
+
+
+def apply_moe_ep_mesh(p: dict, x: torch.Tensor, cfg: MoEConfig,
+                      mlp_kind: str, ep) -> tuple[torch.Tensor, dict]:
+    """The reference's `apply_moe_ep` `shard_map` on x's `DeviceMesh`,
+    for the context `ep` (`sharding.ctx.MeshEP`: its `dp_axes`, `axis`
+    and `dp_group`): x (B, S, d) and p's leaves are DTensors, and every
+    rank runs `moe_ep_shard` on its own local tensors over the mesh axes
+    `dp_axes` (x's batch, `axis` among them), with the experts' E
+    sharded over `axis` and the router and the shared experts replicated
+    there (each laid out so first: a gather of the router, and on a mesh
+    where E lies over ("pod", "data") a reshard of the experts, each a
+    counted collective). The all-to-alls run over `axis`'s group, the
+    aux mean over `dp_group`. The mesh's other axes (the model axis)
+    stay DTensors inside the block: each expert's d_ff keeps its
+    tensor-parallel shards and the products' partial sums are reduced
+    over the model axis, forward and backward. Differentiable; the
+    gradients of the replicated leaves are partial sums over the ranks
+    that share them."""
+    mesh, dp_axes, axis = x.device_mesh, ep.dp_axes, ep.axis
+    names = mesh.mesh_dim_names
+    if axis not in dp_axes:
+        raise ValueError(f"expert-parallel axis {axis!r} does not carry "
+                         f"the batch ({dp_axes})")
+    manual = [n in dp_axes for n in names]
+    auto = [i for i, n in enumerate(names)
+            if not manual[i] and mesh.size(i) > 1]
+    sub = mesh[tuple(names[i] for i in auto)] if auto else None
+
+    def local(t, key: str):
+        """Rank-local: the experts' E over `axis`, every other manual
+        dim replicated; the router plain and whole, the rest DTensors on
+        the sub-mesh of the other axes, laid out there as before."""
+        expert = key in _EXPERTS
+        want = [(Shard(0) if expert and n == axis else Replicate())
+                if manual[i] or key == "router" else q
+                for i, (n, q) in enumerate(zip(names, t.placements))]
+        grad = [Partial() if manual[i] and not (expert and n == axis)
+                else q for i, (n, q) in enumerate(zip(names, want))]
+        t = t.redistribute(mesh, want).to_local(grad_placements=grad)
+        if key == "router":
+            return t
+        return _sub_mesh_tensor(t, sub, [want[i] for i in auto])
+
+    def tp(fn, a):
+        if sub is None:
+            return fn(a)
+        whole = [Replicate()] * sub.ndim
+        out = fn(DTensor.from_local(a, sub, whole, run_check=False))
+        return out.redistribute(sub, whole).to_local()
+
+    pp = {k: map_tree(lambda t, k=k: local(t, k), v) for k, v in p.items()}
+    xd = x.redistribute(mesh, [
+        Shard(0) if manual[i] else Replicate() for i in range(len(names))])
+    y, aux = moe_ep_shard(pp, xd.to_local(), cfg, mlp_kind,
+                          mesh[axis].get_group(), ep.dp_group, tp)
+    whole = [Replicate()] * mesh.ndim
+    return (DTensor.from_local(y, mesh, xd.placements, run_check=False,
+                               shape=xd.shape, stride=xd.stride()),
+            {k: DTensor.from_local(v, mesh, whole, run_check=False)
+             for k, v in aux.items()})

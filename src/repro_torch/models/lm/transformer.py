@@ -99,10 +99,16 @@ from repro_torch.models.lm.mla import (
     mla_prefill,
     mla_stacked,
 )
-from repro_torch.models.lm.moe import apply_moe, apply_moe_ep, \
-    apply_moe_stacked, init_moe
+from repro_torch.models.lm.moe import (
+    apply_moe,
+    apply_moe_ep,
+    apply_moe_ep_mesh,
+    apply_moe_stacked,
+    init_moe,
+)
 from repro_torch.models.lm.params import map_tree
 from repro_torch.sharding.ctx import (
+    MeshEP,
     batch_zeros,
     constrain_batch,
     constrain_kv,
@@ -400,15 +406,23 @@ def _apply_layer_prefill(cfg: ModelConfig, seg: Segment, lp: dict, x,
 
 
 def _moe_ep(cfg: ModelConfig, S: int):
-    """The group when a routed-expert layer over S positions takes the
-    expert-parallel dispatch (the reference's `_moe_block`): an EP
-    context is declared, the expert count divides its world size, and
-    S > 1; else None (row-local)."""
-    group = ep_axis()
-    if (group is not None and S > 1
-            and cfg.moe.n_experts % dist.get_world_size(group) == 0):
-        return group
-    return None
+    """The expert-parallel context when a routed-expert layer over S
+    positions takes the expert-parallel dispatch (the reference's
+    `_moe_block`): a context is declared, the expert count divides its
+    size, and S > 1; else None (row-local)."""
+    ep = ep_axis()
+    if ep is None or S <= 1:
+        return None
+    size = ep.size if isinstance(ep, MeshEP) else dist.get_world_size(ep)
+    return ep if cfg.moe.n_experts % size == 0 else None
+
+
+def _apply_moe_ep(p: dict, h, cfg: ModelConfig, ep):
+    """h (B, S, d) through the experts of `ep`: a process group's ranks
+    (`apply_moe_ep`), or a mesh's (`apply_moe_ep_mesh`, DTensors)."""
+    if isinstance(ep, MeshEP):
+        return apply_moe_ep_mesh(p, h, cfg.moe, cfg.mlp, ep)
+    return apply_moe_ep(p, h, cfg.moe, cfg.mlp, ep)
 
 
 def _ffn(cfg: ModelConfig, seg: Segment, lp: dict, h2):
@@ -418,7 +432,7 @@ def _ffn(cfg: ModelConfig, seg: Segment, lp: dict, h2):
     if seg.kind == "moe":
         ep = _moe_ep(cfg, h2.shape[1])
         if ep is not None:
-            return apply_moe_ep(lp["moe"], h2, cfg.moe, cfg.mlp, ep)[0]
+            return _apply_moe_ep(lp["moe"], h2, cfg, ep)[0]
         return apply_moe(lp["moe"], h2, cfg.moe, cfg.mlp)[0]
     return apply_mlp(lp["mlp"], h2, cfg.mlp)
 
@@ -672,8 +686,8 @@ def _apply_layer_train(cfg: ModelConfig, seg: Segment, lp: dict, x,
                     f"expert-parallel MoE trains one model, not a stack of "
                     f"{G} clients")
             lp1 = map_tree(lambda t: t[0], lp["moe"])
-            o, aux = apply_moe_ep(lp1, h2.view(n // seq_len, seq_len, d),
-                                  cfg.moe, cfg.mlp, ep)
+            o, aux = _apply_moe_ep(lp1, h2.view(n // seq_len, seq_len, d),
+                                   cfg, ep)
             o = o.reshape(1, n, d)
             aux = {k: v.reshape(1) for k, v in aux.items()}
         else:

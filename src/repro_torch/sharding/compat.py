@@ -18,9 +18,14 @@ keeps what its collectives need from `torch.distributed`:
     dim 0, differentiable: its backward is the reverse all-to-all
     (which, with equal splits, is the same exchange).
 
-Every collective counts itself and its bytes in `COLLECTIVES` (reset and
-read like `kernels.ops.LAUNCHES`), and refuses a CUDA tensor on a group
-whose CUDA backend is not NCCL: a CUDA tensor never goes through gloo.
+Each runs as the functional collective of `torch.ops._c10d_functional`
+(`all_reduce_`, `all_to_all_single`, then `wait_tensor`): on gloo and
+NCCL the same exchange as `dist.all_reduce` / `dist.all_to_all_single`,
+and on the dry run's fake group over `meta` tensors an op that the dry
+run's `CostMode` records as the collective it is. Every collective
+counts itself and its bytes in `COLLECTIVES` (reset and read like
+`kernels.ops.LAUNCHES`), and refuses a CUDA tensor on a group whose
+CUDA backend is not NCCL: a CUDA tensor never goes through gloo.
 
 And what the dry run needs (`repro_torch.launch.dryrun`):
 
@@ -80,10 +85,13 @@ def default_group(device: str | torch.device | None = None):
 
 def backend_for(t: torch.Tensor, group) -> str:
     """The backend `group` runs `t`'s collectives on; raises for a CUDA
-    tensor unless that backend is NCCL."""
+    tensor unless that backend is NCCL. A `meta` tensor (a dry-run
+    shard) goes through the fake group's backend and no other."""
     config = dict(part.split(":") for part in
                   dist.get_backend_config(group).split(","))
     name = config.get(t.device.type)
+    if t.device.type == "meta" and "fake" in config.values():
+        name = "fake"
     if t.is_cuda and name != "nccl":
         raise RuntimeError(
             f"collective on a CUDA tensor needs an NCCL backend; the group "
@@ -94,10 +102,14 @@ def backend_for(t: torch.Tensor, group) -> str:
     return name
 
 
+_FUNCTIONAL = torch.ops._c10d_functional
+
+
 def all_reduce_sum(t: torch.Tensor, group) -> torch.Tensor:
     """Sum `t` over the group, in place; returns `t`."""
     backend_for(t, group)
-    dist.all_reduce(t, op=dist.ReduceOp.SUM, group=group)
+    _FUNCTIONAL.wait_tensor(_FUNCTIONAL.all_reduce_(t, "sum",
+                                                    group.group_name))
     COLLECTIVES["all_reduce"] += 1
     COLLECTIVES["all_reduce_bytes"] += t.numel() * t.element_size()
     return t
@@ -123,9 +135,10 @@ def all_reduce_mean(t: torch.Tensor, group) -> torch.Tensor:
 
 def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     backend_for(t, group)
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=group)
+    split = [t.shape[0] // dist.get_world_size(group)] * \
+        dist.get_world_size(group)
+    out = _FUNCTIONAL.wait_tensor(_FUNCTIONAL.all_to_all_single(
+        t.contiguous(), split, split, group.group_name))
     COLLECTIVES["all_to_all"] += 1
     COLLECTIVES["all_to_all_bytes"] += t.numel() * t.element_size()
     return out

@@ -11,18 +11,23 @@ spec: its batch dim over the declared axes, every other dim replicated
 returned as it is: the simulator, serving and training paths run
 unchanged. Only the dry run (`repro_torch.launch.dryrun`) declares one.
 
-`expert_parallel` / `ep_axis` declare the process group that carries
-expert parallelism (the MoE layers read it: under a declared context a
-routed-expert layer over full sequences dispatches its tokens with one
-all-to-all each way, `models.lm.moe.apply_moe_ep`). Without one (the
+`expert_parallel` / `ep_axis` declare what carries expert parallelism
+(the MoE layers read it: under a declared context a routed-expert layer
+over full sequences dispatches its tokens with one all-to-all each way):
+a process group (`models.lm.moe.apply_moe_ep` on plain tensors), or the
+reference's (dp axes, axis, mesh) on a `DeviceMesh` (`MeshEP`, the dry
+run's: `models.lm.moe.apply_moe_ep_mesh` on DTensors). Without one (the
 default) they dispatch row-locally.
 """
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import dataclasses
+import functools
 
 import torch
+import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.sharding.specs import P, placements
@@ -115,15 +120,48 @@ def constrain_kv(x: torch.Tensor,
     return _constrain(x, P(_DP_AXES.get(), None, None, None))
 
 
-@contextlib.contextmanager
-def expert_parallel(group):
-    """Declare `group` as the expert-parallel axis for the enclosed
-    calls; its size is the group's world size. None disables; layers
-    then dispatch row-locally.
+@dataclasses.dataclass(frozen=True)
+class MeshEP:
+    """The mesh form of an expert-parallel context: the batch's
+    data-parallel axes, the axis the experts and the all-to-alls lie on,
+    and the `DeviceMesh` (its size along `axis` is the shard count)."""
 
-    The reference also takes a mesh axis name and a size; a process
-    group has one axis and one size, so neither is taken here."""
-    token = _EP.set(group)
+    dp_axes: tuple[str, ...]
+    axis: str
+    mesh: object
+
+    @property
+    def size(self) -> int:
+        return self.mesh.size(self.mesh.mesh_dim_names.index(self.axis))
+
+    @functools.cached_property
+    def dp_group(self):
+        """One process group over the product of the dp axes (the aux
+        losses' mean): the axis's own group, or a `dist.new_group` of
+        this rank's sub-mesh, made once a context. Not the mesh's
+        `_flatten()`: DTensor plans every later redistribution over a
+        flattened mesh's axes with it, so the count of what follows
+        would depend on whether a routed layer ran before."""
+        sub = self.mesh[self.dp_axes]
+        if sub.ndim == 1:
+            return sub.get_group()
+        return dist.new_group(sub.mesh.flatten().tolist())
+
+
+@contextlib.contextmanager
+def expert_parallel(group_or_dp_axes, axis: str | None = None, mesh=None):
+    """Declare the expert-parallel axis for the enclosed calls. None
+    disables; layers then dispatch row-locally.
+
+    Two forms. `expert_parallel(group)`: a process group, whose world
+    size is the shard count (a group has one axis and one size, so the
+    reference's other arguments are not taken). `expert_parallel(dp_axes,
+    axis, mesh)`: the reference's, on a `DeviceMesh` of DTensors (the dry
+    run's), its size read from the mesh."""
+    ep = group_or_dp_axes
+    if axis is not None:
+        ep = MeshEP(tuple(group_or_dp_axes), axis, mesh)
+    token = _EP.set(ep)
     try:
         yield
     finally:
@@ -131,6 +169,6 @@ def expert_parallel(group):
 
 
 def ep_axis():
-    """The process group of the declared expert-parallel context, or
-    None."""
+    """The declared expert-parallel context (a process group or a
+    `MeshEP`), or None."""
     return _EP.get()

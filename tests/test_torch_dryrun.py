@@ -89,14 +89,6 @@ def test_host_mesh_probe_identity_and_full_width_pair():
     assert r["roofline"]["compute_s"] > 0
 
 
-def test_cli_refuses_ep():
-    with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "grok-1-314b", "--shape", "train_4k", "--ep"])
-    with pytest.raises(NotImplementedError, match="--ep"):
-        dryrun.lower_pair("grok-1-314b", "train_4k", make_host_mesh(),
-                          ep=True)
-
-
 # ----------------------------------------------------------------- seams
 def test_meta_tensors_take_the_plain_versions():
     ops.reset_launches()

@@ -121,3 +121,31 @@ def moe_ep_rank(rank: int, nprocs: int, cfg, p_np, x, mlp_kind, splits):
                          gx=gx.numpy(), gw=[g.numpy() for g in (g1, g2, g3)],
                          gr=gr.numpy())
     return out
+
+
+def moe_ep_count_rank(rank: int, nprocs: int, cfg, mlp_kind, B, S, d):
+    """`apply_moe_ep`'s forward and backward (the gradients of sum(y ** 2)
+    + load_balance + router_z in x and every leaf) on this rank's shard
+    of a seeded (B, S, d) batch over the default group, counted by the
+    dry run's `CostMode`: FLOPs, collective bytes by kind, and
+    `COLLECTIVES`."""
+    from repro_torch.launch.dryrun import CostMode
+    from repro_torch.models.lm.moe import apply_moe_ep, init_moe
+    from repro_torch.models.lm.params import tree_leaves
+    from repro_torch.sharding import COLLECTIVES, reset_collectives
+
+    g = torch.Generator().manual_seed(0)
+    p = init_moe(g, d, cfg, mlp_kind, device="cpu")
+    b_loc = B // nprocs
+    x = torch.randn((B, S, d), generator=g)[rank * b_loc:(rank + 1) * b_loc]
+    leaves = [x.clone()] + tree_leaves(p)
+    for t in leaves:
+        t.requires_grad_(True)
+    reset_collectives()
+    cm = CostMode()
+    with cm:
+        y, aux = apply_moe_ep(p, leaves[0], cfg, mlp_kind, dist.group.WORLD)
+        loss = (y ** 2).sum() + aux["load_balance"] + aux["router_z"]
+        torch.autograd.grad(loss, leaves)
+    m = cm.metrics()
+    return dict(flops=m.flops, coll=m.coll, collectives=dict(COLLECTIVES))
