@@ -11,8 +11,9 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              from `cuobjdump -sass`, its tensor-core (HGMMA/HMMA) and
              asynchronous-copy (UTMALDG/LDGSTS) instructions; fails if a
              bf16 flash_attention kernel, or one of the bf16
-             flash_attention_bwd dq and dk/dv kernels (D = 64, 128, 256),
-             has no tensor-core instruction;
+             flash_attention_bwd dq and dk/dv kernels ((D, Dv) = (64,
+             64), (128, 128), (256, 256), (192, 128)), has no
+             tensor-core instruction;
   kernels    every CUDA kernel of the main path against its plain PyTorch
              version on the same inputs, in f32 (rtol = atol = 2e-5) and
              bf16 (2e-2), the tolerances of tests/test_kernels.py, with
@@ -184,7 +185,8 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              (192, 128); the D = 32 forward (lm_tiny); the bf16
              backward at whisper-medium's training shapes (the encoder's
              1,500 frames, the cross-attention's 448 queries against 1,500
-             keys);
+             keys) and at deepseek-v3's (`mla_train`: 2 x 128 heads x
+             2,048 of (192, 128), causal);
   lm_train   `repro_torch.launch.train.main` on full-width hymba-1.5b,
              then rwkv6-1.6b (`lm_train_rwkv`) (bf16, batch 2 x 2048) and
              whisper-medium (`lm_train_audio`: batch 4 x 448 text tokens,
@@ -203,6 +205,19 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              torch.profiler: idle share, time by kernel), whose loss
              must fall by more than 3x the spread of the initial
              weights' loss over 4 other batches;
+  lm_train_mla  the launcher's loop on deepseek-v3 at every published
+             width (d 7168, 128 MLA heads of (192, 128), q / kv latents
+             of 1536 / 512, d_ff 18,432, vocab 129,280, untied head and
+             the MTP head; bf16) with its depth cut to its 3 dense layers
+             (4,530,494,464 params: with f32 Adam moments no routed layer
+             fits one card), batch 2 x 2048, as lm_train: 3
+             flash_attention and 3 flash_attention_bwd launches a step,
+             finite losses, the fixed batch's loss falling by more than
+             3 spreads, peak memory, the profiled step's time by kernel;
+             then one step from the same weights and batch with and
+             without remat: the losses, the updated params within one
+             bf16 rounding an element of each other, 6 forward launches
+             with remat against 3, both peak memories;
   mesh_lm_round  `launch.fl_round.make_fl_round_step` on full-width
              hymba-1.5b (bf16) as one pod of the NCCL group: 2 local
              proximal SGD steps on a (2, 2048) batch, seconds a round,
@@ -426,10 +441,11 @@ def phase_card() -> dict:
                                      for r in bf16_flash),
             "a bf16 flash_attention kernel has no tensor-core instruction: "
             f"{bf16_flash}")
-    # The bf16 backward's dq and dk/dv kernels at D = 64, 128 and 256.
+    # The bf16 backward's dq and dk/dv kernels at (D, Dv) = (64, 64),
+    # (128, 128), (256, 256) and (192, 128).
     bf16_bwd = [r for r in resources
                 if any(n in r["kernel"] for n in BF16_BWD_KERNELS)]
-    require(len(bf16_bwd) == 3 * len(BF16_BWD_KERNELS)
+    require(len(bf16_bwd) == 4 * len(BF16_BWD_KERNELS)
             and all(r.get("tensor_core_ops", 0) > 0 for r in bf16_bwd),
             "a bf16 flash_attention_bwd kernel is missing or has no "
             f"tensor-core instruction: {bf16_bwd}")
@@ -1955,6 +1971,12 @@ AUDIO_TRAIN_BATCH, AUDIO_TRAIN_SEQ = 4, 448
 # ~87 GB), batch 2.
 VLM_ARCH, VLM_PREFIX, VLM_WINDOW = "llava-next-mistral-7b", 2880, 4096
 VLM_TRAIN_LAYERS = 4
+# deepseek-v3 trained at every published width with its depth cut to its
+# 3 dense MLA layers: 4,530,494,464 params as the reference's `eval_shape`
+# counts them, 9.06 GB of bf16 weights, 9.06 GB of gradients and 36.2 GB
+# of f32 Adam moments. One routed layer alone is 11.5 B params (~138 GB
+# with its moments), so no MoE layer fits beside an optimizer on one card.
+MLA_TRAIN_LAYERS, MLA_TRAIN_PARAMS = 3, 4_530_494_464
 
 
 def _flash_pairs(S: int, causal: bool, window: int | None,
@@ -2816,8 +2838,9 @@ def check_wkv6_bwd(dev, case: str, B: int, H: int, T: int, K: int,
 
 def phase_lm_train_kernels(dev) -> list[dict]:
     """Both backward kernels at the training paths' shapes (the LM cell's
-    128 sequences of 33 tokens; full-width hymba-1.5b at 2 x 2048), and
-    the D = 32 forward (lm_tiny) against its plain version."""
+    128 sequences of 33 tokens; full-width hymba-1.5b, rwkv6-1.6b and
+    deepseek-v3 at 2 x 2048; whisper-medium), and the D = 32 forward
+    (lm_tiny) against its plain version."""
     n = LM_FL_CLIENTS * LM_FL_BATCH
     rows = [
         check_flash(dev, "lm_tiny_d32", n, 2, 2, 33, 32, "float32"),
@@ -2850,6 +2873,10 @@ def phase_lm_train_kernels(dev) -> list[dict]:
         check_flash_bwd(dev, "mla_tiny", n, 4, 4, 33, 96, "float32", Dv=64),
         check_flash_bwd(dev, "mla_d192", 1, 4, 4, 256, MLA_D, "float32",
                         Dv=MLA_DV),
+        # deepseek-v3's bf16 training step (lm_train_mla): 128 heads of
+        # (192, 128) at 2 x 2048, causal.
+        check_flash_bwd(dev, "mla_train", TRAIN_BATCH, 128, 128, TRAIN_SEQ,
+                        MLA_D, "bfloat16", Dv=MLA_DV),
         # whisper-medium training (batch 4 x 448 text tokens, 1,500
         # frames): the encoder's backward and the cross-attention's.
         check_flash_bwd(dev, "whisper_encoder", AUDIO_TRAIN_BATCH, 16, 16,
@@ -2895,13 +2922,14 @@ def _launcher_steps(cfg, dev, batch: int, seq: int) -> dict:
 
 
 def phase_lm_train(dev, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
-                   seq: int = TRAIN_SEQ, n_layers: int | None = None,
+                   seq: int = TRAIN_SEQ, cut=None,
                    name: str = "lm_train") -> dict:
     """`repro_torch.launch.train.main` on a full-width `arch` (bf16,
     random weights from a seed; hymba-1.5b, rwkv6-1.6b, whisper-medium
-    with zero frames) at its default lr, or, for a depth cut to
-    `n_layers` (llava-next-mistral-7b: every published width, 4 of 32
-    layers), the launcher's loop (`_launcher_steps`), traced, with the
+    with zero frames) at its default lr, or, for `cut`, a depth cut of
+    its config (llava-next-mistral-7b: every published width, 4 of 32
+    layers; deepseek-v3: its 3 dense layers), the launcher's loop
+    (`_launcher_steps`), traced, with the
     launch counters zeroed just before and read just after: one launch
     of each LM kernel its layers run, and of its backward, a layer a
     step. Then the same configuration from the same weights on one fixed
@@ -2911,15 +2939,13 @@ def phase_lm_train(dev, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
     plain) and the loss after them, which must fall by more than
     TRAIN_DROP_SPREADS spreads: the full-width gradient trains the
     model. Tokens are text tokens (`batch` x `seq`)."""
-    cfg = get_config(arch)
-    if n_layers is not None:
-        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    cfg = get_config(arch) if cut is None else cut
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()                 # the training path's counts
     t0 = time.perf_counter()
     with obs.tracing():
-        if n_layers is None:
+        if cut is None:
             done = train.main([
                 "--arch", arch, "--full-config", "--device", "cuda",
                 "--batch", str(batch), "--seq", str(seq),
@@ -2992,6 +3018,77 @@ def phase_lm_train(dev, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
         plain_step_walls_s=walls, profiled_step=profiled)
     emit(name, **out)
     return out
+
+
+def _fixed_step(cfg, dev, remat: bool) -> tuple[list, dict]:
+    """One AdamW step at TRAIN_LR from the seed-0 weights on the fixed
+    batch (`phase_lm_train`'s first fixed-batch step), with or without
+    remat, launch counters zeroed just before and read just after.
+    Returns the updated params' leaves, moved to the host, and the
+    step's loss, launches and peak device memory."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    opt = adam_init(params)
+    fixed = _token_batch(cfg, 0, dev)
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    params, opt, metrics = make_train_step(cfg, lr=TRAIN_LR, remat=remat)(
+        params, opt, fixed)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = dict(loss=float(metrics["loss"]), launches=dict(ops.LAUNCHES),
+               peak_device_memory_bytes=torch.cuda.max_memory_allocated(),
+               wall_s=wall)
+    del opt
+    leaves = [t.cpu() for t in _leaves_of(params)]
+    del params
+    torch.cuda.empty_cache()
+    return leaves, out
+
+
+def phase_lm_train_mla(dev) -> dict:
+    """deepseek-v3 at every published width (d 7168, 128 MLA heads of
+    (192, 128), q / kv latents of 1536 / 512, d_ff 18,432, vocab 129,280,
+    untied head and the MTP head; bf16) with its depth cut to its 3 dense
+    layers (MLA_TRAIN_PARAMS), trained as `phase_lm_train` says at 2 x
+    2048: 3 flash_attention and 3 flash_attention_bwd launches a step, the
+    backward at (192, 128) on the tensor cores. Then `remat` on the card:
+    one step from the same weights and batch without and with it (each
+    layer recomputed in the backward): both losses, the updated params
+    within one bf16 rounding an element of each other, the forward
+    launched twice a layer with remat, both peak memories."""
+    cfg = dataclasses.replace(
+        get_config(MLA_ARCH), n_layers=MLA_TRAIN_LAYERS,
+        segments=(Segment("attn", MLA_TRAIN_LAYERS),))
+    out = phase_lm_train(dev, MLA_ARCH, TRAIN_BATCH, TRAIN_SEQ, cfg,
+                         "lm_train_mla")
+    require(out["params"] == MLA_TRAIN_PARAMS,
+            f"lm_train_mla: {out['params']} params; the reference counts "
+            f"{MLA_TRAIN_PARAMS:,}")
+    plain_leaves, plain = _fixed_step(cfg, dev, remat=False)
+    remat_leaves, remat = _fixed_step(cfg, dev, remat=True)
+    gap = ulps = 0.0
+    for a, b in zip(remat_leaves, plain_leaves):
+        a, b = a.to(dev).float(), b.to(dev).float()
+        d = (a - b).abs()
+        gap = max(gap, float(d.max()))
+        ulps = max(ulps, float((d / _ulp_bf16(b)).max()))
+    del plain_leaves, remat_leaves
+    n = MLA_TRAIN_LAYERS
+    for run, fwd in ((plain, n), (remat, 2 * n)):
+        want = {"flash_attention": fwd, "flash_attention_bwd": n}
+        require(all(run["launches"][k] == v for k, v in want.items())
+                and math.isfinite(run["loss"]),
+                f"lm_train_mla remat step: {run}; expected launches {want}")
+    require(ulps <= 1.0,
+            f"lm_train_mla: the remat step's params are {ulps} bf16 "
+            f"roundings (max |diff| {gap}) from the plain step's")
+    rout = dict(plain=plain, remat=remat, loss_diff=remat["loss"]
+                - plain["loss"], params_max_abs_diff=gap,
+                params_max_diff_bf16_ulps=ulps)
+    emit("lm_train_mla_remat", **rout)
+    return dict(out, remat=rout)
 
 
 # ------------------------------------------------- the round as a pod
@@ -3581,6 +3678,8 @@ def main() -> int:
                                               "flash_attention_bwd"),
                   lm_train_vlm=LaunchShapes("flash_attention",
                                             "flash_attention_bwd"),
+                  lm_train_mla=LaunchShapes("flash_attention",
+                                            "flash_attention_bwd"),
                   mesh_lm_round=LaunchShapes(*LM_KERNELS))
     with shapes["main_path"]:
         main_path = timed("main_path", phase_main_path, dev, setup)
@@ -3626,8 +3725,11 @@ def main() -> int:
                               None, "lm_train_audio")
     with shapes["lm_train_vlm"]:
         trained_vlm = timed("lm_train_vlm", phase_lm_train, dev, VLM_ARCH,
-                            TRAIN_BATCH, TRAIN_SEQ, VLM_TRAIN_LAYERS,
-                            "lm_train_vlm")
+                            TRAIN_BATCH, TRAIN_SEQ, dataclasses.replace(
+                                get_config(VLM_ARCH),
+                                n_layers=VLM_TRAIN_LAYERS), "lm_train_vlm")
+    with shapes["lm_train_mla"]:
+        trained_mla = timed("lm_train_mla", phase_lm_train_mla, dev)
     with shapes["mesh_lm_round"]:
         lm_round = timed("mesh_lm_round", phase_mesh_lm_round, dev)
     timed("ep_moe", phase_ep_moe, dev)
@@ -3652,19 +3754,21 @@ def main() -> int:
                 for k in ops.LAUNCHES}
     # The serving paths (hymba-1.5b, rwkv6-1.6b, grok-1, deepseek-v3,
     # whisper-medium, llava) and the training paths (hymba-1.5b,
-    # rwkv6-1.6b, whisper-medium, llava), each counted from 0.
+    # rwkv6-1.6b, whisper-medium, llava, deepseek-v3), each counted from 0.
     serve_runs = dict(serve=served, serve_rwkv=served_rwkv,
                       serve_moe=served_moe, serve_mla=served_mla,
                       serve_audio=served_audio, serve_vlm=served_vlm)
     train_runs = dict(lm_train=trained, lm_train_rwkv=trained_rwkv,
-                      lm_train_audio=trained_audio, lm_train_vlm=trained_vlm)
+                      lm_train_audio=trained_audio, lm_train_vlm=trained_vlm,
+                      lm_train_mla=trained_mla)
     serve_total = {k: sum(run["launches"][k] for run in serve_runs.values())
                    for k in ops.LAUNCHES}
     train_total = {k: sum(run["launches"][k] for run in train_runs.values())
                    for k in ops.LAUNCHES}
     # Each kernel's rows at the new paths' shapes (rwkv6's time mix through
     # the fixed and the generic build, grok-1's softcapped D = 128 heads,
-    # MLA's (D, Dv) = (192, 128) serving and lm_moe_tiny's (96, 64),
+    # MLA's (D, Dv) = (192, 128) serving and training and lm_moe_tiny's
+    # (96, 64),
     # whisper's encoder and its cross-attention's keys of their own
     # length, llava's 4,928 positions in a 4,096 window).
     other = {"wkv6": [_pick(lm_rows, name="wkv6", case=c)
@@ -3677,6 +3781,7 @@ def main() -> int:
              "flash_attention_bwd": [_pick(train_rows,
                                            name="flash_attention_bwd", case=c)
                                      for c in ("mla_tiny", "mla_d192",
+                                               "mla_train",
                                                "whisper_encoder",
                                                "whisper_cross")],
              "wkv6_bwd": [_pick(train_rows, name="wkv6_bwd",

@@ -29,17 +29,25 @@
 // the same bits. The masks are the forward's, tile skipping included; a
 // masked pair's p is exactly 0 (never exp of an overflow).
 //
-// bf16 (D in {64, 128, 256}, `tc::`): tensor cores. The products run on
-// `wgmma` m64n64k16, bf16 in and f32 accumulate, on tiles of 64 rows
-// stored and loaded as the forward's (`wgmma.cuh`: 128-byte swizzle,
-// 16-byte `cp.async` copies, a ring of two stages for the streamed
-// tiles). dq is one warpgroup: Q and dO staged once, K and V streamed;
-// S and dP from shared memory, dQ += dS K with dS from registers and K
-// read MN-major. dkdv is two warpgroups over one staged K and V tile, Q,
-// dO, lse and delta streamed: both compute S^T = K Q^T (from which
-// P^T); warpgroup 0 then sums dV += P^T dO, and warpgroup 1 computes
-// dP^T = V dO^T and sums dK += dS^T Q, so each holds one D-wide
-// accumulator (at D = 256, 128 registers a thread). That is 7 products of
+// bf16 (`tc::`): tensor cores, a template on (DQK, DV) as the f32 kernels
+// below, built for (D, D) at D in {64, 128, 256} and for deepseek-v3's
+// MLA heads (192, 128). The products run on `wgmma` m64n64k16, bf16 in
+// and f32 accumulate, on tiles of 64 rows stored and loaded as the
+// forward's (`wgmma.cuh`: 128-byte swizzle, 16-byte `cp.async` copies, a
+// ring of two stages for the streamed tiles). Q and K are DQK wide, dO
+// and V DV wide: S = Q K^T (and S^T = K Q^T) contracts over DQK (12 k16
+// steps at 192), dP = dO V^T (and dP^T = V dO^T) and delta = dO . O over
+// DV; dQ and dK accumulate DQK columns (three 64-column blocks at 192),
+// dV DV columns. dq is one warpgroup: Q and dO staged once, K and V
+// streamed; S and dP from shared memory, dQ += dS K with dS from
+// registers and K read MN-major. dkdv is two warpgroups over one staged
+// K and V tile, Q, dO, lse and delta streamed: both compute S^T = K Q^T
+// (from which P^T); warpgroup 0 then sums dV += P^T dO, and warpgroup 1
+// computes dP^T = V dO^T and sums dK += dS^T Q, so each holds one
+// accumulator: DV wide in warpgroup 0, DQK wide in warpgroup 1 (at D =
+// 256, 128 registers a thread; at (192, 128), 64 and 96). Shared memory
+// is (1 + kStages)(DQK + DV) / 64 blocks of 8 KB and 1 KB of alignment
+// slack: 193 KB at D = 256, 121 KB at (192, 128). That is 7 products of
 // a tile's size where the bound counts 5 (S twice, the forward's lse
 // saves a third). Scale, softcap, masks and lse are applied on the f32
 // accumulator fragment before P or dS is rounded to bf16. A bf16 operand
@@ -56,7 +64,7 @@
 // {32, 64, 128, 256} and for MLA's (96, 64) (lm_moe_tiny trains through
 // it) and (192, 128): s = q.k runs over DQK, dp = dO.v and delta = dO.O
 // over DV, dq and dk accumulate DQK columns and dv DV. The bf16 kernels
-// take Dv = D only; at Dv != D the wrapper raises.
+// take no D = 96 (not whole 64-column blocks); there the wrapper raises.
 //
 // Bound on the H100: operations. Five products of the forward's size
 // (Q K^T, dO V^T, P^T dO, dS^T Q, dS K) where the forward does two: 2 (3 D
@@ -65,7 +73,12 @@
 // 1024) that is 0.05 TFLOP, 0.051 ms at the bf16 tensor-core rate; the
 // bytes (q, k, v, o, dO, lse in and dq, dk, dv out, 26 MB) take 0.008
 // ms. At lm_moe_tiny's f32 step (128 sequences, 4 heads of (96, 64), 33
-// tokens) the bytes bound it: 0.013 ms.
+// tokens) the bytes bound it: 0.013 ms. At deepseek-v3's bf16 training
+// shape (B=2, H=KV=128, S=2048, (192, 128), causal) 2 (3 . 192 + 2 . 128)
+// = 1,664 flops a pair over 2 . 128 . 2048 . 2049 / 2 pairs is 0.894
+// TFLOP, 0.904 ms at 989 TFLOP/s (the H100 SXM's dense bf16 rate at its
+// 700 W limit); the bytes (q, k, v, o, dO, dq, dk, dv and lse, 1.34 GB)
+// take 0.40 ms.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -381,12 +394,13 @@ constexpr int kBM = 64;                 // rows of a tile: queries or keys
 constexpr int kStages = 2;              // ring of streamed tiles
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Two staged tiles (Q and dO, or K and V), then kStages pairs streamed,
-// each D / 64 column blocks; 1 KB of slack to align the base to the 1 KB
-// period of the 128-byte swizzle.
-template <int D>
+// One staged pair (Q and dO, or K and V), then kStages pairs streamed (K
+// and V, or Q and dO): Q and K DQK / 64 column blocks each, dO and V DV /
+// 64; 1 KB of slack to align the base to the 1 KB period of the 128-byte
+// swizzle. At (192, 128): 15 blocks of 8 KB and 1 KB, 121 KB.
+template <int DQK, int DV>
 constexpr int smem_bytes() {
-  return (2 + 2 * kStages) * (D / 64) * kBlockBytes + 1024;
+  return (1 + kStages) * (DQK + DV) / 64 * kBlockBytes + 1024;
 }
 
 // Accumulator fragment of m64nNk16: register 4 i + e of a thread is row
@@ -423,12 +437,14 @@ __device__ __forceinline__ void load_row_stats(float* dst, const float* src,
                : "memory");
 }
 
-// Rows of a warpgroup's (64 x D) f32 accumulator to bf16 rows at `out`
-// (row stride `ld`), rows at or past `n_rows` skipped.
-template <int NB>
-__device__ __forceinline__ void store_rows(const float (&acc)[NB][32],
+// Rows of a warpgroup's (64 x 64 NB) f32 accumulator, its first NB column
+// blocks, to bf16 rows at `out` (row stride `ld`), rows at or past
+// `n_rows` skipped.
+template <int NB, int N>
+__device__ __forceinline__ void store_rows(const float (&acc)[N][32],
                                            bf16* out, long long ld,
                                            int n_rows, int warp, int lane) {
+  static_assert(NB <= N, "column blocks of the accumulator");
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = frag_row(warp, lane, 2 * r);
@@ -445,7 +461,7 @@ __device__ __forceinline__ void store_rows(const float (&acc)[NB][32],
 }
 
 // dQ of 64 query rows of one (b, h): one warpgroup.
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(128, 1)
 flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -453,13 +469,15 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 float* __restrict__ delta, bf16* __restrict__ dq,
                 Strides3 sq, Strides3 sk, Strides3 sv, Strides3 so,
                 Strides3 sd, Strides3 sdq, int H, int rep, Masks mk) {
-  constexpr int NB = D / 64;
-  constexpr int kTileBytes = NB * kBlockBytes;
+  static_assert(DQK % 64 == 0 && DV % 64 == 0, "64-column wgmma blocks");
+  constexpr int NB = DQK / 64;          // column blocks of dQ (and K)
+  constexpr int kQKBytes = NB * kBlockBytes;         // a Q or K tile
+  constexpr int kPairBytes = kQKBytes + DV / 64 * kBlockBytes;
   extern __shared__ uint8_t smem_raw[];
   __shared__ float lse_s[kBM], delta_s[kBM];
   const uint32_t qs = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t gs = qs + kTileBytes;
-  // Stage st: K at qs + (2 + 2 st) kTileBytes, V right after it.
+  const uint32_t gs = qs + kQKBytes;
+  // Stage st: K at qs + (1 + st) kPairBytes, V right after it.
 
   // Grid: x = (batch, head), the rep heads of one KV head neighbours; y =
   // query tile from the last, so the heaviest under a causal mask start
@@ -473,10 +491,10 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   mk.key_range<kBM>(q0, &k_begin, &k_end);
   const int n_tiles = (k_end - k_begin + kBM - 1) / kBM;
 
-  load_tile<D, 128>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
-  load_tile<D, 128>(gs, dout + b * sd.b + h * sd.h, sd.s, q0, S, tid);
-  load_tile<D, 128>(qs + 2 * kTileBytes, kb, sk.s, k_begin, Sk, tid);
-  load_tile<D, 128>(qs + 3 * kTileBytes, vb, sv.s, k_begin, Sk, tid);
+  load_tile<DQK, 128>(qs, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
+  load_tile<DV, 128>(gs, dout + b * sd.b + h * sd.h, sd.s, q0, S, tid);
+  load_tile<DQK, 128>(qs + kPairBytes, kb, sk.s, k_begin, Sk, tid);
+  load_tile<DV, 128>(qs + kPairBytes + kQKBytes, vb, sv.s, k_begin, Sk, tid);
   cp_async_commit();
 
   // delta = dO . O of the block's rows, two threads a row (16-byte loads),
@@ -490,7 +508,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
       const bf16* grow =
           dout + b * sd.b + h * sd.h + qi * sd.s + (tid & 1) * 8;
 #pragma unroll
-      for (int c = 0; c < D; c += 16) {
+      for (int c = 0; c < DV; c += 16) {
         const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
         const uint4 gv = *reinterpret_cast<const uint4*>(grow + c);
         const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
@@ -528,9 +546,9 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = k_begin + t * kBM;
     if (t + 1 < n_tiles) {              // prefetch the next tile
-      const uint32_t nxt = qs + (2 + 2 * ((t + 1) % kStages)) * kTileBytes;
-      load_tile<D, 128>(nxt, kb, sk.s, k0 + kBM, Sk, tid);
-      load_tile<D, 128>(nxt + kTileBytes, vb, sv.s, k0 + kBM, Sk, tid);
+      const uint32_t nxt = qs + (1 + (t + 1) % kStages) * kPairBytes;
+      load_tile<DQK, 128>(nxt, kb, sk.s, k0 + kBM, Sk, tid);
+      load_tile<DV, 128>(nxt + kQKBytes, vb, sv.s, k0 + kBM, Sk, tid);
       cp_async_commit();
       cp_async_wait<1>();               // this tile (and Q, dO) landed
     } else {
@@ -538,8 +556,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     fence_async_shared();
     __syncthreads();
-    const uint32_t ks = qs + (2 + 2 * (t % kStages)) * kTileBytes;
-    const uint32_t vs = ks + kTileBytes;
+    const uint32_t ks = qs + (1 + t % kStages) * kPairBytes;
+    const uint32_t vs = ks + kQKBytes;
 
     float s[32], dp[32];
 #pragma unroll
@@ -547,8 +565,8 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
-    wgmma_ss_tile<D>(s, qs, ks);        // S = Q K^T
-    wgmma_ss_tile<D>(dp, gs, vs);       // dP = dO V^T
+    wgmma_ss_tile<DQK>(s, qs, ks);      // S = Q K^T
+    wgmma_ss_tile<DV>(dp, gs, vs);      // dP = dO V^T
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -581,10 +599,11 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  warp, lane);
 }
 
-// dK and dV of 64 keys of one (b, KV head): warpgroup 0 sums dV,
-// warpgroup 1 dK. At D = 64 two blocks share an SM (128 registers).
-template <int D>
-__global__ void __launch_bounds__(256, D == 64 ? 2 : 1)
+// dK and dV of 64 keys of one (b, KV head): warpgroup 0 sums dV (DV
+// columns), warpgroup 1 dK (DQK columns). At (64, 64) two blocks share an
+// SM (128 registers).
+template <int DQK, int DV>
+__global__ void __launch_bounds__(256, DQK == 64 && DV == 64 ? 2 : 1)
 flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
                   const float* __restrict__ lse,
@@ -592,13 +611,16 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   bf16* __restrict__ dv, Strides3 sq, Strides3 sk,
                   Strides3 sv, Strides3 sd, Strides3 sdk, Strides3 sdv,
                   int H, int rep, Masks mk) {
-  constexpr int NB = D / 64;
-  constexpr int kTileBytes = NB * kBlockBytes;
+  static_assert(DQK % 64 == 0 && DV % 64 == 0, "64-column wgmma blocks");
+  static_assert(DV <= DQK, "dV's blocks are a prefix of the accumulator");
+  constexpr int NK = DQK / 64, NV = DV / 64;   // column blocks of dK, dV
+  constexpr int kQKBytes = NK * kBlockBytes;   // a Q or K tile
+  constexpr int kPairBytes = kQKBytes + NV * kBlockBytes;
   extern __shared__ uint8_t smem_raw[];
   __shared__ float lse_s[kStages][kBM], delta_s[kStages][kBM];
   const uint32_t ks = (smem_addr(smem_raw) + 1023u) & ~1023u;
-  const uint32_t vs = ks + kTileBytes;
-  // Stage st: Q at ks + (2 + 2 st) kTileBytes, dO right after it.
+  const uint32_t vs = ks + kQKBytes;
+  // Stage st: Q at ks + (1 + st) kPairBytes, dO right after it.
 
   // Grid: x = (batch, KV head); y = key tile from the first, so the
   // heaviest under a causal mask start first over every head and batch.
@@ -616,23 +638,24 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto prefetch = [&](int it) {
     const int h = g * rep + it / n_q, q0 = q_begin + (it % n_q) * kBM;
     const int st = it % kStages;
-    const uint32_t dst = ks + (2 + 2 * st) * kTileBytes;
-    load_tile<D, 256>(dst, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
-    load_tile<D, 256>(dst + kTileBytes, dout + b * sd.b + h * sd.h, sd.s, q0,
-                      S, tid);
+    const uint32_t dst = ks + (1 + st) * kPairBytes;
+    load_tile<DQK, 256>(dst, q + b * sq.b + h * sq.h, sq.s, q0, S, tid);
+    load_tile<DV, 256>(dst + kQKBytes, dout + b * sd.b + h * sd.h, sd.s, q0,
+                       S, tid);
     const long long at = ((long long)b * H + h) * S;
     if (tid < kBM) load_row_stats(lse_s[st], lse + at, q0, S, tid);
     else if (tid < 2 * kBM)
       load_row_stats(delta_s[st], delta + at, q0, S, tid - kBM);
   };
-  load_tile<D, 256>(ks, k + b * sk.b + g * sk.h, sk.s, k0, Sk, tid);
-  load_tile<D, 256>(vs, v + b * sv.b + g * sv.h, sv.s, k0, Sk, tid);
+  load_tile<DQK, 256>(ks, k + b * sk.b + g * sk.h, sk.s, k0, Sk, tid);
+  load_tile<DV, 256>(vs, v + b * sv.b + g * sv.h, sv.s, k0, Sk, tid);
   if (n_it > 0) prefetch(0);
   cp_async_commit();
 
-  float acc[NB][32];
+  // dK's NK blocks in warpgroup 1; warpgroup 0 uses the first NV for dV.
+  float acc[NK][32];
 #pragma unroll
-  for (int c = 0; c < NB; ++c)
+  for (int c = 0; c < NK; ++c)
 #pragma unroll
     for (int i = 0; i < 32; ++i) acc[c][i] = 0.0f;
 
@@ -648,8 +671,8 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_async_shared();
     __syncthreads();
     const int st = it % kStages;
-    const uint32_t qs = ks + (2 + 2 * st) * kTileBytes;
-    const uint32_t gs = qs + kTileBytes;
+    const uint32_t qs = ks + (1 + st) * kPairBytes;
+    const uint32_t gs = qs + kQKBytes;
     const float* lse_t = lse_s[st];
     const float* del_t = delta_s[st];
 
@@ -660,8 +683,8 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     fence_regs(s);
     fence_regs(dp);
     wgmma_fence();
-    wgmma_ss_tile<D>(s, ks, qs);        // S^T = K Q^T
-    if (grp == 1) wgmma_ss_tile<D>(dp, vs, gs);   // dP^T = V dO^T
+    wgmma_ss_tile<DQK>(s, ks, qs);      // S^T = K Q^T
+    if (grp == 1) wgmma_ss_tile<DV>(dp, vs, gs);  // dP^T = V dO^T
     wgmma_commit();
     wgmma_wait_all();
     fence_regs(s);
@@ -685,21 +708,21 @@ flash_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     split_bf16(s, hi, lo);
     wgmma_fence();
     if (grp == 0)
-      wgmma_rs_tile<NB>(acc, hi, lo, gs);    // dV += P^T dO
+      wgmma_rs_tile<NV>(acc, hi, lo, gs);    // dV += P^T dO
     else
-      wgmma_rs_tile<NB>(acc, hi, lo, qs);    // dK += dS^T Q
+      wgmma_rs_tile<NK>(acc, hi, lo, qs);    // dK += dS^T Q
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int c = 0; c < NB; ++c) fence_regs(acc[c]);
+    for (int c = 0; c < NK; ++c) fence_regs(acc[c]);
     __syncthreads();                    // this stage is free for reuse
   }
   cp_async_wait<0>();                   // K and V, when no query reaches
   if (grp == 0)
-    store_rows<NB>(acc, dv + b * sdv.b + g * sdv.h + k0 * sdv.s, sdv.s,
+    store_rows<NV>(acc, dv + b * sdv.b + g * sdv.h + k0 * sdv.s, sdv.s,
                    Sk - k0, warp, lane);
   else
-    store_rows<NB>(acc, dk + b * sdk.b + g * sdk.h + k0 * sdk.s, sdk.s,
+    store_rows<NK>(acc, dk + b * sdk.b + g * sdk.h + k0 * sdk.s, sdk.s,
                    Sk - k0, warp, lane);
 }
 
@@ -759,14 +782,15 @@ cudaError_t launch_simt(const Args& a, int device, cudaStream_t stream) {
 
 // q, k, v, o and dO must start every row on 16 bytes (the wrapper copies
 // them when they do not).
-template <int D>
+template <int DQK, int DV>
 cudaError_t launch_tc(const Args& a, int device, cudaStream_t stream) {
   using namespace tc;
   static std::atomic<unsigned> done_kv{0}, done_q{0};
-  constexpr int bytes = smem_bytes<D>();
+  constexpr int bytes = smem_bytes<DQK, DV>();
   cudaError_t err;
-  if ((err = set_smem_once(flash_bwd_dkdv_tc<D>, bytes, device, done_kv)) ||
-      (err = set_smem_once(flash_bwd_dq_tc<D>, bytes, device, done_q)))
+  if ((err = set_smem_once(flash_bwd_dkdv_tc<DQK, DV>, bytes, device,
+                           done_kv)) ||
+      (err = set_smem_once(flash_bwd_dq_tc<DQK, DV>, bytes, device, done_q)))
     return err;
   const int rep = a.H / a.KV, q_tiles = (a.mk.S + kBM - 1) / kBM;
   const int k_tiles = (a.mk.Sk + kBM - 1) / kBM;
@@ -776,11 +800,13 @@ cudaError_t launch_tc(const Args& a, int device, cudaStream_t stream) {
              *o = static_cast<const bf16*>(a.o),
              *g = static_cast<const bf16*>(a.dout);
   const Strides3* st = a.st;
-  flash_bwd_dq_tc<D><<<dim3(a.B * a.H, q_tiles), 128, bytes, stream>>>(
+  flash_bwd_dq_tc<DQK, DV><<<dim3(a.B * a.H, q_tiles), 128, bytes,
+                             stream>>>(
       q, k, v, o, g, a.lse, a.delta, static_cast<bf16*>(a.dq), st[0], st[1],
       st[2], st[3], st[4], st[5], a.H, rep, a.mk);
   if ((err = cudaGetLastError())) return err;
-  flash_bwd_dkdv_tc<D><<<dim3(a.B * a.KV, k_tiles), 256, bytes, stream>>>(
+  flash_bwd_dkdv_tc<DQK, DV><<<dim3(a.B * a.KV, k_tiles), 256, bytes,
+                               stream>>>(
       q, k, v, g, a.lse, a.delta, static_cast<bf16*>(a.dk),
       static_cast<bf16*>(a.dv), st[0], st[1], st[2], st[4], st[6], st[7],
       a.H, rep, a.mk);
@@ -805,10 +831,11 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto is = [&](int dqk, int dv) { return D == dqk && Dv == dv; };
   err = cudaErrorInvalidValue;
-  if constexpr (kBf16) {                // Dv = D only
-    if (is(64, 64)) err = launch_tc<64>(a, device, s);
-    else if (is(128, 128)) err = launch_tc<128>(a, device, s);
-    else if (is(256, 256)) err = launch_tc<256>(a, device, s);
+  if constexpr (kBf16) {
+    if (is(64, 64)) err = launch_tc<64, 64>(a, device, s);
+    else if (is(128, 128)) err = launch_tc<128, 128>(a, device, s);
+    else if (is(256, 256)) err = launch_tc<256, 256>(a, device, s);
+    else if (is(192, 128)) err = launch_tc<192, 128>(a, device, s);
   } else {
     if (is(32, 32)) err = launch_simt<32, 32, float>(a, device, s);
     else if (is(64, 64)) err = launch_simt<64, 64, float>(a, device, s);
@@ -829,7 +856,8 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 // log-sum-exp, delta (B, H, S) f32 scratch; window 0 = none, softcap 0 =
 // none; (D, Dv) the head dims of q, k and of v, o, dO: (32, 32), (64,
 // 64), (128, 128), (256, 256), (96, 64) or (192, 128) for f32, and (64,
-// 64), (128, 128) or (256, 256) for bf16. Return the launches' CUDA error.
+// 64), (128, 128), (256, 256) or (192, 128) for bf16. Return the
+// launches' CUDA error.
 extern "C" int flash_attention_bwd_f32(
     const void* q, const void* k, const void* v, const void* o,
     const void* dout, const void* lse, void* dq, void* dk, void* dv,

@@ -158,13 +158,15 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
 }
 
 // d += A B over a k-extent of 64, A the 64 x 64 fragment in registers
-// as hi + lo (two products), B a swizzled tile at `b` read MN-major,
-// column block c of B into d[c].
-template <int NB>
-__device__ __forceinline__ void wgmma_rs_tile(float (&d)[NB][32],
+// as hi + lo (two products), B a swizzled tile at `b` of NB column blocks
+// read MN-major, column block c of B into d[c] (d may hold more blocks
+// than NB, which stay as they are).
+template <int NB, int N>
+__device__ __forceinline__ void wgmma_rs_tile(float (&d)[N][32],
                                               const uint32_t (&hi)[16],
                                               const uint32_t (&lo)[16],
                                               uint32_t b) {
+  static_assert(NB <= N, "column blocks of the accumulator");
 #pragma unroll
   for (int c = 0; c < NB; ++c) {
 #pragma unroll

@@ -47,10 +47,10 @@ HEAD_DIM_PAIRS = {
     torch.float32: ((32, 32), (64, 64), (128, 128), (256, 256), (96, 64),
                     (192, 128)),
     torch.bfloat16: ((64, 64), (128, 128), (256, 256), (192, 128))}
-# The backward's: the bf16 backward takes Dv = D only (ROADMAP).
+# The backward's: the forward's pairs (D = 96 takes the f32 kernels only).
 BWD_HEAD_DIM_PAIRS = {
     torch.float32: HEAD_DIM_PAIRS[torch.float32],
-    torch.bfloat16: ((64, 64), (128, 128), (256, 256))}
+    torch.bfloat16: ((64, 64), (128, 128), (256, 256), (192, 128))}
 _BWD_ENTRIES = {torch.float32: "flash_attention_bwd_f32",
                 torch.bfloat16: "flash_attention_bwd_bf16"}
 
@@ -144,8 +144,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (`return_lse`; dense (B, H, S) float32). Returns (dq, dk, dv) in the
     input dtype, each in its input's memory layout (dk and dv of the keys'
     length Sk). (D, Dv) in
-    BWD_HEAD_DIM_PAIRS of that dtype: the bf16 backward at Dv != D is not
-    written yet and raises."""
+    BWD_HEAD_DIM_PAIRS of that dtype: in bf16, (D, D) at D in {64, 128,
+    256} and deepseek-v3's (192, 128); any other pair raises."""
     B, H, S, D, KV, Dv, Sk = _check(q, k, v, BWD_HEAD_DIM_PAIRS, causal,
                                     window, softcap, "flash_attention_bwd")
     for name, t in (("o", o), ("do", do)):

@@ -1136,17 +1136,64 @@ def test_flash_attention_bwd_f32_dv_matches_plain(dev, b, h, kv, s, d, dv,
         _close(a, w, *BWD_TOL[torch.float32])
 
 
-def test_dv_pairs_the_kernels_do_not_take_raise(dev):
-    """bf16 D = 96 (not whole 64-column wgmma blocks), the bf16 backward
-    at Dv != D, and a pair no model uses: each raises by name."""
+@pytest.mark.parametrize("b,h,kv,s,causal,window,softcap", [
+    (1, 4, 4, 256, True, None, None),    # deepseek-v3's causal heads
+    (1, 4, 4, 200, True, None, None),    # a tail tile
+    (1, 4, 2, 256, True, None, None),    # KV < H
+    (1, 4, 2, 65, True, 32, 30.0),       # window and softcap
+])
+def test_flash_attention_bwd_bf16_dv_matches_plain(dev, b, h, kv, s, causal,
+                                                   window, softcap):
+    """The bf16 tensor-core backward at deepseek-v3's (D, Dv) = (192, 128):
+    dq and dk of 192 columns and dv of 128 within the bf16 tolerance of
+    the plain backward given the same lse, the same bits twice."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd
+    q, k, v = _mla_inputs(dev, b, h, kv, s, 192, 128, torch.bfloat16)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True, **kw)
+    do = torch.randn(o.shape, generator=torch.Generator(device=dev)
+                     .manual_seed(s), device=dev).to(torch.bfloat16)
+    got = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, do, lse=lse, **kw)
+    torch.cuda.synchronize()
+    for a, b_, w in zip(got, again, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert torch.equal(a, b_)         # no atomics: the same bits
+        _close(a, w, *BWD_TOL[torch.bfloat16])
+
+
+def test_flash_attention_op_bf16_dv_backward_launches_the_kernel(dev):
+    """MLA's bf16 (B, S, H, 192) queries and keys and (B, S, H, 128) values
+    as transposed views through the op: one backward launch, gradients in
+    the views' layout within the bf16 tolerance of the plain backward."""
+    B, S, H = 2, 130, 4
+    g = torch.Generator(device=dev).manual_seed(11)
+    q, k, v = (torch.randn((B, S, H, d), generator=g, device=dev)
+               .to(torch.bfloat16).transpose(1, 2).requires_grad_(True)
+               for d in (192, 192, 128))
+    do = torch.randn((B, H, S, 128), generator=g, device=dev) \
+        .to(torch.bfloat16)
+    before = dict(ops.LAUNCHES)
+    o = ops.flash_attention_op(q, k, v)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    want = ref.flash_attention_bwd_ref(q.detach(), k.detach(), v.detach(),
+                                       o.detach(), do)
+    for a, w, x in zip(got, want, (q, k, v)):
+        assert a.stride() == x.stride()
+        _close(a, w, *BWD_TOL[torch.bfloat16])
+
+
+def test_dv_pairs_the_kernels_do_not_take_raise(dev):
+    """bf16 D = 96 (not whole 64-column wgmma blocks) and a pair no model
+    uses: each raises by name."""
     q, k, v = _mla_inputs(dev, 1, 2, 2, 64, 96, 64, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim 96"):
         ops.flash_attention_op(q, k, v)
-    q, k, v = _mla_inputs(dev, 1, 2, 2, 64, 192, 128, torch.bfloat16)
-    o, lse = ref.flash_attention_ref(q, k, v, return_lse=True)
-    with pytest.raises(ValueError, match="head dim 192 \\(values 128\\)"):
-        flash_attention_bwd(q, k, v, o, o, lse)
     q, k, v = _mla_inputs(dev, 1, 2, 2, 64, 128, 64, torch.float32)
     with pytest.raises(ValueError, match="head dim 128 \\(values 64\\)"):
         ops.flash_attention_op(q, k, v)
