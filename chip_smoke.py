@@ -67,8 +67,8 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              run at least one relayed return;
   path_shapes  every kernel against its plain version (same
              tolerances) at every distinct shape the main, comms, CNN,
-             batched, serving, LM constellation and LM training paths
-             launched it with (recorded while those ran: partial-visit
+             batched, serving, LM constellation, LM training and examples
+             paths launched it with (recorded while those ran: partial-visit
              and buffered flushes, sparse rounds, per-row mu, grouped
              anchors, the scenario axis, the LM layouts' P; for the LM
              kernels each tensor's shape, strides and offset, so the
@@ -169,6 +169,30 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              local step for the whole client stack (wkv6 / wkv6_bwd
              likewise for the SSD heads and the RWKV6 time mixes); finite
              params and accuracy;
+  lm_pricing every published LM at full width priced as a constellation
+             client: `lm_workload(get_config(arch))` for all 10 archs
+             (layout from shapes on `meta`: deepseek-v3's 671,953,083,392
+             params allocate nothing; the wire at the config dtype's
+             width), timing-only ConstellationSim runs of fedavg_sched and
+             fedbuff (at most 50 rounds, 30 days) on the main path's cell
+             on the card and on the CPU with one AccessWindows computed
+             on the card: RoundRecords identical, no kernel launched; per
+             arch n_params, model MB, transfer s, rounds, mean round h and
+             total days;
+  examples   the four examples of examples/torch/ through their `main`
+             on the card at their defaults, launch counters zeroed just
+             before and read just after each: quickstart (prox_sgd and
+             fedagg; accuracy climbing), constellation_llm with
+             --execution host and mesh (flash_attention and its
+             backward, prox_sgd, fedagg; the mesh run's records those of
+             the host run, accuracy within 1e-5), serve_llm with gemma-2b
+             (flash_attention) and rwkv6-1.6b (wkv6), constellation_sweep
+             at 60 rounds (20 if the phase has used half its 60 s by
+             then); then `ops.fedagg_pytree` (one launch) and
+             `ops.prox_sgd_pytree` (one launch a leaf) on the reduced
+             gemma-2b's tree on the card against their plain versions on
+             CPU copies (f32 2e-5, bf16 2e-2); every launch shape replayed
+             by path_shapes;
   lm_train_kernels  the two backward kernels against their plain
              backward (f32 rtol = atol = 2e-5, bf16 rtol 8e-3 + atol
              1e-3 as the forward; wkv6's dlogw
@@ -263,7 +287,10 @@ destroyed before the last lines.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib.util
+import io
 import json
 import math
 import os
@@ -288,7 +315,7 @@ from repro_torch.comms import (  # noqa: E402
 )
 from repro_torch.comms import isl  # noqa: E402
 from repro_torch.comms.routing import batch_earliest_arrival  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, lm_arch_ids  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     ALGORITHMS,
     TABLE1_NAMES,
@@ -314,7 +341,7 @@ from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch import mesh as mesh_consts  # noqa: E402
 from repro_torch.launch.fl_round import make_fl_round_step  # noqa: E402
 from repro_torch.core.client import vmapped_client_update  # noqa: E402
-from repro_torch.core.workload import get_workload  # noqa: E402
+from repro_torch.core.workload import get_workload, lm_workload  # noqa: E402
 from repro_torch.models.femnist_cnn import femnist_cnn_init  # noqa: E402
 from repro_torch.models.femnist_mlp import femnist_mlp_init  # noqa: E402
 from repro_torch.models.lm.config import Segment  # noqa: E402
@@ -3411,6 +3438,206 @@ def phase_lm_fl(dev) -> dict:
     return out
 
 
+# ------------------------------------------------------------ lm_pricing
+PRICING_HORIZON_S = 30 * 86400.0
+PRICING_ROUNDS = 50
+PRICING_ALGS = ("fedavg_sched", "fedbuff")
+
+
+def phase_lm_pricing(dev) -> dict:
+    """Every published LM at full width priced as a constellation client:
+    `lm_workload(get_config(arch))` for all 10 archs (its layout from
+    shapes on `meta`, nothing allocated; the wire at the config dtype's
+    width), then timing-only `ConstellationSim` runs on the main path's
+    cell over 30 days (fedavg_sched and fedbuff, at most 50 rounds) on
+    the card and on the CPU with one `AccessWindows`, computed once on
+    the card: RoundRecords identical; no kernel launches (timing only)."""
+    cst, st = WalkerStar(10, 10), station_subnetwork(13)
+    t0 = time.perf_counter()
+    aw = compute_access_windows(cst, st, horizon_s=PRICING_HORIZON_S,
+                                device=dev)
+    torch.cuda.synchronize()
+    windows_s = time.perf_counter() - t0
+    ops.reset_launches()
+    out = {}
+    for arch in lm_arch_ids():
+        t0 = time.perf_counter()
+        wl = lm_workload(get_config(arch))
+        hw = HardwareModel.for_workload(wl)
+        row = dict(n_params=wl.n_params, model_mb=wl.model_bytes / 1e6,
+                   transfer_s=hw.tx_time_s, epoch_s=hw.epoch_time_s,
+                   trains=wl.train_refusal is None,
+                   build_s=time.perf_counter() - t0)
+        require(wl.n_params > 0 and wl.model_bytes == wl.n_params
+                * wl.bytes_per_param, f"{arch}: bad workload cost")
+        for alg in PRICING_ALGS:
+            cfg = SimConfig(max_rounds=PRICING_ROUNDS,
+                            horizon_s=PRICING_HORIZON_S, train=False)
+            res, walls = {}, {}
+            for where, device in (("card", dev), ("cpu", "cpu")):
+                t0 = time.perf_counter()
+                sim = ConstellationSim(cst, st, ALGORITHMS[alg], cfg=cfg,
+                                       access=aw, workload=wl, device=device)
+                res[where] = sim.run()
+                walls[where] = time.perf_counter() - t0
+            card = res["card"]
+            require(_records(card) == _records(res["cpu"])
+                    and card.total_time_s == res["cpu"].total_time_s,
+                    f"{arch}/{alg}: the card's records differ from the "
+                    "CPU's on the same windows")
+            require(math.isfinite(card.total_time_s),
+                    f"{arch}/{alg}: total time not finite")
+            row[alg] = dict(rounds=card.n_rounds,
+                            mean_round_h=card.mean_round_duration_s / 3600,
+                            total_days=card.total_time_s / 86400,
+                            wall_s=walls["card"], cpu_wall_s=walls["cpu"])
+        out[arch] = row
+    launches = dict(ops.LAUNCHES)
+    require(not any(launches.values()),
+            f"timing-only runs launched kernels: {launches}")
+    out = dict(cell=MAIN_CELL, horizon_days=PRICING_HORIZON_S / 86400,
+               max_rounds=PRICING_ROUNDS, windows_s=windows_s,
+               archs=out, launches=launches)
+    emit("lm_pricing", **out)
+    return out
+
+
+# -------------------------------------------------------------- examples
+EXAMPLES_DIR = os.path.join(ROOT, "examples", "torch")
+# The sweep runs at its default 60 rounds unless that would take the
+# phase past this wall; then at 20.
+EXAMPLES_BUDGET_S = 60.0
+
+
+def _example(name: str):
+    spec = importlib.util.spec_from_file_location(
+        f"torch_example_{name}", os.path.join(EXAMPLES_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _pytree_checks(dev) -> dict:
+    """`fedagg_pytree` and `prox_sgd_pytree` once each on CUDA leaves (the
+    reduced gemma-2b's tree, one leaf in bf16) against the same calls on
+    CPU copies, which take the plain versions, at tests/test_kernels.py's
+    tolerances; the launches counted: one fedagg, one prox_sgd a leaf."""
+    cfg = get_config("gemma-2b").reduced()
+    g = torch.Generator(device=dev).manual_seed(26)
+    params = init_params(cfg, g, dev)
+    params["final_norm"] = params["final_norm"].bfloat16()
+    K = 4
+    stacked = map_tree(lambda t: torch.randn(
+        (K,) + tuple(t.shape), generator=g, device=dev).to(t.dtype), params)
+    w = torch.softmax(torch.randn(K, generator=g, device=dev), 0)
+    grads, anchor = (map_tree(lambda t: torch.randn(
+        t.shape, generator=g, device=dev).to(t.dtype), params)
+        for _ in range(2))
+    cpu = lambda tree: map_tree(lambda t: t.cpu(), tree)
+    ops.reset_launches()
+    got_agg = ops.fedagg_pytree(stacked, w)
+    got_prox = ops.prox_sgd_pytree(params, grads, anchor, 0.05, 0.1)
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    n_leaves = len(tree_leaves(params))
+    require(launches["fedagg"] == 1 and launches["prox_sgd"] == n_leaves,
+            f"pytree forms launched {launches}, expected 1 fedagg and "
+            f"{n_leaves} prox_sgd")
+    want_agg = ops.fedagg_pytree(cpu(stacked), w.cpu())
+    want_prox = ops.prox_sgd_pytree(cpu(params), cpu(grads), cpu(anchor),
+                                    0.05, 0.1)
+    errs = {}
+    for name, got, want in (("fedagg_pytree", got_agg, want_agg),
+                            ("prox_sgd_pytree", got_prox, want_prox)):
+        errs[name] = max(
+            _max_err(a.cpu(), b, TOL[str(b.dtype).removeprefix("torch.")])
+            for a, b in zip(tree_leaves(got), tree_leaves(want)))
+    return dict(leaves=n_leaves, launches=launches, max_abs_err=errs)
+
+
+def phase_examples(dev) -> dict:
+    """The four examples of `examples/torch/` through their `main`, on the
+    card at their defaults, launch counters zeroed just before and read
+    just after each: quickstart (prox_sgd, fedagg; accuracy climbing),
+    constellation_llm with --execution host and mesh (the one-rank NCCL
+    group; flash_attention and its backward, prox_sgd, fedagg; the two
+    runs' RoundRecords identical, accuracies within 1e-5), serve_llm with
+    gemma-2b (flash_attention) and rwkv6-1.6b (wkv6), and
+    constellation_sweep (timing only: windows on the card) at its 60
+    rounds, or at 20 if that would take the phase past
+    EXAMPLES_BUDGET_S; then the pytree forms of the two simulator
+    kernels against their plain versions."""
+    t_phase = time.perf_counter()
+    runs = {}
+
+    def run(label: str, name: str, argv: list[str], must: tuple) -> dict:
+        mod = _example(name)
+        buf = io.StringIO()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            got = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        missing = [k for k in must if not launches[k]]
+        require(not missing, f"examples/{label}: no launch of {missing}")
+        require(got["device"].startswith(dev.type),
+                f"examples/{label} ran on {got['device']}")
+        runs[label] = dict(argv=argv, wall_s=wall, launches=launches,
+                           stdout=buf.getvalue().splitlines())
+        return got
+
+    qs = run("quickstart", "quickstart", [], ("prox_sgd", "fedagg"))
+    accs = [a for *_, a in qs["accuracy_curve"]]
+    require(len(accs) >= 2 and all(math.isfinite(a) for a in accs)
+            and accs[-1] > accs[0], f"quickstart: accuracy {accs}")
+    llm = {}
+    for ex in ("host", "mesh"):
+        llm[ex] = run(f"constellation_llm_{ex}", "constellation_llm",
+                      ["--execution", ex],
+                      ("prox_sgd", "fedagg", "flash_attention",
+                       "flash_attention_bwd"))
+        require(llm[ex]["execution"] == ex and len(llm[ex]["rounds"]) >= 2,
+                f"constellation_llm {ex}: {len(llm[ex]['rounds'])} rounds")
+    host, mesh = ([[getattr(r, f) for f in RECORD_FIELDS] for r in
+                   llm[ex]["rounds"]] for ex in ("host", "mesh"))
+    require(host == mesh, "constellation_llm: mesh records differ from "
+                          "the host run's")
+    gaps = [abs(a - b) for (*_, a), (*_, b) in
+            zip(llm["host"]["accuracy_curve"], llm["mesh"]["accuracy_curve"])]
+    require(all(math.isfinite(x) and x <= 1e-5 for x in gaps),
+            f"constellation_llm: mesh accuracy {gaps} from the host run's")
+    for arch, kernel in (("gemma-2b", "flash_attention"),
+                         ("rwkv6-1.6b", "wkv6")):
+        got = run(f"serve_llm_{arch}", "serve_llm", ["--arch", arch],
+                  (kernel,))
+        cfg = get_config(arch).reduced()
+        toks = got["tokens"]
+        require(toks.shape == (4, 33) and toks.min() >= 0
+                and toks.max() < cfg.vocab_size,
+                f"serve_llm {arch}: tokens {toks.shape}")
+    rounds = 60
+    if time.perf_counter() - t_phase > EXAMPLES_BUDGET_S / 2:
+        rounds = 20
+    sweep = run("constellation_sweep", "constellation_sweep",
+                ["--rounds", str(rounds)], ())
+    cells = sweep["cells"]
+    require(len(cells) == 12 and all(
+        c["n_rounds"] > 0 and math.isfinite(c["total_s"])
+        for c in cells.values()), "constellation_sweep: a cell ran no round")
+    for g in (1, 3, 5, 13):
+        require(cells[(g, "fedavg_sched")]["total_s"]
+                <= cells[(g, "fedavg")]["total_s"],
+                f"constellation_sweep g={g}: scheduling slowed FedAvg")
+    total = {k: sum(r["launches"][k] for r in runs.values())
+             for k in ops.LAUNCHES}
+    out = dict(runs=runs, sweep_rounds=rounds, launches=total,
+               pytree=_pytree_checks(dev))
+    emit("examples", **out)
+    return out
+
+
 def _grads_of(cfg, params, toks, stub: dict):
     leaves = []
     map_tree(lambda p: leaves.append(p.requires_grad_(True)), params)
@@ -3680,7 +3907,9 @@ def main() -> int:
                                             "flash_attention_bwd"),
                   lm_train_mla=LaunchShapes("flash_attention",
                                             "flash_attention_bwd"),
-                  mesh_lm_round=LaunchShapes(*LM_KERNELS))
+                  mesh_lm_round=LaunchShapes(*LM_KERNELS),
+                  examples=LaunchShapes(*sim, "flash_attention",
+                                        "flash_attention_bwd", "wkv6"))
     with shapes["main_path"]:
         main_path = timed("main_path", phase_main_path, dev, setup)
     setup["main_path"] = main_path
@@ -3696,6 +3925,9 @@ def main() -> int:
         sweep = timed("batched_sweep", phase_batched_sweep, dev)
     with shapes["lm_fl"]:
         lm_fl = timed("lm_fl", phase_lm_fl, dev)
+    timed("lm_pricing", phase_lm_pricing, dev)
+    with shapes["examples"]:
+        examples = timed("examples", phase_examples, dev)
     timed("comms_scale", phase_comms_scale, dev)
     timed("comms_cpu_vs_card", phase_comms_cpu_vs_card, dev)
     lm_rows = timed("lm_kernels", phase_lm_kernels, dev)
@@ -3827,6 +4059,8 @@ def main() -> int:
             # full-width hymba-1.5b round as a pod, each counted from 0.
             mesh_path_launches=mesh_path["launches"][row["name"]],
             mesh_lm_round_launches=lm_round["launches"][row["name"]],
+            # The four examples of examples/torch/, each counted from 0.
+            examples_launches=examples["launches"][row["name"]],
             **{f"{path}_launches": run["launches"][row["name"]]
                for path, run in (serve_runs | train_runs).items()},
             other_shapes=[{k: r.get(k) for k in row_keys}

@@ -97,6 +97,18 @@ def vmapped_client_update(loss_fn: Callable, *, lr: float = 0.05,
     return client_update
 
 
+def make_batched_client_update(apply_fn: Callable, lr: float = 0.05,
+                               batch_size: int = 32, max_steps: int = 64, *,
+                               layout: ParamLayout = FEMNIST_MLP) -> Callable:
+    """Seed-contract convenience: `vmapped_client_update` with the
+    cross-entropy data term of an image classifier's `apply_fn`, over
+    the flat (C, P) client stack (the reference jits its vmapped form).
+    Called as `vmapped_client_update`'s result is."""
+    return vmapped_client_update(classification_loss(apply_fn), lr=lr,
+                                 batch_size=batch_size, max_steps=max_steps,
+                                 layout=layout)
+
+
 def make_client_update(apply_fn: Callable | None = None, lr: float = 0.05,
                        batch_size: int = 32, max_steps: int = 64, *,
                        loss_fn: Callable | None = None,

@@ -113,3 +113,23 @@ class HardwareModel:
         if codec is not None:
             kwargs["codec"] = get_codec(codec)
         return cls(**kwargs)
+
+
+def lm_hardware_model(n_params: int, flops_per_step: float,
+                      steps_per_epoch: int = 1,
+                      gflops: float = 275e3,       # one v5e pod-slice client
+                      link_mbps: float = 580.0,
+                      bytes_per_param: int = C.BYTES_PER_PARAM
+                      ) -> HardwareModel:
+    """Price an assigned LM architecture as a constellation client (the
+    reference's `lm_hardware_model`, with its default client's 275
+    TFLOP/s). `bytes_per_param` defaults to the shared full-precision
+    width (`constants.BYTES_PER_PARAM`, f32); `lm_workload` derives the
+    actual width from the architecture's dtype (pass 2 for bf16)."""
+    return HardwareModel(
+        gflops=gflops,
+        epoch_mflops=flops_per_step * steps_per_epoch / 1e6,
+        link_mbps=link_mbps,
+        model_bytes=n_params * bytes_per_param,
+        bytes_per_param=bytes_per_param,
+    )

@@ -24,7 +24,9 @@ ported LM config federated over token shards). An LM client stack is one
 (C, P) float32 buffer laid out as the config's param tree
 (`ParamLayout.of_tree`), trained by one forward and backward for the
 whole stack (`client_lm_losses`). Every workload of the reference is
-ported.
+ported. `lm_workload` prices any config (its layout comes from shapes on
+the `meta` device, its wire width from the config's dtype); only a
+float32 decoder-only stack trains (`Workload.train_refusal`).
 """
 from __future__ import annotations
 
@@ -85,6 +87,9 @@ class Workload:
     # Platform overrides (radio / compute) for `HardwareModel.for_workload`.
     link_mbps: float | None = None
     gflops: float | None = None
+    # Why this workload prices but cannot train (`ConstellationSim` raises
+    # it for `SimConfig(train=True)`); None trains.
+    train_refusal: str | None = None
 
     # ------------------------------------------------------------------ #
     def with_execution(self, execution: str) -> "Workload":
@@ -229,31 +234,45 @@ def lm_inactive_params(cfg) -> int:
 
 def lm_layout(cfg) -> ParamLayout:
     """The flat layout of an LM config's param tree (leaves in
-    `jax.tree.leaves` order, the `"segments"` list by index)."""
+    `jax.tree.leaves` order, the `"segments"` list by index), from its
+    shapes on the `meta` device: nothing is allocated, so a full-width
+    config (deepseek-v3's 672 B params) prices as fast as a reduced one."""
     from repro_torch.models.lm.transformer import init_params
     return ParamLayout.of_tree(
-        init_params(cfg, torch.Generator().manual_seed(0), "cpu"))
+        init_params(cfg, torch.Generator().manual_seed(0), "meta"))
+
+
+def lm_train_refusal(cfg) -> str | None:
+    """Why an LM config's client stack cannot train here, or None. The
+    reference fails there too: its client loop's carry comes back f32
+    from a bf16 stack, and an enc-dec model's first loss needs frames
+    that token shards do not carry."""
+    if cfg.encoder is not None:
+        return (f"{cfg.name}: an enc-dec model needs frame embeddings, "
+                "which token shards do not carry (the reference fails at "
+                "its first loss)")
+    if cfg.dtype != "float32":
+        return (f"{cfg.name}: the client stack trains as one float32 "
+                f"buffer and the config's dtype is {cfg.dtype} (the "
+                "reference's client loop fails on a non-f32 stack too)")
+    return None
 
 
 def lm_workload(cfg, *, name: str | None = None, seq_len: int = 32,
                 samples_per_client: int = 32, eval_samples: int = 8
                 ) -> Workload:
-    """Federate an LM ModelConfig (float32) over token shards.
+    """Federate any LM ModelConfig over token shards.
 
     The cost model is the reference's: 6 FLOP per activated parameter per
     token (fwd+bwd), (seq_len + 1) tokens per sample row; the parameter
-    count comes from the real parameter tree and prices the wire. The
-    client stack trains as one (C, P) float32 buffer, so the config's
-    dtype must be float32 (both LM workloads' is)."""
+    count comes from the config's parameter shapes and prices the wire at
+    the config dtype's width. Any config prices (a timing-only
+    `ConstellationSim`); training needs a float32 decoder-only config,
+    since the client stack trains as one (C, P) float32 buffer over token
+    shards (`lm_train_refusal`)."""
     from repro_torch.models.lm.transformer import init_params
     from repro_torch.train.step import client_lm_losses
 
-    if cfg.encoder is not None:
-        raise ValueError(f"lm_workload({cfg.name}): an enc-dec model needs "
-                         "frame embeddings, which token shards do not carry")
-    if cfg.dtype != "float32":
-        raise ValueError(f"lm_workload({cfg.name}): the client stack is one "
-                         f"float32 buffer; config dtype is {cfg.dtype}")
     layout = lm_layout(cfg)
 
     def init_fn(generator, device):
@@ -279,7 +298,8 @@ def lm_workload(cfg, *, name: str | None = None, seq_len: int = 32,
         train_flops_per_param=6.0 * (seq_len + 1),
         inactive_params=lm_inactive_params(cfg),
         samples_per_epoch=samples_per_client,
-        bytes_per_param=4,
+        bytes_per_param=getattr(torch, cfg.dtype).itemsize,
+        train_refusal=lm_train_refusal(cfg),
     )
 
 

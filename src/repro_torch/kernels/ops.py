@@ -33,6 +33,7 @@ from repro_torch.kernels.flash_attention import (
 )
 from repro_torch.kernels.prox_sgd import prox_sgd
 from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
+from repro_torch.params import leaves_with_paths, unflatten_like
 
 LAUNCHES = {"fedagg": 0, "prox_sgd": 0, "flash_attention": 0, "wkv6": 0,
             "flash_attention_bwd": 0, "wkv6_bwd": 0}
@@ -83,6 +84,37 @@ def prox_sgd_op(w: torch.Tensor, g: torch.Tensor, w0: torch.Tensor,
     prox_sgd(w, g, w0, steps, step, lr, mu)
     LAUNCHES["prox_sgd"] += 1
     return w
+
+
+def fedagg_pytree(stacked, w: torch.Tensor):
+    """Weighted-average a stacked client tree (dicts and lists of (K, ...)
+    leaves) through ONE `fedagg` launch: the leaves flattened to one
+    float32 (K, P) buffer in `jax.tree.leaves` order, the (P,) result
+    split back, each leaf in its own dtype (the reference's
+    `fedagg_pytree`)."""
+    leaves = [leaf for _, leaf in leaves_with_paths(stacked)]
+    K = leaves[0].shape[0]
+    flat = torch.cat([l.reshape(K, -1).float() for l in leaves], dim=1)
+    out = fedagg_op(flat, w.float())
+    pieces = torch.split(out, [l[0].numel() for l in leaves])
+    return unflatten_like(stacked, [p.view(l.shape[1:]).to(l.dtype)
+                                    for p, l in zip(pieces, leaves)])
+
+
+def prox_sgd_pytree(params, grads, anchor, lr: float, mu: float):
+    """`w - lr * (g + mu * (w - w0))` leaf by leaf over three trees of the
+    same structure, one `prox_sgd` launch a leaf, into new tensors (the
+    reference's `prox_sgd_pytree`)."""
+    outs = []
+    for (_, p), (_, g), (_, a) in zip(leaves_with_paths(params),
+                                      leaves_with_paths(grads),
+                                      leaves_with_paths(anchor)):
+        w = p.reshape(1, -1).clone(memory_format=torch.contiguous_format)
+        live = torch.ones(1, dtype=torch.int32, device=p.device)
+        prox_sgd_op(w, g.reshape(1, -1).contiguous(),
+                    a.reshape(-1).contiguous(), live, 0, lr, mu)
+        outs.append(w.view(p.shape))
+    return unflatten_like(params, outs)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -171,5 +203,6 @@ def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _Wkv6.apply(r, k, v, logw, s0, chunk)
 
 
-__all__ = ["LAUNCHES", "reset_launches", "fedagg_op", "flash_attention_op",
-           "prox_sgd_op", "wkv6_op", "ref"]
+__all__ = ["LAUNCHES", "reset_launches", "fedagg_op", "fedagg_pytree",
+           "flash_attention_op", "prox_sgd_op", "prox_sgd_pytree", "wkv6_op",
+           "ref"]

@@ -76,6 +76,32 @@ def fedagg_batched_ref(x: torch.Tensor, w: torch.Tensor,
                    scale_of(s)) for s in range(x.shape[0])])
 
 
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None,
+                  softcap: float | None = None) -> torch.Tensor:
+    """The reference's naive-softmax oracle: q (B, H, S, D), k / v (B, KV,
+    S, D) -> (B, H, S, D) in q's dtype; every (S, S) score in float32,
+    masked scores at -1e30 (`flash_attention_ref` is the kernel's own
+    contract, with keys of their own length and value head dims)."""
+    B, H, S, D = q.shape
+    rep = H // k.shape[1]
+    k = torch.repeat_interleave(k, rep, dim=1)
+    v = torch.repeat_interleave(v, rep, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * (D ** -0.5)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(S, device=q.device)[:, None]
+    kpos = torch.arange(S, device=q.device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= qpos >= kpos
+    if window is not None:
+        mask &= (qpos - kpos) < window
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
+
+
 def _pair_mask(S: int, Sk: int, causal: bool, window: int | None,
                device) -> torch.Tensor:
     """(S, Sk) bool: whether query qpos (0..S-1) attends to key kpos

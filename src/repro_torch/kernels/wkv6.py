@@ -34,6 +34,8 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.stream import current_stream
 
+# The scan's default chunk length (the reference kernel's too).
+DEFAULT_CHUNK = 64
 # Shared memory a block may use on the H100 (227 KB).
 MAX_SMEM_BYTES = 232_448
 # The backward kernel's register tiles: K, V and the chunk multiples of 4,
@@ -68,8 +70,8 @@ def smem_bytes(K: int, V: int, chunk: int) -> int:
 
 
 def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-         logw: torch.Tensor, s0: torch.Tensor, *, chunk: int = 64,
-         return_states: bool = False,
+         logw: torch.Tensor, s0: torch.Tensor, *,
+         chunk: int = DEFAULT_CHUNK, return_states: bool = False,
          generic: bool = False) -> tuple[torch.Tensor, ...]:
     """Launch the kernel on CUDA f32 tensors. r/k/logw: (B, H, T, K); v:
     (B, H, T, V); s0: (B, H, K, V); logw <= 0. Returns (o (B, H, T, V),
@@ -134,7 +136,7 @@ def _check(r, k, v, logw, s0, what: str, extra=()):
 def wkv6_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              logw: torch.Tensor, s0: torch.Tensor, do: torch.Tensor,
              ds_final: torch.Tensor | None, states: torch.Tensor, *,
-             chunk: int = 64) -> tuple[torch.Tensor, ...]:
+             chunk: int = DEFAULT_CHUNK) -> tuple[torch.Tensor, ...]:
     """Launch the backward kernel on CUDA f32 tensors: the inputs of
     `wkv6`, do (B, H, T, V) the gradient of o, ds_final (B, H, K, V) that
     of the end state or None (zero), and the forward's chunk start

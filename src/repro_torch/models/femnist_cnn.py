@@ -20,12 +20,14 @@ a batch of scenarios (`repro_torch.sim.batched`).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.models.femnist_mlp import _he_normal_
-from repro_torch.params import FEMNIST_CNN
+from repro_torch.params import FEMNIST_CNN, leaves_with_paths
 
 
 def femnist_cnn_init(generator: torch.Generator, device=None) -> torch.Tensor:
@@ -80,3 +82,9 @@ def femnist_cnn_apply(params: dict, x: torch.Tensor) -> torch.Tensor:
     w2, b2 = params["fc2"]["w"], params["fc2"]["b"]
     h = torch.relu(torch.matmul(h, w1) + b1.unsqueeze(-2))
     return torch.matmul(h, w2) + b2.unsqueeze(-2)
+
+
+def count_params(params) -> int:
+    """Parameters in a tree of arrays or tensors (or one flat buffer):
+    the reference's `count_params`. 47,887 for this model."""
+    return sum(math.prod(leaf.shape) for _, leaf in leaves_with_paths(params))

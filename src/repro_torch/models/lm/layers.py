@@ -63,6 +63,16 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ----------------------------------------------------------------------- #
 # Gated MLPs
 # ----------------------------------------------------------------------- #
+def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+                window: int | None = None) -> torch.Tensor:
+    """(..., Q, K) boolean mask, True = attend: key positions at or before
+    each query's, and within `window` of it where one is given."""
+    m = q_pos[..., :, None] >= k_pos[..., None, :]
+    if window is not None:
+        m &= (q_pos[..., :, None] - k_pos[..., None, :]) < window
+    return m
+
+
 def init_mlp(generator: torch.Generator, d_model: int, d_ff: int,
              gated: bool, lead: tuple[int, ...] = (), device=None,
              dtype=torch.float32) -> dict:

@@ -50,3 +50,18 @@ def decay_scan_step(r, k, v, logw, s, u=None):
     o = torch.einsum("bhk,bhkv->bhv", r, s + u[..., :, None] * kv)
     s_new = torch.exp(logw)[..., :, None] * s + kv
     return o, s_new
+
+
+def reference_scan(r, k, v, logw, s0, u):
+    """O(T) step-by-step oracle for tests (RWKV convention with bonus u):
+    r, k, logw (B, H, T, K), v (B, H, T, V), s0 (B, H, K, V), u (H, K) or
+    broadcastable -> (o (B, H, T, V), s_final)."""
+    s = s0
+    outs = []
+    for t in range(r.shape[2]):
+        rt, kt, vt, wt = r[:, :, t], k[:, :, t], v[:, :, t], logw[:, :, t]
+        kv = kt[..., :, None] * vt[..., None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rt,
+                                 s + u[..., :, None] * kv))
+        s = torch.exp(wt)[..., :, None] * s + kv
+    return torch.stack(outs, dim=2), s

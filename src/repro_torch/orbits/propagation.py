@@ -149,3 +149,23 @@ def elevation_deg(sat_eci: torch.Tensor, gs_eci: torch.Tensor) -> torch.Tensor:
            + rel[..., 2] * up[..., 2])
     sin_el = dot / torch.clamp(rel_norm, min=1.0)
     return torch.rad2deg(torch.asin(torch.clamp(sin_el, -1.0, 1.0)))
+
+
+def sat_to_sat_range_m(sat_eci: torch.Tensor) -> torch.Tensor:
+    """Pairwise inter-satellite ranges [m], sat_eci (K, T, 3) -> (K, K, T),
+    with a line-of-sight check: +inf where the earth (with a 100 km
+    atmosphere pad) blocks the segment from satellite i to satellite j,
+    else the Euclidean range. float32 on the positions' device."""
+    diff = sat_eci[None, :] - sat_eci[:, None]          # (K,K,T,3) j - i
+    rng = _norm3(diff)
+    # Line of sight: the least distance from earth's center to the
+    # segment a -> a + diff.
+    a = sat_eci[:, None].expand_as(diff)                       # (K,K,T,3)
+    a_dot_d = (a[..., 0] * diff[..., 0] + a[..., 1] * diff[..., 1]
+               + a[..., 2] * diff[..., 2])
+    d_dot_d = (diff[..., 0] * diff[..., 0] + diff[..., 1] * diff[..., 1]
+               + diff[..., 2] * diff[..., 2])
+    tt = torch.clamp(-a_dot_d / torch.clamp(d_dot_d, min=1.0), 0.0, 1.0)
+    min_r = _norm3(a + tt[..., None] * diff)
+    blocked = min_r < (R_EARTH + 100e3)
+    return torch.where(blocked, torch.full_like(rng, float("inf")), rng)

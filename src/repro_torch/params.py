@@ -1,12 +1,13 @@
-"""Flat parameter layout: one contiguous float32 buffer per model.
+"""Flat parameter layout: one contiguous float32 buffer per trained model.
 
 The reference carries parameters as nested dicts (pytrees). The port keeps
-them in one contiguous `(P,)` buffer — or `(C, P)` for a stack of clients —
-so a kernel sees a whole model (or a whole round's client stack) as one
-array: one `prox_sgd` launch per local step and one `fedagg` launch per
-aggregation, with no concatenation copy. Named per-leaf views are laid out
-in `jax.tree.leaves` order (sorted dict keys, lists by index), which is
-also the order the reference's kernel wrappers flatten in. A list in the
+a model it trains in one contiguous `(P,)` buffer — or `(C, P)` for a
+stack of clients — so a kernel sees a whole model (or a whole round's
+client stack) as one array: one `prox_sgd` launch per local step and
+one `fedagg` launch per aggregation, with no concatenation copy. Named
+per-leaf views are laid out in `jax.tree.leaves` order (sorted dict
+keys, lists by index), which is also the order the reference's kernel
+wrappers flatten in. A list in the
 tree (the LM's `"segments"`) has its index as a path part ("segments/0/
 attn/wq"); `views` turns those parts back into a list, ordered by index
 as a number, never as a string (so "10" comes after "2").
@@ -43,13 +44,16 @@ class ParamLayout:
     @classmethod
     def of_tree(cls, tree) -> "ParamLayout":
         """The layout of a tree of arrays or tensors (dicts and lists),
-        leaves in `jax.tree.leaves` order."""
+        leaves in `jax.tree.leaves` order. Only shapes are read, so a
+        tree of any dtype, on any device (`meta` included), has one; its
+        `size` is the parameter count, whatever the width."""
         return cls(tuple((path, tuple(leaf.shape))
                          for path, leaf in leaves_with_paths(tree)))
 
     def pack(self, tree) -> torch.Tensor:
         """Flatten a tree of tensors (with an optional shared leading
-        client axis) into one contiguous float32 buffer on their device."""
+        client axis), of any float dtype, into one contiguous float32
+        buffer on their device (the training stack's width)."""
         parts = []
         for path, shape in self.leaves:
             leaf = _lookup(tree, path)
@@ -76,8 +80,8 @@ class ParamLayout:
 
     def from_tree(self, tree: dict, device=None) -> torch.Tensor:
         """Flatten a nested dict of arrays (optionally with a shared
-        leading client axis) into one contiguous float32 buffer on
-        `device` (CUDA unless asked otherwise)."""
+        leading client axis), of any float dtype, into one contiguous
+        float32 buffer on `device` (CUDA unless asked otherwise)."""
         device = resolve_device(device)
         parts = []
         for path, shape in self.leaves:
@@ -116,6 +120,22 @@ def leaves_with_paths(tree, prefix: str = ""):
             yield from leaves_with_paths(v, f"{prefix}{i}/")
     else:
         yield prefix[:-1], tree
+
+
+def unflatten_like(tree, leaves):
+    """A tree shaped like `tree` (its dicts and lists) whose leaves are
+    `leaves`, given in `leaves_with_paths` order."""
+    it = iter(leaves)
+
+    def rebuild(node):
+        if isinstance(node, dict):
+            new = {k: rebuild(node[k]) for k in sorted(node)}
+            return {k: new[k] for k in node}
+        if isinstance(node, (list, tuple)):
+            return type(node)(rebuild(v) for v in node)
+        return next(it)
+
+    return rebuild(tree)
 
 
 def _lookup(tree, path: str):

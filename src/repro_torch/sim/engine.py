@@ -211,6 +211,11 @@ class ConstellationSim:
         self.device = resolve_device(device)
         self.workload = get_workload(
             workload if workload is not None else "femnist_mlp")
+        if self.cfg.train and self.workload.train_refusal is not None:
+            raise ValueError(
+                f"workload {self.workload.name!r} prices but cannot train: "
+                f"{self.workload.train_refusal}; run it timing-only "
+                "(SimConfig(train=False))")
         # Hardware: explicit > workload-derived > paper constants (the
         # `femnist_mlp` workload's pinned cost makes all three identical).
         if hw is not None:

@@ -1,6 +1,7 @@
 """The port stands alone: no `jax`, nothing of `repro`, CUDA by default."""
 from __future__ import annotations
 
+import ast
 import os
 import pkgutil
 import re
@@ -58,6 +59,99 @@ def test_every_reference_module_has_a_counterpart():
     assert tree("repro") - tree("repro_torch") == set()
 
 
+# Public names of the reference with no counterpart of the same name in
+# the port's module of the same path, each with its reason or the name
+# that takes its place.
+NAME_EXCEPTIONS = {
+    "sharding/compat.py": {
+        "shard_map": "DTensor and local tensors take its place "
+                     "(`apply_moe_ep_mesh`, `make_mesh_round_step`)"},
+    "analysis/calibration.py": {
+        "metrics_from_compiled": "reads XLA's cost analysis of a compiled "
+                                 "program; the port counts with `CostMode`"},
+    "core/aggregation.py": {"Pytree": "a typing alias for JAX pytrees"},
+    "core/strategies/base.py": {"Pytree": "a typing alias for JAX pytrees"},
+    "models/lm/transformer.py": {"Pytree": "a typing alias for JAX pytrees"},
+    "kernels/prox_sgd.py": {"BLOCK": "a Pallas tiling constant"},
+    "kernels/fedagg.py": {"BLOCK_P": "a Pallas tiling constant"},
+    "kernels/flash_attention.py": {
+        "DEFAULT_BQ": "a Pallas tiling constant (the CUDA tiles are fixed)",
+        "DEFAULT_BK": "a Pallas tiling constant (the CUDA tiles are fixed)",
+        "NEG_INF": "the Pallas kernel's mask value; the CUDA kernels mask "
+                   "in their own code"},
+    "launch/mesh.py": {"ICI_BW": "the TPU interconnect's rate; its "
+                                 "counterpart is `NVLINK_BW`"},
+}
+
+
+def _public_names(path: str, attributes: bool
+                  ) -> tuple[set[str], dict[str, set[str]]]:
+    """Top-level public names of a module (functions, classes and
+    assigned names) and, per public class, its public methods (with its
+    class attributes and fields if `attributes`), by AST."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+
+    def targets(node) -> list[str]:
+        if isinstance(node, ast.Assign):
+            nodes = node.targets
+        elif isinstance(node, ast.AnnAssign):
+            nodes = [node.target]
+        else:
+            return []
+        out = []
+        for t in nodes:
+            for e in (t.elts if isinstance(t, ast.Tuple) else [t]):
+                if isinstance(e, ast.Name):
+                    out.append(e.id)
+        return out
+
+    defs = (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)
+    top, members = set(), {}
+    for node in tree.body:
+        names = [node.name] if isinstance(node, defs) else targets(node)
+        top |= {n for n in names if not n.startswith("_")}
+        if isinstance(node, ast.ClassDef) and not node.name.startswith("_"):
+            members[node.name] = {
+                n for m in node.body
+                for n in ([m.name] if isinstance(m, defs)
+                          else targets(m) if attributes else [])
+                if not n.startswith("_")}
+    return top, members
+
+
+def _module_paths(pkg: str) -> list[str]:
+    root = os.path.join(SRC, pkg)
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files
+                  if f.endswith(".py"))
+
+
+def test_every_reference_public_name_has_a_counterpart():
+    """Module by module, every public top-level name of the reference and
+    every public method of its public classes has a counterpart of the
+    same name in the port (a method may be a class attribute there), but
+    for the JAX- and TPU-only names of `NAME_EXCEPTIONS`."""
+    missing, stale = [], []
+    for rel in _module_paths("repro"):
+        ref_top, ref_members = _public_names(
+            os.path.join(SRC, "repro", rel), attributes=False)
+        top, members = _public_names(
+            os.path.join(SRC, "repro_torch", rel), attributes=True)
+        allowed = NAME_EXCEPTIONS.get(rel, {})
+        missing += [f"{rel}:{n}" for n in sorted(ref_top - top - set(allowed))]
+        stale += [f"{rel}:{n}" for n in sorted(set(allowed) - ref_top)]
+        stale += [f"{rel}:{n}" for n in sorted(set(allowed) & top)]
+        for cls, names in sorted(ref_members.items()):
+            if cls in members:
+                missing += [f"{rel}:{cls}.{n}"
+                            for n in sorted(names - members[cls])]
+    assert not missing, f"reference names without a counterpart: {missing}"
+    # An exception names a reference name that the port really lacks.
+    assert not stale, f"exceptions that no longer apply: {stale}"
+    assert set(NAME_EXCEPTIONS) <= set(_module_paths("repro"))
+
+
 _FORBIDDEN = re.compile(r"^\s*(import jax\b|from jax\b|import repro\b|"
                         r"import repro\.|from repro\.|from repro import)",
                         re.MULTILINE)
@@ -67,6 +161,9 @@ def _sources() -> list[str]:
     out = [os.path.join(ROOT, "chip_smoke.py")]
     for dirpath, _, files in os.walk(PKG):
         out += [os.path.join(dirpath, f) for f in files if f.endswith(".py")]
+    examples = os.path.join(ROOT, "examples", "torch")
+    out += [os.path.join(examples, f) for f in os.listdir(examples)
+            if f.endswith(".py")]
     return sorted(out)
 
 

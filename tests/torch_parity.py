@@ -82,15 +82,17 @@ def replay_indices(rngs, n_valid, bound: int, batch_size: int) -> np.ndarray:
 class JaxReplaySampler:
     """Replays the reference engine's PRNG stream for the port's engine."""
 
-    def __init__(self, seed: int = 0, device="cpu"):
+    def __init__(self, seed: int = 0, device="cpu", workload=None):
         self.rng = jax.random.PRNGKey(seed)
         self.device = torch.device(device)
+        self.workload = workload   # a reference Workload outside the registry
 
     def init(self, workload) -> torch.Tensor:
-        """The reference's init of the workload of the same name."""
+        """The reference's init of the workload of the same name (or of
+        the reference workload this sampler was given)."""
         self.rng, init_rng = jax.random.split(self.rng)
-        tree = jax.device_get(jax_get_workload(workload.name).init_fn(
-            init_rng))
+        ref = self.workload or jax_get_workload(workload.name)
+        tree = jax.device_get(ref.init_fn(init_rng))
         return params_from_jax(tree, workload.layout, device=self.device)
 
     def minibatches(self, n_valid, bound: int, batch_size: int):
