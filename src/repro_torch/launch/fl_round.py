@@ -34,6 +34,7 @@ one pod); the call raises otherwise.
 """
 from __future__ import annotations
 
+import itertools
 from typing import Callable, Sequence
 
 import torch
@@ -46,6 +47,7 @@ from repro_torch.core.aggregation import (
 )
 from repro_torch.core.client import vmapped_client_update
 from repro_torch.models.lm.params import map_tree, tree_leaves
+from repro_torch.obs import span
 from repro_torch.params import FEMNIST_MLP, ParamLayout
 from repro_torch.sharding.flmesh import ClientMesh, client_mesh
 
@@ -118,6 +120,8 @@ def make_fl_round_step(cfg=None, mesh: ClientMesh | None = None,
 
     n_batch_dims = {**BATCH_DIMS, **(batch_dims or {})}
 
+    rounds = itertools.count()
+
     def round_step(params, batch: dict, weights, steps=None, staleness=None):
         n_pods = len(weights)
         first = tree_leaves(params)[0]
@@ -128,47 +132,61 @@ def make_fl_round_step(cfg=None, mesh: ClientMesh | None = None,
                 "one pod per rank")
         r = m.rank
         my_steps = local_steps if steps is None else int(steps[r])
-        tau = 0 if staleness is None else int(staleness[r])
-        weight = torch.as_tensor(weights[r], dtype=torch.float32,
-                                 device=first.device)
-        w = weight * staleness_discount(tau).to(first.device)
-        shard = {}
-        for k, v in batch.items():
-            if k not in n_batch_dims:
-                raise KeyError(f"batch key {k!r} has no declared rank; pass "
-                               "batch_dims")
-            if v.dim() != n_batch_dims[k]:
-                raise ValueError(f"batch[{k!r}] has rank {v.dim()}, "
-                                 f"declared {n_batch_dims[k]}")
-            if v.shape[0] % n_pods:
-                raise ValueError(f"batch[{k!r}] has {v.shape[0]} rows, not "
-                                 f"a multiple of {n_pods} pods")
-            rows = v.shape[0] // n_pods
-            shard[k] = v[r * rows:(r + 1) * rows].to(first.device)
-
-        anchor = map_tree(lambda p: p.detach(), params)
-        local = map_tree(lambda p: p.detach().clone(), params)
-        leaves, anchors = tree_leaves(local), tree_leaves(anchor)
         # A masked step (i >= steps) leaves a pod's params unchanged, so
         # the loop stops at the pod's own budget.
-        for _ in range(min(local_steps, my_steps)):
-            for p in leaves:
-                p.requires_grad_(True)
-            try:
-                grads = torch.autograd.grad(loss_fn(local, shard), leaves)
-            finally:
+        n_steps = min(local_steps, my_steps)
+        k = next(rounds)
+        with span("fl_round.round", round=k, rank=r, steps=n_steps):
+            tau = 0 if staleness is None else int(staleness[r])
+            weight = torch.as_tensor(weights[r], dtype=torch.float32,
+                                     device=first.device)
+            w = weight * staleness_discount(tau).to(first.device)
+            shard = {}
+            with span("fl_round.shard", round=k):
+                for key, v in batch.items():
+                    if key not in n_batch_dims:
+                        raise KeyError(f"batch key {key!r} has no declared "
+                                       "rank; pass batch_dims")
+                    if v.dim() != n_batch_dims[key]:
+                        raise ValueError(f"batch[{key!r}] has rank {v.dim()}, "
+                                         f"declared {n_batch_dims[key]}")
+                    if v.shape[0] % n_pods:
+                        raise ValueError(f"batch[{key!r}] has {v.shape[0]} "
+                                         f"rows, not a multiple of {n_pods} "
+                                         "pods")
+                    rows = v.shape[0] // n_pods
+                    shard[key] = v[r * rows:(r + 1) * rows].to(first.device)
+            with span("fl_round.copy", round=k):
+                anchor = map_tree(lambda p: p.detach(), params)
+                local = map_tree(lambda p: p.detach().clone(), params)
+            leaves, anchors = tree_leaves(local), tree_leaves(anchor)
+            for i in range(n_steps):
                 for p in leaves:
-                    p.requires_grad_(False)
+                    p.requires_grad_(True)
+                try:
+                    with span("fl_round.forward", round=k, step=i):
+                        loss = loss_fn(local, shard)
+                    with span("fl_round.backward", round=k, step=i):
+                        grads = torch.autograd.grad(loss, leaves)
+                    del loss
+                finally:
+                    for p in leaves:
+                        p.requires_grad_(False)
+                with span("fl_round.update", round=k, step=i), \
+                        torch.no_grad():
+                    for p, g, p0 in zip(leaves, grads, anchors):
+                        if prox_mu:
+                            g = g + torch.sub(p, p0).mul_(prox_mu)
+                        p.sub_(g.mul(lr))
+                del grads
             with torch.no_grad():
-                for p, g, p0 in zip(leaves, grads, anchors):
-                    if prox_mu:
-                        g = g + torch.sub(p, p0).mul_(prox_mu)
-                    p.sub_(g.mul(lr))
-            del grads
-        with torch.no_grad():
-            delta = map_tree(lambda p, p0: p.sub_(p0), local, anchor)
-            agg = participation_masked_psum(delta, w, m)
-            return map_tree(lambda p, d: p + d.mul_(server_lr), anchor, agg)
+                with span("fl_round.delta", round=k):
+                    delta = map_tree(lambda p, p0: p.sub_(p0), local, anchor)
+                with span("fl_round.aggregate", round=k):
+                    agg = participation_masked_psum(delta, w, m)
+                with span("fl_round.apply", round=k):
+                    return map_tree(lambda p, d: p + d.mul_(server_lr),
+                                    anchor, agg)
 
     return round_step
 

@@ -18,6 +18,12 @@ Design constraints, in order:
 3. **Two clocks.** Every span records `time.perf_counter()` (monotonic,
    for durations — immune to NTP steps) *and* `time.time()` (wall, for
    correlating with external logs).
+4. **The profiler's clock too.** While a `torch.profiler` is recording,
+   an enabled span also opens a `record_function` range of its name, so
+   the span appears in the profiler's trace (a `user_annotation` event)
+   on the device trace's clock, with the kernels it launched under it.
+   The span's own event is the same either way, and no span synchronises
+   the device.
 
 Usage::
 
@@ -37,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import threading
 import time
 
@@ -62,7 +69,8 @@ _NULL_SPAN = _NullSpan()
 class _Span:
     """One live span. Created only while tracing is enabled."""
 
-    __slots__ = ("_tracer", "name", "args", "_t0", "_wall0", "_depth")
+    __slots__ = ("_tracer", "name", "args", "_t0", "_wall0", "_depth",
+                 "_range")
 
     def __init__(self, tracer: "Tracer", name: str, args: dict):
         self._tracer = tracer
@@ -77,12 +85,15 @@ class _Span:
         stack = self._tracer._stack()
         self._depth = len(stack)
         stack.append(self)
+        self._range = _profiler_range(self.name)
         self._wall0 = time.time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
         t1 = time.perf_counter()
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         stack = self._tracer._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -90,6 +101,19 @@ class _Span:
             self.args.setdefault("error", exc_type.__name__)
         self._tracer._record(self, t1)
         return False
+
+
+def _profiler_range(name: str):
+    """An entered `torch.profiler.record_function(name)` while a torch
+    profiler is recording, else None. Read from `sys.modules`: where torch
+    is not loaded no profiler can be recording, and the tracer loads
+    nothing."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    if prof is None or not prof._is_profiler_enabled:
+        return None
+    rng = prof.record_function(name)
+    rng.__enter__()
+    return rng
 
 
 class Tracer:
