@@ -73,7 +73,11 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              anchors, the scenario axis, the LM layouts' P; for the LM
              kernels each tensor's shape, strides and offset, so the
              model's transposed and broadcast views are replayed as
-             they were passed); run after lm_train;
+             they were passed; for the five SSD kernels, forward and
+             backward, each client stack, length, weight layout (the
+             per-client strides) and conv tail the model passed, at
+             1e-4 of each output's scale in f32, 2e-2 in bf16); run
+             after lm_train;
   comms_scale the 1,024-satellite plan of benchmarks/bench_scale.py
              (Walker-Star 32 x 32, cross-plane grid with 2 seam
              candidates, 13 stations, 1 day): access and ISL windows on
@@ -167,8 +171,10 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              round, and per attention layer one flash_attention launch a
              local step and an evaluation and one flash_attention_bwd a
              local step for the whole client stack (wkv6 / wkv6_bwd
-             likewise for the SSD heads and the RWKV6 time mixes); finite
-             params and accuracy;
+             likewise for the SSD heads and the RWKV6 time mixes, and
+             each SSD kernel per SSD layer: forward a local step and an
+             evaluation, backward a local step); finite params and
+             accuracy;
   lm_pricing every published LM at full width priced as a constellation
              client: `lm_workload(get_config(arch))` for all 10 archs
              (layout from shapes on `meta`: deepseek-v3's 671,953,083,392
@@ -210,7 +216,16 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              backward at whisper-medium's training shapes (the encoder's
              1,500 frames, the cross-attention's 448 queries against 1,500
              keys) and at deepseek-v3's (`mla_train`: 2 x 128 heads x
-             2,048 of (192, 128), causal);
+             2,048 of (192, 128), causal); the SSD heads' five kernels
+             against their plain versions kernel by kernel (1e-4 of each
+             output's scale in f32, 2e-2 in bf16) at the benchmark cell's
+             step (hymba-1.5b, bf16, 4 x 2048), at T = 200 in f32, at
+             lm_hybrid_tiny's width as lm_fl stacks its 4 clients, and
+             for 3 clients with a conv tail, two launches giving the same
+             bits, with device times (the conv's backward and the
+             weights' reduction, one call, split by kernel name in a
+             device profile), bounds by bytes, the plain versions' times
+             and the PyTorch composition's they replace;
   lm_train   `repro_torch.launch.train.main` on full-width hymba-1.5b,
              then rwkv6-1.6b (`lm_train_rwkv`) (bf16, batch 2 x 2048) and
              whisper-medium (`lm_train_audio`: batch 4 x 448 text tokens,
@@ -221,7 +236,8 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              launcher's lr), launch counters zeroed
              just before and read just after: a launch a layer a step of
              each LM kernel the model runs (hymba: 32 of each of
-             flash_attention, flash_attention_bwd, wkv6 and wkv6_bwd;
+             flash_attention, flash_attention_bwd, wkv6, wkv6_bwd and the
+             five SSD kernels;
              rwkv6: 24 of wkv6 and wkv6_bwd; whisper: 72 of
              flash_attention and its backward; llava: 4), finite losses;
              s/step, tokens/s, peak device memory; then 4 steps of the
@@ -290,6 +306,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib.util
+import inspect
 import io
 import json
 import math
@@ -326,7 +343,7 @@ from repro_torch.core.aggregation import weighted_delta_update  # noqa: E402
 from repro_torch.core.timing import HardwareModel  # noqa: E402
 from repro_torch.data import synth_femnist  # noqa: E402
 from repro_torch.data.tokens import synthetic_token_batch  # noqa: E402
-from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref, ssd  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention,
     flash_attention_bwd,
@@ -796,6 +813,9 @@ def phase_kernels(dev) -> list[dict]:
 
 # The LM kernels' launchers in `ops`, each with its tensor arguments.
 LM_KERNELS = ("flash_attention", "flash_attention_bwd", "wkv6", "wkv6_bwd")
+# The SSD heads' launchers in `kernels.ssd`, which `ops.ssd_heads_op`
+# calls (`ssd_front_bwd` also launches `ssd_reduce`).
+SSD_LAUNCHERS = ("ssd_front", "ssd_back", "ssd_back_bwd", "ssd_front_bwd")
 
 
 def _layout(t) -> tuple | None:
@@ -817,17 +837,21 @@ class LaunchShapes:
     per-row vector) and the anchor (shared, per client, or one row per
     group of rows); for the LM kernels every tensor argument's
     `_layout` (so a cross-attention's keys keep their own length) and
-    the keyword options. `kernels` names the kernels the
-    path must launch."""
+    the keyword options; for the SSD launchers each argument by name,
+    tensors as their `_layout` (the client axis, the weights' client
+    strides and the conv tail included), the lengths as given.
+    `kernels` names the kernels the path must launch."""
 
     def __init__(self, *kernels: str):
         self.kernels = kernels
         self.fedagg: set[tuple] = set()
         self.prox_sgd: set[tuple] = set()
-        self.lm: dict[str, set[tuple]] = {name: set() for name in LM_KERNELS}
+        self.lm: dict[str, set[tuple]] = {
+            name: set() for name in LM_KERNELS + SSD_LAUNCHERS}
         self._mu_rows: dict[tuple, tuple] = {}
 
     def launched(self, name: str) -> bool:
+        name = "ssd_front_bwd" if name == "ssd_reduce" else name
         return bool(self.lm[name] if name in self.lm
                     else getattr(self, name))
 
@@ -846,11 +870,26 @@ class LaunchShapes:
             return launcher(*args, **kw)
         return record
 
+    def _record_ssd(self, name: str, launcher):
+        params = inspect.signature(launcher).parameters
+
+        def record(*args, **kw):
+            named = dict(zip(params, args), **kw)
+            self.lm[name].add(tuple(
+                (k, _layout(v) if v is None or isinstance(v, torch.Tensor)
+                 else v) for k, v in named.items()))
+            return launcher(*args, **kw)
+        return record
+
     def __enter__(self) -> "LaunchShapes":
         self._launchers = fedagg, prox_sgd = ops.fedagg, ops.prox_sgd
         self._lm_launchers = {name: getattr(ops, name) for name in LM_KERNELS}
         for name, launcher in self._lm_launchers.items():
             setattr(ops, name, self._record_lm(name, launcher))
+        self._ssd_launchers = {name: getattr(ssd, name)
+                               for name in SSD_LAUNCHERS}
+        for name, launcher in self._ssd_launchers.items():
+            setattr(ssd, name, self._record_ssd(name, launcher))
 
         def record_fedagg(x, w, base, scale, partial=False):
             self.fedagg.add((x.shape[0] if x.dim() == 3 else 0,
@@ -876,6 +915,8 @@ class LaunchShapes:
         ops.fedagg, ops.prox_sgd = self._launchers
         for name, launcher in self._lm_launchers.items():
             setattr(ops, name, launcher)
+        for name, launcher in self._ssd_launchers.items():
+            setattr(ssd, name, launcher)
 
 
 def _prox_label(r: dict) -> str:
@@ -886,15 +927,18 @@ def _prox_label(r: dict) -> str:
 
 
 def _strided(layout: tuple, g: torch.Generator, dev,
-             decay: bool = False) -> torch.Tensor:
-    """Random normal values (with `decay`, -0.3 |normal|: a log decay)
-    laid out as `layout` (`_layout`): the same shape, strides (transposed
-    and broadcast views too) and offset."""
+             decay: bool = False, scale: float = 1.0,
+             shift: float = 0.0) -> torch.Tensor:
+    """Random normal values (with `decay`, -0.3 |normal|: a log decay;
+    else shift + scale normal) laid out as `layout` (`_layout`): the same
+    shape, strides (transposed and broadcast views too) and offset."""
     shape, stride, offset, dtype = layout
     n = offset + 1 + sum((m - 1) * st for m, st in zip(shape, stride))
     buf = torch.randn(n, generator=g, device=dev)
     if decay:
         buf = -0.3 * buf.abs()
+    elif scale != 1.0 or shift:
+        buf = shift + scale * buf
     return buf.to(getattr(torch, dtype)).as_strided(shape, stride, offset)
 
 
@@ -959,8 +1003,10 @@ def phase_path_shapes(dev, shapes: dict[str, LaunchShapes]) -> dict:
     each path launched it with (partial-visit and buffered flushes,
     sparse rounds, the batched sweep's scenario axis, per-row mu and
     grouped anchors; the LM kernels at the shapes, strides and options
-    the model passed), on fresh random inputs: no timing, the `kernels`,
-    `lm_kernels` and `lm_train_kernels` phases time their shapes."""
+    the model passed; the SSD kernels, forward and backward, at every
+    client stack, length, weight layout and conv tail the model passed),
+    on fresh random inputs: no timing, the `kernels`, `lm_kernels` and
+    `lm_train_kernels` phases time their shapes."""
     out = {}
     for path, rec in shapes.items():
         missing = [k for k in rec.kernels if not rec.launched(k)]
@@ -980,6 +1026,9 @@ def phase_path_shapes(dev, shapes: dict[str, LaunchShapes]) -> dict:
         rows += [check_lm_shape(dev, name, layouts, options)
                  for name in LM_KERNELS
                  for layouts, options in sorted(rec.lm[name], key=str)]
+        ssd_rows = [row for key, chain in sorted(_ssd_chains(rec).items(),
+                                                 key=str)
+                    for row in check_ssd_shape(dev, key, chain)]
         out[path] = dict(
             fedagg=[f"{r['form']} " + (f"S={r['S']} " if "S" in r else "")
                     + f"K={r['K']} P={r['P']} {r['dtype']}"
@@ -987,7 +1036,10 @@ def phase_path_shapes(dev, shapes: dict[str, LaunchShapes]) -> dict:
             prox_sgd=[_prox_label(r) for r in rows
                       if r["name"] == "prox_sgd"],
             lm=[r["label"] for r in rows if "label" in r],
-            max_abs_err=max(r["max_abs_err"] for r in rows))
+            ssd=[r["label"] for r in ssd_rows],
+            max_abs_err=max((r["max_abs_err"] for r in rows), default=None),
+            ssd_max_rel_err=max((r["max_rel_err"] for r in ssd_rows),
+                                default=None))
     emit("path_shapes", **out)
     return out
 
@@ -2255,15 +2307,17 @@ def _layer_launches(cfg) -> dict[str, int]:
     makes: flash_attention (and its backward) per attention layer (attn,
     moe, hybrid; an enc-dec model's encoder layers, and its decoder's
     layers twice: self- and cross-attention), wkv6 (and its backward) per
-    scan layer (rwkv, hybrid)."""
+    scan layer (rwkv, hybrid), and each SSD kernel per hybrid layer."""
     segs = cfg.resolved_segments
     attn = sum(s.n_layers for s in segs if s.kind in ("attn", "moe",
                                                       "hybrid"))
     if cfg.encoder is not None:
         attn = cfg.encoder.n_layers + 2 * attn
     scan = sum(s.n_layers for s in segs if s.kind in ("rwkv", "hybrid"))
+    ssd = sum(s.n_layers for s in segs if s.kind == "hybrid")
     return {"flash_attention": attn, "flash_attention_bwd": attn,
-            "wkv6": scan, "wkv6_bwd": scan}
+            "wkv6": scan, "wkv6_bwd": scan,
+            **{k: ssd for k in SSD_KERNELS}}
 
 
 def _serve_main(dev, arch: str) -> dict:
@@ -2289,7 +2343,7 @@ def _serve_main(dev, arch: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     n_batches = SERVE_REQUESTS // SERVE_BATCH
     want = {k: n * n_batches for k, n in _layer_launches(cfg).items()
-            if k in ("flash_attention", "wkv6")}
+            if k in ("flash_attention", "wkv6", "ssd_front", "ssd_back")}
     require(all(launches[k] == n for k, n in want.items()),
             f"serve {arch} launched {launches}; expected {want}")
     require(tokens.shape == (SERVE_REQUESTS, SERVE_NEW + 1)
@@ -2866,8 +2920,9 @@ def check_wkv6_bwd(dev, case: str, B: int, H: int, T: int, K: int,
 def phase_lm_train_kernels(dev) -> list[dict]:
     """Both backward kernels at the training paths' shapes (the LM cell's
     128 sequences of 33 tokens; full-width hymba-1.5b, rwkv6-1.6b and
-    deepseek-v3 at 2 x 2048; whisper-medium), and the D = 32 forward
-    (lm_tiny) against its plain version."""
+    deepseek-v3 at 2 x 2048; whisper-medium), the D = 32 forward
+    (lm_tiny), and the SSD heads' kernels (`check_ssd`) against their
+    plain versions."""
     n = LM_FL_CLIENTS * LM_FL_BATCH
     rows = [
         check_flash(dev, "lm_tiny_d32", n, 2, 2, 33, 32, "float32"),
@@ -2911,8 +2966,375 @@ def phase_lm_train_kernels(dev) -> list[dict]:
         check_flash_bwd(dev, "whisper_cross", AUDIO_TRAIN_BATCH, 16, 16,
                         AUDIO_TRAIN_SEQ, 64, "bfloat16", causal=False,
                         Sk=AUDIO_FRAMES)]
+    # The SSD heads' kernels at the benchmark cell's step (hymba-1.5b,
+    # bf16, 4 x 2048), a ragged f32 length, lm_hybrid_tiny's width as
+    # lm_fl stacks its clients (G = LM_FL_CLIENTS), and a stack of three
+    # clients with a conv tail.
+    rows += check_ssd(dev, "train", SSD_CELL_BATCH, TRAIN_SEQ, "bfloat16")
+    rows += check_ssd(dev, "ragged_f32", 1, 200, "float32")
+    rows += check_ssd(dev, "lm_hybrid_tiny", LM_FL_BATCH, 33, "float32",
+                      E=512, G=LM_FL_CLIENTS)
+    rows += check_ssd(dev, "stack_tail", 2, 200, "bfloat16", G=3, tail=True)
     emit("lm_train_kernels", rows=rows)
     return rows
+
+
+# ------------------------------------------------------- the SSD heads
+SSD_FORWARD = ("ssd_front", "ssd_back")
+SSD_KERNELS = SSD_FORWARD + ("ssd_back_bwd", "ssd_front_bwd", "ssd_reduce")
+# Kernel vs plain version (`tests/test_torch_cuda.py`'s SSD_TOL): 1e-4 of
+# each output's scale in f32, 2e-2 in bf16 (one rounding step of a
+# model-dtype value).
+SSD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+SSD_CELL_BATCH = 4           # the benchmark cell's rows a local step
+
+
+def _ssd_inputs(dev, B: int, T: int, dtype, E: int, seed: int, G: int = 1,
+                tail: bool = False):
+    """The SSD heads' inputs at the model's scale, seeded, for G clients:
+    xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, d_skip, out_norm and
+    the conv tail (None unless `tail`)."""
+    H = E // 64
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    a_log = torch.log(torch.linspace(1.0, 8.0, H, device=dev))[None]
+    out = (rnd(G, B * T, 2 * E), 0.5 * rnd(G, B * T, H),
+           0.3 * rnd(G, B * T, 16), 0.3 * rnd(G, B * T, 16),
+           0.1 * rnd(G, 4, E), 0.1 * rnd(G, E), -2.0 + 0.1 * rnd(G, H),
+           a_log + 0.1 * rnd(G, H), 1.0 + 0.1 * rnd(G, H), 0.1 * rnd(G, E),
+           rnd(G, B, 3, E) if tail else None)
+    return tuple(None if t is None else t.to(dtype).contiguous()
+                 for t in out)
+
+
+def _ssd_composition(xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log,
+                     d_skip, out_norm, T: int):
+    """The plain PyTorch composition that the SSD kernels replace (the
+    port's `ssm_stacked` before them), as two functions: front(xz, ...) ->
+    the scan's inputs (r, k, v, logw, as views), back(o, v, xh) -> y."""
+    from repro_torch.models.lm.layers import rmsnorm
+    G, n, E2 = xz.shape
+    E, B, H = E2 // 2, n // T, E2 // 2 // 64
+    state = {}
+
+    def front(xz, dt_raw, bt, ct):
+        xs, z = xz.chunk(2, dim=-1)
+        x = xs.reshape(G, B, T, E)
+        xp = torch.cat([x.new_zeros((G, B, 3, E)), x], dim=-2)
+        w, b = conv_w[:, None, None], conv_b[:, None, None]
+        y = sum(xp[..., i:i + T, :] * w[..., i, :] for i in range(4)) + b
+        xh = torch.nn.functional.silu(y).reshape(G * B, T, H, 64)
+        u = (dt_raw + dt_b[:, None]).float()
+        dt = torch.logaddexp(u, torch.zeros((), device=u.device))
+        logw = (-dt * torch.exp(a_log[:, None])).reshape(G * B, T, H)
+        b32, c32 = (t.float().reshape(G * B, T, -1) for t in (bt, ct))
+        r = c32[:, None] * torch.exp(logw).transpose(1, 2)[..., None]
+        k = b32[:, None].expand(G * B, H, T, 16)
+        v = (xh.float() * dt.reshape(G * B, T, H)[..., None]).transpose(1, 2)
+        lw = logw.transpose(1, 2)[..., None].expand(G * B, H, T, 16)
+        state.update(xh=xh, z=z, b32=b32, c32=c32)
+        return r, k, v, lw
+
+    def back(o, v, xh, z, b32, c32):
+        o = o.transpose(1, 2) + torch.einsum("btn,btn->bt", c32, b32)[
+            ..., None, None] * v.transpose(1, 2)
+        o = o.view(G, B, T, H, 64) + d_skip[:, None, None, :, None] \
+            * xh.float().view(G, B, T, H, 64)
+        y = o.reshape(G, n, E).to(xz.dtype)
+        return rmsnorm(y * torch.nn.functional.silu(z), out_norm[:, None])
+
+    return front, back, state
+
+
+def _ssd_bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def _ssd_chain(dev, g: torch.Generator, xz, dt_raw, bt, ct, conv_w, conv_b,
+               dt_b, a_log, d_skip, out_norm, tail, T: int):
+    """The five SSD kernels against their plain versions on one set of
+    inputs, each kernel fed the plain chain's values (the scan's output
+    and its gradients drawn from `g`), the backward launched twice for
+    the same bits -> ({kernel: the largest error against SSD_TOL, as a
+    share of each output's scale}, the launches' arguments and outputs by
+    name). `ssd_front_bwd`'s outputs are dxs, ddt_raw and the tail's
+    gradient; those of `ssd_reduce`, which it launches, the weights',
+    B's and C's gradients."""
+    G, n, E2 = xz.shape
+    E, B, H = E2 // 2, n // T, E2 // 2 // 64
+    tol = SSD_TOL[str(xz.dtype).removeprefix("torch.")]
+
+    def err(got, want) -> float:
+        scale = max(1e-6, float(want.float().abs().max()))
+        return _max_err(got, want, tol, tol * scale) / scale
+
+    front_in = (xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, tail, T, 64)
+    f_want = ref.ssd_front_ref(*front_in)
+    f_got = ssd.ssd_front(*front_in)
+    xh, r, v, k, dt, logw = f_want
+    o = torch.randn((G * B, T, H, 64), generator=g, device=dev)
+    back_in = (o, xh, xz, bt, ct, dt, d_skip, out_norm)
+    b_want = ref.ssd_back_ref(*back_in, 64)
+    b_got = ssd.ssd_back(*back_in, 64)
+    dy = torch.randn((G, n, E), generator=g, device=dev).to(xz.dtype)
+    rstd = b_want[1]
+    du, dz, p2, dnorm = ref.ssd_back_bwd_ref(dy, *back_in, rstd, 64)
+    dxz = torch.empty(xz.shape, dtype=xz.dtype, device=dev)
+    bb_got = ssd.ssd_back_bwd(dy, *back_in, rstd, 64, dxz)
+    dv, dr, dk, dlw = (torch.randn(s, generator=g, device=dev) for s in
+                       ((G * B, H, T, 64), (G * B, H, T, 16),
+                        (G * B, H, T, 16), (G * B, H, T, 16)))
+    fb_in = (du, dv, dr, dk, dlw, p2, xz, dt_raw, bt, ct, conv_w, conv_b,
+             dt_b, a_log, d_skip, tail, dt, logw)
+    fb_want = ref.ssd_front_bwd_ref(*fb_in, T, 64)
+    fb_got = ssd.ssd_front_bwd(*fb_in, T, 64, dxz, bb_got[2])
+    again = torch.empty_like(dxz)
+    ssd.ssd_back_bwd(dy, *back_in, rstd, 64, again)
+    again_grads = ssd.ssd_front_bwd(*fb_in, T, 64, again, bb_got[2])
+    torch.cuda.synchronize()
+    require(torch.equal(again, dxz) and all(
+        a is None or torch.equal(a, b) for a, b in zip(fb_got, again_grads)),
+        f"ssd G={G} B={B} T={T} E={E}: two launches differ")
+    require((fb_got[9] is None) == (tail is None),
+            "ssd_front_bwd: the tail's gradient does not follow the tail")
+    errs = {
+        "ssd_front": max(err(a, w) for a, w in zip(f_got, f_want)),
+        "ssd_back": max(err(a, w) for a, w in zip(b_got, b_want)),
+        "ssd_back_bwd": max(err(bb_got[0], du), err(bb_got[1], p2),
+                            err(dxz[..., E:], dz)),
+        "ssd_front_bwd": max([err(dxz[..., :E], fb_want[0]),
+                              err(fb_got[0], fb_want[1])]
+                             + ([] if tail is None
+                                else [err(fb_got[9], fb_want[9])])),
+        "ssd_reduce": max([err(a, w) for a, w in
+                           zip(fb_got[1:8], fb_want[2:9])]
+                          + [err(fb_got[8], dnorm.to(xz.dtype))])}
+    io = dict(front_in=front_in, f_want=f_want, back_in=back_in,
+              b_want=b_want, dy=dy, rstd=rstd, du=du, p2=p2, dv=dv, dr=dr,
+              dk=dk, dlw=dlw, fb_in=fb_in, dxz=dxz, norm_part=bb_got[2],
+              fb_got=fb_got)
+    return errs, io
+
+
+def _kernel_ms(fn, *names: str) -> dict[str, float]:
+    """Median device time of each named kernel over TIMED_LAUNCHES calls
+    of `fn`, by kernel name in a device profile: for a call that
+    launches more than one kernel. The profiler may miss some launches
+    (late in a process that has profiled before): the median is over
+    those it kept, at least half of them for every name."""
+    from torch.autograd import DeviceType
+
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    with _device_profile() as prof:
+        for _ in range(TIMED_LAUNCHES):
+            fn()
+        torch.cuda.synchronize()
+    times: dict[str, list] = {name: [] for name in names}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            for name in names:
+                if name in e.name():
+                    times[name].append((e.end_ns() - e.start_ns()) / 1e6)
+    require(all(2 * len(t) >= TIMED_LAUNCHES for t in times.values()),
+            f"profile of {names}: launches {[len(t) for t in times.values()]}"
+            f" of {TIMED_LAUNCHES}")
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def check_ssd(dev, case: str, B: int, T: int, dtype: str,
+              E: int = 3200, G: int = 1, tail: bool = False) -> list[dict]:
+    """The five SSD kernels against their plain versions (`_ssd_chain`)
+    for G clients, with or without a conv tail, one row each: the largest
+    error, device ms a launch (CUDA events; `ssd_front_bwd` and
+    `ssd_reduce`, one call, split by kernel name in a device profile,
+    with the call's own time as `call_ms`), the bound by bytes (each
+    input and output once, the per-tile partials of the weights'
+    gradients too), `plain_ms` of the plain version and
+    `composition_ms` of the PyTorch composition it replaces (forward: its
+    ops; backward: autograd of them; with a zero tail), both timed on the
+    same inputs; the plain version and the composition of the two
+    backward kernels of the front are one, on `ssd_front_bwd`'s row."""
+    dt_ = getattr(torch, dtype)
+    H = E // 64
+    ins = _ssd_inputs(dev, B, T, dt_, E, seed=G * B * T + E, G=G, tail=tail)
+    (xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, d_skip, out_norm,
+     conv_tail) = ins
+    g = torch.Generator(device=dev).manual_seed(T)
+    errs, io = _ssd_chain(dev, g, *ins, T)
+    front_in, back_in, fb_in = io["front_in"], io["back_in"], io["fb_in"]
+    dy, rstd, dxz, part = io["dy"], io["rstd"], io["dxz"], io["norm_part"]
+    run = {
+        "ssd_front": lambda: ssd.ssd_front(*front_in),
+        "ssd_back": lambda: ssd.ssd_back(*back_in, 64),
+        "ssd_back_bwd": lambda: ssd.ssd_back_bwd(dy, *back_in, rstd, 64,
+                                                 dxz),
+        "ssd_front_bwd": lambda: ssd.ssd_front_bwd(*fb_in, T, 64, dxz, part)}
+    plain = {
+        "ssd_front": lambda: ref.ssd_front_ref(*front_in),
+        "ssd_back": lambda: ref.ssd_back_ref(*back_in, 64),
+        "ssd_back_bwd": lambda: ref.ssd_back_bwd_ref(dy, *back_in, rstd, 64),
+        "ssd_front_bwd": lambda: ref.ssd_front_bwd_ref(*fb_in, T, 64)}
+    # The composition: forward of each part, then autograd of each part.
+    front, back, st = _ssd_composition(xz, dt_raw, bt, ct, conv_w, conv_b,
+                                       dt_b, a_log, d_skip, out_norm, T)
+    f_ins = [t.detach().requires_grad_(True) for t in (xz, dt_raw, bt, ct)]
+    f_outs = front(*f_ins)
+    f_grads = [torch.randn(t.shape, generator=g, device=dev) for t in f_outs]
+    o = back_in[0]
+    b_ins = [o.transpose(1, 2).detach().requires_grad_(True), f_outs[2],
+             st["xh"], st["z"], st["b32"], st["c32"]]
+    y = back(*b_ins)
+    compose = {
+        "ssd_front": lambda: front(xz, dt_raw, bt, ct),
+        "ssd_back": lambda: back(*(t.detach() for t in b_ins)),
+        "ssd_back_bwd": lambda: torch.autograd.grad(
+            y, b_ins, dy, retain_graph=True),
+        "ssd_front_bwd": lambda: torch.autograd.grad(
+            f_outs, f_ins, f_grads, retain_graph=True)}
+    n, s = G * B * T, xz.element_size()
+    xs_b, row_b = n * E * s, n * E * 4
+    small = _ssd_bytes(dt_raw, bt, ct)
+    xh, dt, logw = io["f_want"][0], io["f_want"][4], io["f_want"][5]
+    fb_got = io["fb_got"]
+    # The per-tile partials (`kernels/ssd.py`): the conv's and the heads'
+    # from ssd_front_bwd, out_norm's from ssd_back_bwd.
+    front_tiles = G * B * -(-T // ssd.ROWS_FRONT)
+    conv_part = front_tiles * (4 + 1) * E * 4
+    head_part = front_tiles * 3 * H * 4
+    weights = (conv_w, conv_b, dt_b, a_log, d_skip)
+    moved = {
+        "ssd_front": xs_b + small + _ssd_bytes(conv_tail, *weights[:4])
+        + _ssd_bytes(*io["f_want"]),
+        "ssd_back": _ssd_bytes(o, xh) + xs_b + _ssd_bytes(bt, ct, dt, d_skip,
+                                                         out_norm)
+        + _ssd_bytes(*io["b_want"]),
+        "ssd_back_bwd": _ssd_bytes(dy, o, xh) + xs_b
+        + _ssd_bytes(bt, ct, dt, rstd, d_skip, out_norm) + row_b + xs_b
+        + _ssd_bytes(io["p2"], part),
+        "ssd_front_bwd": row_b + _ssd_bytes(io["dv"], io["dr"], io["dlw"],
+                                            io["p2"], dt, logw)
+        + xs_b + small + _ssd_bytes(conv_tail, *weights) + xs_b
+        + _ssd_bytes(fb_got[0], fb_got[9]) + conv_part + head_part,
+        "ssd_reduce": conv_part + head_part + _ssd_bytes(part)
+        + _ssd_bytes(dt, io["p2"], io["dk"], io["dr"], logw, bt, ct)
+        + _ssd_bytes(*fb_got[1:9])}
+    times = {name: device_ms(fn) for name, fn in run.items()}
+    call_ms = times["ssd_front_bwd"]
+    split = _kernel_ms(run["ssd_front_bwd"], "ssd_front_bwd_kernel",
+                       "ssd_reduce_kernel")
+    times.update(ssd_front_bwd=split["ssd_front_bwd_kernel"],
+                 ssd_reduce=split["ssd_reduce_kernel"])
+    rows = []
+    for name in SSD_KERNELS:
+        b_ms, b_by = bound_ms(moved[name], 0)
+        rows.append(dict(
+            name=name, case=case, G=G, B=B, T=T, E=E, H=H, dtype=dtype,
+            tail=tail, max_rel_err=errs[name], tol=SSD_TOL[dtype],
+            deterministic=True, ms=times[name],
+            call_ms=call_ms if name in ("ssd_front_bwd", "ssd_reduce")
+            else None,
+            plain_ms=device_ms(plain[name]) if name in plain else None,
+            composition_ms=(device_ms(compose[name]) if name in compose
+                            else None),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            bytes=moved[name]))
+    return rows
+
+
+def check_ssd_shape(dev, key: tuple, chain: dict) -> list[dict]:
+    """The SSD kernels against their plain versions (`_ssd_chain`, no
+    timing) on random inputs laid out as a path's launches were
+    (`_ssd_chains`): xz, B and C as recorded, and each other tensor (the
+    per-client weights with their client strides, dt_raw, the conv tail or
+    none) in every layout recorded beside them, one variant a row, so
+    that each recorded layout runs in at least one; a tensor that no
+    launch of the path passed is drawn dense."""
+    xz_l, bt_l, ct_l, T = key
+    (G, n, E2), dtype = xz_l[0], xz_l[3]
+    E = E2 // 2
+    H = E // 64
+
+    def dense(*shape):
+        return (shape, _dense_strides(shape), 0, dtype)
+
+    default = dict(dt_raw=dense(G, n, H), conv_w=dense(G, 4, E),
+                   conv_b=dense(G, E), dt_b=dense(G, H), a_log=dense(G, H),
+                   d_skip=dense(G, H), out_norm=dense(G, E), conv_tail=None)
+    # Each tensor's (scale, shift) of a normal draw: `_ssd_inputs`' scales.
+    draw = dict(dt_raw=(0.5, 0.0), conv_w=(0.1, 0.0), conv_b=(0.1, 0.0),
+                dt_b=(0.1, -2.0), a_log=(0.5, 1.0), d_skip=(0.1, 1.0),
+                out_norm=(0.1, 0.0), conv_tail=(1.0, 0.0))
+    layouts = {k: sorted(chain["layouts"].get(k, {v}), key=str)
+               for k, v in default.items()}
+    rows = []
+    for i in range(max(map(len, layouts.values()))):
+        g = torch.Generator(device=dev).manual_seed(G * n * E2 + T + i)
+        pick = {k: v[min(i, len(v) - 1)] for k, v in layouts.items()}
+        t = {k: None if lay is None else _strided(
+                 lay, g, dev, scale=draw[k][0], shift=draw[k][1])
+             for k, lay in pick.items()}
+        errs, _ = _ssd_chain(
+            dev, g, _strided(xz_l, g, dev), t["dt_raw"],
+            _strided(bt_l, g, dev, scale=0.3), _strided(ct_l, g, dev,
+                                                        scale=0.3),
+            t["conv_w"], t["conv_b"], t["dt_b"], t["a_log"], t["d_skip"],
+            t["out_norm"], t["conv_tail"], T)
+        strides = sorted({f"{k}:{lay[1][0]}" for k, lay in pick.items()
+                          if lay is not None and k in _WEIGHT_NAMES
+                          and lay[1] != _dense_strides(lay[0])})
+        offsets = sorted({f"{k}:{lay[2]}" for k, lay in pick.items()
+                          if lay is not None and lay[2]})
+        rows.append(dict(
+            name="ssd", max_rel_err=max(errs.values()),
+            label=(f"ssd G={G} B={n // T} T={T} E={E} {dtype}"
+                   + (" tail" if pick["conv_tail"] is not None else "")
+                   + (f" client strides {','.join(strides)}" if strides
+                      else "")
+                   + (f" offsets {','.join(offsets)}" if offsets else "")
+                   + f" ({', '.join(sorted(chain['launchers']))})")))
+    return rows
+
+
+_WEIGHT_NAMES = ("conv_w", "conv_b", "dt_b", "a_log", "d_skip", "out_norm")
+# The tensors besides xz, B and C that a path's SSD launches pass, by the
+# launchers' argument names.
+_SSD_CHAIN_TENSORS = ("dt_raw", "conv_tail") + _WEIGHT_NAMES
+
+
+def _ssd_layout(layout: tuple | None) -> tuple | None:
+    """A recorded layout as the kernels see it: the storage offset only
+    as its alignment (in elements, modulo 16 bytes), and a single
+    client's client stride as the dense one, which no address uses."""
+    if layout is None:
+        return None
+    shape, stride, offset, dtype = layout
+    if shape[0] == 1:
+        stride = _dense_strides(shape)[:1] + stride[1:]
+    return (shape, stride,
+            offset % (16 // getattr(torch, dtype).itemsize), dtype)
+
+
+def _ssd_chains(rec: LaunchShapes) -> dict[tuple, dict]:
+    """A path's recorded SSD launches, grouped by the rows they ran: the
+    layouts of xz, B and C and the sequence length. For each, the
+    launchers that ran there and every layout (`_ssd_layout`) each other
+    tensor came in (None for an absent conv tail)."""
+    chains: dict[tuple, dict] = {}
+    for name in SSD_LAUNCHERS:
+        for launch in rec.lm[name]:
+            a = {k: _ssd_layout(v) if k in _SSD_CHAIN_TENSORS + (
+                "xz", "bt", "ct") else v for k, v in launch}
+            T = a["seq_len"] if "seq_len" in a else a["o"][0][1]
+            c = chains.setdefault((a["xz"], a["bt"], a["ct"], T),
+                                  dict(launchers=set(), layouts={}))
+            c["launchers"].add(name)
+            for k in _SSD_CHAIN_TENSORS:
+                if k in a:
+                    c["layouts"].setdefault(k, set()).add(a[k])
+    return chains
 
 
 def _token_batch(cfg, seed: int, dev, batch: int = TRAIN_BATCH,
@@ -3382,11 +3804,12 @@ def phase_ep_moe(dev) -> dict:
     return out
 
 
-# Each LM workload's (attention layers, scan layers): lm_tiny 2 attention
-# layers, lm_hybrid_tiny 2 hybrid (attention + SSD heads), lm_rwkv6_tiny
-# 2 RWKV6 time mixes, lm_moe_tiny 4 MLA layers (flash at (96, 64)).
-LM_FL_LAYERS = {"lm_tiny": (2, 0), "lm_hybrid_tiny": (2, 2),
-                "lm_rwkv6_tiny": (0, 2), "lm_moe_tiny": (4, 0)}
+# Each LM workload's (attention layers, scan layers, SSD heads): lm_tiny
+# 2 attention layers, lm_hybrid_tiny 2 hybrid (attention + SSD heads),
+# lm_rwkv6_tiny 2 RWKV6 time mixes, lm_moe_tiny 4 MLA layers (flash at
+# (96, 64)).
+LM_FL_LAYERS = {"lm_tiny": (2, 0, 0), "lm_hybrid_tiny": (2, 2, 2),
+                "lm_rwkv6_tiny": (0, 2, 0), "lm_moe_tiny": (4, 0, 0)}
 
 
 def phase_lm_fl(dev) -> dict:
@@ -3397,9 +3820,10 @@ def phase_lm_fl(dev) -> dict:
     step and one fedagg a round; one flash_attention launch per attention
     layer per local step and per evaluation for the whole client stack,
     and one flash_attention_bwd per layer per local step (wkv6 and
-    wkv6_bwd likewise per SSD or RWKV6 layer)."""
+    wkv6_bwd likewise per SSD or RWKV6 layer, and the SSD kernels per
+    SSD layer)."""
     out = {}
-    for name, (n_attn, n_scan) in LM_FL_LAYERS.items():
+    for name, (n_attn, n_scan, n_ssd) in LM_FL_LAYERS.items():
         wl = get_workload(name)
         for alg in ("fedavg", "fedprox"):
             sim = ConstellationSim(
@@ -3420,7 +3844,10 @@ def phase_lm_fl(dev) -> dict:
             want = dict(expected, flash_attention=n_attn * (steps + evals),
                         flash_attention_bwd=n_attn * steps,
                         wkv6=n_scan * (steps + evals),
-                        wkv6_bwd=n_scan * steps)
+                        wkv6_bwd=n_scan * steps,
+                        **{k: n_ssd * (steps + evals) for k in SSD_FORWARD},
+                        **{k: n_ssd * steps for k in SSD_KERNELS
+                           if k not in SSD_FORWARD})
             require(res.n_rounds >= 2, f"{label}: {res.n_rounds} rounds")
             require(launches == want,
                     f"{label}: launched {launches}, expected {want}")
@@ -3892,14 +4319,15 @@ def main() -> int:
     shapes = {name: LaunchShapes(*sim) for name in (
         "main_path", "mesh_path", "comms_path", "cnn_path",
         "batched_sweep")}
-    shapes.update(serve=LaunchShapes("flash_attention", "wkv6"),
+    shapes.update(serve=LaunchShapes("flash_attention", "wkv6",
+                                     *SSD_FORWARD),
                   serve_rwkv=LaunchShapes("wkv6"),
                   serve_moe=LaunchShapes("flash_attention"),
                   serve_mla=LaunchShapes("flash_attention"),
                   serve_audio=LaunchShapes("flash_attention"),
                   serve_vlm=LaunchShapes("flash_attention"),
-                  lm_fl=LaunchShapes(*sim, *LM_KERNELS),
-                  lm_train=LaunchShapes(*LM_KERNELS),
+                  lm_fl=LaunchShapes(*sim, *LM_KERNELS, *SSD_KERNELS),
+                  lm_train=LaunchShapes(*LM_KERNELS, *SSD_KERNELS),
                   lm_train_rwkv=LaunchShapes("wkv6", "wkv6_bwd"),
                   lm_train_audio=LaunchShapes("flash_attention",
                                               "flash_attention_bwd"),
@@ -3907,7 +4335,7 @@ def main() -> int:
                                             "flash_attention_bwd"),
                   lm_train_mla=LaunchShapes("flash_attention",
                                             "flash_attention_bwd"),
-                  mesh_lm_round=LaunchShapes(*LM_KERNELS),
+                  mesh_lm_round=LaunchShapes(*LM_KERNELS, *SSD_KERNELS),
                   examples=LaunchShapes(*sim, "flash_attention",
                                         "flash_attention_bwd", "wkv6"))
     with shapes["main_path"]:
@@ -4021,9 +4449,19 @@ def main() -> int:
     # The mesh path's server update: fedagg's partial form at its shape.
     other["fedagg"] = [_pick(rows, name="fedagg", form="partial", K=10,
                              dtype="float32")]
-    row_keys = ("case", "build", "form", "K", "P", "S", "Sk", "D", "Dv",
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms", "library_backend", "library_note")
+    # The SSD kernels at the cell's step (hymba-1.5b, bf16, 4 x 2048), and
+    # at their other shapes: a ragged f32 length, lm_hybrid_tiny's client
+    # stack, three clients with a conv tail.
+    ssd_rows = [_pick(train_rows, name=name, case="train")
+                for name in SSD_KERNELS]
+    for name in SSD_KERNELS:
+        other[name] = [_pick(train_rows, name=name, case=c)
+                       for c in ("ragged_f32", "lm_hybrid_tiny",
+                                 "stack_tail")]
+    row_keys = ("case", "build", "form", "G", "B", "T", "E", "K", "P", "S",
+                "Sk", "D", "Dv", "tail", "max_abs_err", "max_rel_err", "ms",
+                "call_ms", "plain_ms", "composition_ms", "bound_ms",
+                "bound_by", "library_ms", "library_backend", "library_note")
     kernels = []
     for row, source, replaces, launches in (
             (prox, "src/repro_torch/csrc/prox_sgd.cu",
@@ -4039,12 +4477,20 @@ def main() -> int:
             (flash_bwd, "src/repro_torch/csrc/flash_attention_bwd.cu",
              "src/repro/models/lm/attention.py:25", train_total),
             (wkv_bwd, "src/repro_torch/csrc/wkv6_bwd.cu",
-             "src/repro/models/lm/scan_core.py:27", train_total)):
+             "src/repro/models/lm/scan_core.py:27", train_total),
+            # The port's own: the reference leaves the SSD heads'
+            # elementwise work to XLA's fusion.
+            *((row, "src/repro_torch/csrc/" + (
+                "ssd.cu" if row["name"] in SSD_FORWARD else "ssd_bwd.cu"),
+               None, train_total) for row in ssd_rows)):
         kernels.append(dict(
             name=row["name"], route="cuda", source=source,
             replaces=replaces, launches=launches[row["name"]],
-            max_abs_err=row["max_abs_err"], ms=row["ms"],
-            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            max_abs_err=row.get("max_abs_err"),
+            max_rel_err=row.get("max_rel_err"), ms=row["ms"],
+            call_ms=row.get("call_ms"), plain_ms=row["plain_ms"],
+            composition_ms=row.get("composition_ms"),
+            bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=row["library_ms"],
             # The comms path's runs, each counted from 0 (not the main
             # path's count above), the batched sweep's femnist_cnn batch

@@ -25,9 +25,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("prox_sgd.cu", "fedagg.cu", "flash_attention.cu", "wkv6.cu",
-           "flash_attention_bwd.cu", "wkv6_bwd.cu")
+           "flash_attention_bwd.cu", "wkv6_bwd.cu", "ssd.cu", "ssd_bwd.cu")
 # Included by the sources: hashed with them, so an edit rebuilds.
-HEADERS = ("wgmma.cuh",)
+HEADERS = ("wgmma.cuh", "ssd.cuh")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
@@ -83,6 +83,25 @@ _SIGNATURES = {
     # stream
     "wkv6_bwd_f32": [_vp] * 15 + [_i64p, _i32, _i32, _i32, _i32, _i32, _i32,
                                   _i32, _vp],
+    # xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, tail (or null),
+    # weight strides[6], xh, r, v, k, dt, logw, G, B, T, E, H, device,
+    # stream
+    **{f"ssd_front_{t}": [_vp] * 9 + [_i64p] + [_vp] * 6 + [_i32] * 6
+       + [_vp] for t in ("f32", "bf16")},
+    # o, xh, xz, bt, ct, dt, d_skip, out_norm, weight strides[6], y, rstd,
+    # G, B, T, E, H, device, stream
+    **{f"ssd_back_{t}": [_vp] * 8 + [_i64p] + [_vp] * 2 + [_i32] * 6
+       + [_vp] for t in ("f32", "bf16")},
+    # dy, o, xh, xz, bt, ct, dt, d_skip, out_norm, weight strides[6], rstd,
+    # du, dxz, p2, norm_part, G, B, T, E, H, device, stream
+    **{f"ssd_back_bwd_{t}": [_vp] * 9 + [_i64p] + [_vp] * 5 + [_i32] * 6
+       + [_vp] for t in ("f32", "bf16")},
+    # du, dv, dr, dk, dlogw, p2, xz, tail, dt_raw, bt, ct, conv_w, conv_b,
+    # dt_b, a_log, d_skip, weight strides[6], dt, logw, norm_part, dxz,
+    # ddt_raw, dbt, dct, dtail, dconv_w, dconv_b, ddt_b, da_log, dd_skip,
+    # dout_norm, conv_part, head_part, G, B, T, E, H, device, stream
+    **{f"ssd_front_bwd_{t}": [_vp] * 16 + [_i64p] + [_vp] * 16 + [_i32] * 6
+       + [_vp] for t in ("f32", "bf16")},
 }
 
 

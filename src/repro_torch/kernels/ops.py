@@ -9,11 +9,14 @@ the CUDA kernel, which launches or raises — there is no fallback.
 launches (and only those), so a run can show that its main path went
 through the kernels. Port of `repro.kernels.ops`: the simulator's two
 kernels (`fedagg`, `prox_sgd`) and the LM's two (`flash_attention`,
-`wkv6`).
+`wkv6`), and the port's own SSD heads op (`ssd_heads_op`: the
+elementwise work on each side of `wkv6` in the hybrid blocks, which the
+reference leaves to XLA).
 
-`flash_attention_op` and `wkv6_op` are differentiable
+`flash_attention_op`, `wkv6_op` and `ssd_heads_op` are differentiable
 (`torch.autograd.Function`): their backward is a kernel too
-(`flash_attention_bwd`, `wkv6_bwd`, counted under those names), or on
+(`flash_attention_bwd`, `wkv6_bwd`, the `ssd_*_bwd` kernels and the
+reduction `ssd_reduce`, counted under those names), or on
 the CPU the plain backward of `ref`, the kernel's own formulas written
 out (not autograd of the plain forward). Where a gradient is wanted the
 forward keeps what the backward would otherwise recompute: each
@@ -23,9 +26,11 @@ and scan.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, ssd
 from repro_torch.kernels.fedagg import fedagg
 from repro_torch.kernels.flash_attention import (
     flash_attention,
@@ -36,7 +41,9 @@ from repro_torch.kernels.wkv6 import wkv6, wkv6_bwd
 from repro_torch.params import leaves_with_paths, unflatten_like
 
 LAUNCHES = {"fedagg": 0, "prox_sgd": 0, "flash_attention": 0, "wkv6": 0,
-            "flash_attention_bwd": 0, "wkv6_bwd": 0}
+            "flash_attention_bwd": 0, "wkv6_bwd": 0, "ssd_front": 0,
+            "ssd_back": 0, "ssd_back_bwd": 0, "ssd_front_bwd": 0,
+            "ssd_reduce": 0}
 
 
 def reset_launches() -> None:
@@ -203,6 +210,124 @@ def wkv6_op(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _Wkv6.apply(r, k, v, logw, s0, chunk)
 
 
+class _SSDHeads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, d_skip,
+                out_norm, s0, conv_tail, seq_len, head_dim, chunk):
+        G, n, E2 = xz.shape
+        T, N = seq_len, bt.shape[-1]
+        GB, H = G * (n // T), E2 // 2 // head_dim
+        keep = any(ctx.needs_input_grad[:12])
+        s0_given = s0 is not None
+        s0 = s0.float() if s0_given else torch.zeros(
+            (GB, H, N, head_dim), dtype=torch.float32, device=xz.device)
+        plain = _plain(xz)
+        if plain:
+            xh, r, v, k, dt, logw = ref.ssd_front_ref(
+                xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, conv_tail,
+                T, head_dim)
+        else:
+            xh, r, v, k, dt, logw = ssd.ssd_front(
+                xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, conv_tail,
+                T, head_dim)
+            LAUNCHES["ssd_front"] += 1
+        # The scan through the model's scan core, on leaves of its own
+        # graph when a gradient is wanted: the backward takes the scan's
+        # gradients from that graph, dense for k's and logw's broadcast
+        # views (summed back over heads and the state dim by the front
+        # kernel's backward).
+        scan_in = (r.transpose(1, 2),
+                   k.reshape(GB, 1, T, N).expand(GB, H, T, N),
+                   v.transpose(1, 2),
+                   logw.reshape(GB, T, H).transpose(1, 2)[..., None]
+                   .expand(GB, H, T, N), s0)
+        if keep:
+            scan_in = [t.detach().requires_grad_(True) for t in scan_in]
+        with torch.enable_grad() if keep else contextlib.nullcontext():
+            o, s_final = _scan_core().chunked_decay_scan(*scan_in,
+                                                         chunk=chunk)
+        o_val = o.detach().transpose(1, 2)           # (G B, T, H, head_dim)
+        if plain:
+            y, rstd = ref.ssd_back_ref(o_val, xh, xz, bt, ct, dt, d_skip,
+                                       out_norm, head_dim)
+        else:
+            y, rstd = ssd.ssd_back(o_val, xh, xz, bt, ct, dt, d_skip,
+                                   out_norm, head_dim)
+            LAUNCHES["ssd_back"] += 1
+        if keep:
+            ctx.save_for_backward(xz, dt_raw, bt, ct, conv_w, conv_b, dt_b,
+                                  a_log, d_skip, out_norm, conv_tail, xh, dt,
+                                  logw, o_val, rstd)
+            ctx.scan = (o, s_final, scan_in)
+            ctx.dims = (T, head_dim, s0_given)
+        ctx.set_materialize_grads(False)
+        return y, s_final.detach()
+
+    @staticmethod
+    def backward(ctx, dy, ds_final):
+        (xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, d_skip, out_norm,
+         conv_tail, xh, dt, logw, o, rstd) = ctx.saved_tensors
+        scan_o, scan_s, scan_in = ctx.scan
+        T, head_dim, s0_given = ctx.dims
+        if dy is None:
+            dy = torch.zeros(xh.shape, dtype=xh.dtype, device=xh.device)
+        plain = _plain(xz)
+        back = (o, xh, xz, bt, ct, dt, d_skip, out_norm, rstd)
+        if plain:
+            du, dz, p2, dnorm = ref.ssd_back_bwd_ref(dy, *back, head_dim)
+        else:
+            dxz = torch.empty_like(xz)
+            du, p2, norm_part = ssd.ssd_back_bwd(dy.contiguous(), *back,
+                                                 head_dim, dxz)
+            LAUNCHES["ssd_back_bwd"] += 1
+        do = du.view(o.shape).transpose(1, 2)
+        outs, grads = ((scan_o,), (do,)) if ds_final is None \
+            else ((scan_o, scan_s), (do, ds_final))
+        dr, dk, dv, dlw, ds0 = torch.autograd.grad(outs, scan_in, grads,
+                                                   allow_unused=True)
+        front = (du, dv, dr, dk, dlw, p2, xz, dt_raw, bt, ct, conv_w, conv_b,
+                 dt_b, a_log, d_skip, conv_tail, dt, logw)
+        if plain:
+            dxs, *grads, dtail = ref.ssd_front_bwd_ref(*front, T, head_dim)
+            dxz = torch.cat([dxs, dz], dim=-1)
+            dnorm = dnorm.to(out_norm.dtype)
+        else:
+            *grads, dnorm, dtail = ssd.ssd_front_bwd(*front, T, head_dim,
+                                                     dxz, norm_part)
+            LAUNCHES["ssd_front_bwd"] += 1
+            LAUNCHES["ssd_reduce"] += 1
+        return (dxz, *grads, dnorm, ds0 if s0_given else None, dtail,
+                None, None, None)
+
+
+def _scan_core():
+    """`models.lm.scan_core`, which imports this module: the model's one
+    entry to the scan, looked up when called."""
+    from repro_torch.models.lm import scan_core
+    return scan_core
+
+
+def ssd_heads_op(xz: torch.Tensor, dt_raw: torch.Tensor, bt: torch.Tensor,
+                 ct: torch.Tensor, conv_w: torch.Tensor, conv_b: torch.Tensor,
+                 dt_b: torch.Tensor, a_log: torch.Tensor,
+                 d_skip: torch.Tensor, out_norm: torch.Tensor,
+                 s0: torch.Tensor | None, conv_tail: torch.Tensor | None, *,
+                 seq_len: int, head_dim: int, chunk: int = 64
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The SSD heads between their projections (shapes in
+    `ref.ssd_front_ref`; s0 (G B, H, N, head_dim) f32 or None for zeros)
+    -> (y (G, n, E) in the model's dtype, ready for `out_proj`; the scan's
+    end state (G B, H, N, head_dim) f32). Three launches: the conv front
+    and the scan's inputs (`ssd_front`), the scan (`wkv6`), the diagonal,
+    D skip, gate and RMSNorm (`ssd_back`); the backward runs their
+    backward kernels in reverse (`ssd_back_bwd`, `wkv6_bwd`,
+    `ssd_front_bwd`) and one reduction of the weights' block partials
+    (`ssd_reduce`). Differentiable in every tensor input."""
+    return _SSDHeads.apply(xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log,
+                           d_skip, out_norm, s0, conv_tail, seq_len,
+                           head_dim, chunk)
+
+
 __all__ = ["LAUNCHES", "reset_launches", "fedagg_op", "fedagg_pytree",
-           "flash_attention_op", "prox_sgd_op", "prox_sgd_pytree", "wkv6_op",
-           "ref"]
+           "flash_attention_op", "prox_sgd_op", "prox_sgd_pytree",
+           "ssd_heads_op", "wkv6_op", "ref"]

@@ -4,7 +4,10 @@
 `chip_smoke.py` holds each CUDA kernel against them on the card. Mirrors
 `repro.kernels.ref`; `wkv6_ref` is the chunked form the TPU kernel
 computes (the reference's oracle is a step-by-step scan, which
-`tests/test_torch_lm_kernels.py` holds it against).
+`tests/test_torch_lm_kernels.py` holds it against). The `ssd_*_ref`
+functions are the plain versions of the port's own SSD kernels, which
+have no TPU kernel behind them (`tests/test_torch_lm.py` holds their
+hand-written backward against autograd and `jax.grad`).
 """
 from __future__ import annotations
 
@@ -424,3 +427,182 @@ def _wkv6_bwd_shapes(r, k, v, logw, s0, do, ds_final, chunk: int, states):
     dr, dk, dv, dlogw = (g.reshape(B, H, -1, g.shape[-1])[:, :, :T]
                          for g in (dr, dk, dv, dlogw))
     return dr, dk, dv, dlogw, ds[:, :, 0]
+
+
+# ----------------------------------------------------------------------- #
+# The SSD heads' elementwise work around the scan (`csrc/ssd*.cu`)
+# ----------------------------------------------------------------------- #
+# Shapes: xz (G, n, 2E) holds xs | z of n = B T rows per client, dt_raw
+# (G, n, H), bt / ct (G, n, N), conv_w (G, K, E), conv_b / out_norm (G, E),
+# dt_b / a_log / d_skip (G, H), conv_tail (G, B, K - 1, E) or None (zeros),
+# all in the model's dtype; E = H * head_dim. Arithmetic in f32; values
+# are rounded to the model's dtype where the composition rounds them: xh
+# (the conv's SiLU output) and u (the heads' output before the gate).
+SSD_CONV_K = 4
+SSD_NORM_EPS = 1e-5
+
+
+def _dsilu(x: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(x)
+    return s * (1.0 + x * (1.0 - s))
+
+
+def _ssd_conv_in(xz: torch.Tensor, conv_tail, seq_len: int) -> torch.Tensor:
+    """The conv's input rows in f32: the tail (or zeros), then xs: (G, B,
+    T + K - 1, E)."""
+    G, n, E2 = xz.shape
+    E = E2 // 2
+    xs = xz[..., :E].reshape(G, n // seq_len, seq_len, E).float()
+    if conv_tail is None:
+        conv_tail = torch.zeros(xs.shape[:-2] + (SSD_CONV_K - 1, E),
+                                dtype=xs.dtype, device=xs.device)
+    return torch.cat([conv_tail.float(), xs], dim=-2)
+
+
+def _ssd_pre(xp: torch.Tensor, conv_w: torch.Tensor,
+             conv_b: torch.Tensor) -> torch.Tensor:
+    """The depthwise causal conv before its SiLU: (G, B, T, E) f32, the
+    taps summed in order, then the bias."""
+    T = xp.shape[-2] - SSD_CONV_K + 1
+    w = conv_w.float()[:, None, None]                  # (G, 1, 1, K, E)
+    acc = xp[..., 0:T, :] * w[..., 0, :]
+    for i in range(1, SSD_CONV_K):
+        acc = acc + xp[..., i:i + T, :] * w[..., i, :]
+    return acc + conv_b.float()[:, None, None]
+
+
+def ssd_front_ref(xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log,
+                  conv_tail, seq_len: int, head_dim: int):
+    """The front of the SSD heads, up to the scan's inputs -> (xh (G, n,
+    E) model dtype, r (G B, T, H, N) f32, v (G B, T, H, head_dim) f32, k
+    (G, n, N) f32, dt (G, n, H) f32, logw (G, n, H) f32):
+      xh   = silu(conv_b + sum_i xp[t - K + 1 + i] conv_w[i]), rounded
+      dt   = softplus(dt_raw + dt_b) (exact: logaddexp(., 0))
+      logw = -dt exp(a_log),  v = xh dt,  r = ct exp(logw),  k = bt.
+    The scan reads r and v transposed to (G B, H, T, .), k and logw as
+    broadcast views over heads and over the state dim."""
+    G, n, E2 = xz.shape
+    E, T = E2 // 2, seq_len
+    B, H = n // T, E // head_dim
+    pre = _ssd_pre(_ssd_conv_in(xz, conv_tail, T), conv_w, conv_b)
+    xh = F.silu(pre).to(xz.dtype).reshape(G, n, E)
+    u = dt_raw.float() + dt_b.float()[:, None]
+    dt = torch.logaddexp(u, torch.zeros((), dtype=u.dtype, device=u.device))
+    logw = -dt * torch.exp(a_log.float())[:, None]
+    v = xh.float().reshape(G, n, H, head_dim) * dt[..., None]
+    r = ct.float()[:, :, None, :] * torch.exp(logw)[..., None]
+    return (xh, r.reshape(G * B, T, H, -1), v.reshape(G * B, T, H, head_dim),
+            bt.float(), dt, logw)
+
+
+def _ssd_out(o, xh, bt, ct, dt, d_skip, head_dim: int):
+    """u = round(o + (ct . bt) dt xh + d_skip xh), (G, n, E) f32: the
+    scan's output with its diagonal and the D skip, rounded to the model's
+    dtype; o (G B, T, H, head_dim) f32."""
+    G, n, E = xh.shape
+    H = E // head_dim
+    xf = xh.float().reshape(G, n, H, head_dim)
+    cb = (ct.float() * bt.float()).sum(-1)
+    o = o.reshape(G, n, H, head_dim) + cb[..., None, None] \
+        * (xf * dt[..., None]) + d_skip.float()[:, None, :, None] * xf
+    return o.reshape(G, n, E).to(xh.dtype).float()
+
+
+def ssd_back_ref(o, xh, xz, bt, ct, dt, d_skip, out_norm, head_dim: int):
+    """The back of the SSD heads, from the scan's output o (G B, T, H,
+    head_dim) f32 -> (y (G, n, E) model dtype, rstd (G, n) f32):
+      g = u silu(z),  rstd = (mean_e g^2 + SSD_NORM_EPS)^-1/2,
+      y = g rstd (1 + out_norm)
+    with u from `_ssd_out`."""
+    E = xh.shape[-1]
+    g = _ssd_out(o, xh, bt, ct, dt, d_skip, head_dim) \
+        * F.silu(xz[..., E:].float())
+    rstd = torch.rsqrt(g.square().mean(-1) + SSD_NORM_EPS)
+    y = g * rstd[..., None] * (1.0 + out_norm.float()[:, None])
+    return y.to(xh.dtype), rstd
+
+
+def ssd_back_bwd_ref(dy, o, xh, xz, bt, ct, dt, d_skip, out_norm, rstd,
+                     head_dim: int):
+    """The backward kernel's formulas for `ssd_back_ref`: dy (G, n, E) ->
+    (du (G, n, E) f32, the gradient of u and so of o; dz (G, n, E) model
+    dtype; p2 = sum over each head's channels of du xh, (G, n, H) f32;
+    dout_norm (G, E) f32). With nh = g rstd and dn = dy (1 + out_norm):
+      dg = rstd (dn - nh mean_e(dn nh)),  du = dg silu(z),
+      dz = dg u silu'(z),  dout_norm = sum_rows dy nh."""
+    G, n, E = xh.shape
+    H = E // head_dim
+    z = xz[..., E:].float()
+    u = _ssd_out(o, xh, bt, ct, dt, d_skip, head_dim)
+    s = F.silu(z)
+    nh = u * s * rstd[..., None]
+    dyf = dy.float()
+    dn = dyf * (1.0 + out_norm.float()[:, None])
+    dg = rstd[..., None] * (dn - nh * (dn * nh).mean(-1, keepdim=True))
+    du = dg * s
+    p2 = (du.reshape(G, n, H, head_dim)
+          * xh.float().reshape(G, n, H, head_dim)).sum(-1)
+    return du, (dg * u * _dsilu(z)).to(xz.dtype), p2, (dyf * nh).sum(1)
+
+
+def ssd_front_bwd_ref(du, dv, dr, dk, dlogw, p2, xz, dt_raw, bt, ct, conv_w,
+                      conv_b, dt_b, a_log, d_skip, conv_tail, dt, logw,
+                      seq_len: int, head_dim: int):
+    """The backward kernel's formulas for `ssd_front_ref` with the
+    scan's and the diagonal's gradients folded in: du (G, n, E) and p2
+    from `ssd_back_bwd_ref`; dv (G B, H, T, head_dim), dr, dk and dlogw
+    (G B, H, T, N) dense from the scan's backward (dk and dlogw of the
+    broadcast views, summed here over heads and over the state dim).
+    Returns (dxs (G, n, E), ddt_raw (G, n, H), dbt, dct (G, n, N),
+    dconv_w, dconv_b, ddt_b, da_log, dd_skip, dconv_tail or None), each in
+    its input's dtype. With cb = ct . bt, A = exp(a_log):
+      dxh  = (dv + cb du) dt + d_skip du,  dpre = dxh silu'(pre)
+      dxp[t - K + 1 + i] += conv_w[i] dpre[t],  dconv_w[i] = sum xp dpre
+      dlw  = sum_n dlogw + exp(logw) sum_n dr ct
+      ddt  = sum_p dv xh + cb p2 - A dlw,  ddt_raw = ddt sigmoid(dt_raw + dt_b)
+      da_log = -sum A dt dlw,  dd_skip = sum p2,  dcb = sum_h dt p2
+      dbt  = dcb ct + sum_h dk,  dct = dcb bt + sum_h exp(logw) dr."""
+    G, n, E2 = xz.shape
+    E, T, K = E2 // 2, seq_len, SSD_CONV_K
+    B, H = n // T, E // head_dim
+    xp = _ssd_conv_in(xz, conv_tail, T)
+    pre = _ssd_pre(xp, conv_w, conv_b)
+    xh = F.silu(pre).to(xz.dtype).float().reshape(G, n, H, head_dim)
+    heads = lambda t: t.transpose(1, 2).reshape(G, n, H, t.shape[-1])
+    dv, dr, dk, dlogw = heads(dv), heads(dr), heads(dk), heads(dlogw)
+    duh = du.reshape(G, n, H, head_dim)
+    btf, ctf = bt.float(), ct.float()
+    # The diagonal's dot and, below, its share of dbt and dct (dcb ct,
+    # dcb bt) as matrix products, the dot and the two outer products of its
+    # backward, as the composition's einsum and its autograd ran them. Two
+    # tests hold this form, not the math: bench/test_counts.py's
+    # test_matmul_flops_match_the_flop_counter counts these products as
+    # the model's matmul FLOPs, and tests/test_torch_lm_train.py's
+    # test_three_train_steps_match_reference[hymba-1.5b] sits near its
+    # tolerance, which elementwise forms of the same sums cross by rounding.
+    cb = torch.einsum("gtn,gtn->gt", ctf, btf)
+    dxh = (dv + cb[..., None, None] * duh) * dt[..., None] \
+        + d_skip.float()[:, None, :, None] * duh
+    dpre = dxh.reshape(G, B, T, E) * _dsilu(pre)
+    w = conv_w.float()
+    edge = lambda m: dpre.new_zeros(dpre.shape[:-2] + (m, E))
+    dxp = sum(torch.cat([edge(i), dpre * w[:, None, None, i],
+                         edge(K - 1 - i)], dim=-2) for i in range(K))
+    dconv_w = torch.stack([(xp[..., i:i + T, :] * dpre).sum((1, 2))
+                           for i in range(K)], dim=1)
+    ew = torch.exp(logw)
+    dlw = dlogw.sum(-1) + ew * (dr * ctf[:, :, None, :]).sum(-1)
+    A = torch.exp(a_log.float())[:, None]
+    ddt_raw = ((dv * xh).sum(-1) + cb[..., None] * p2 - A * dlw) \
+        * torch.sigmoid(dt_raw.float() + dt_b.float()[:, None])
+    dcb = (dt * p2).sum(-1)[..., None, None]
+    outer = lambda t: (dcb @ t[..., None, :])[..., 0, :]
+    dbt = outer(ctf) + dk.sum(2)
+    dct = outer(btf) + (dr * ew[..., None]).sum(2)
+    dtail = None if conv_tail is None else dxp[..., :K - 1, :]
+    as_ = lambda t, like: None if t is None else t.to(like.dtype)
+    return (dxp[..., K - 1:, :].reshape(G, n, E).to(xz.dtype),
+            as_(ddt_raw, dt_raw), as_(dbt, bt), as_(dct, ct),
+            as_(dconv_w, conv_w), as_(dpre.sum((1, 2)), conv_b),
+            as_(ddt_raw.sum(1), dt_b), as_(-(A * dt * dlw).sum(1), a_log),
+            as_(p2.sum(1), d_skip), as_(dtail, conv_tail))

@@ -4,12 +4,14 @@ Port of `repro.models.lm.ssm`. Hymba (arXiv:2411.13676) runs attention
 heads and Mamba heads *in parallel* inside each block. The SSM side is
 SSD: scalar per-head decay a_t = exp(-softplus(dt) * exp(A_log)), shared
 B/C projections (1 group), causal depthwise conv front, gated output with
-RMS-style normalization. The prefill recurrence is `scan_core`'s
-`chunked_decay_scan`, i.e. the `wkv6` kernel, with the per-head decay and
-the shared B projection passed as broadcast views (no copy).
-`ssm_stacked` takes a leading client axis (training runs a client stack
-through it, prefill its G = 1 view), and gradients flow through it (the
-`wkv6` op is differentiable).
+RMS-style normalization. Between its projections, `ssm_stacked` runs
+the heads through `kernels.ops.ssd_heads_op`: the conv front and the
+scan's inputs in one kernel, the `wkv6` scan (the per-head decay and the
+shared B projection passed as broadcast views, no copy), then the
+diagonal, D skip, gate and norm in another, each with a backward kernel
+(on the CPU, their plain versions). `ssm_stacked` takes a leading client
+axis (training runs a client stack through it, prefill its G = 1 view),
+and gradients flow through it. Decode (`ssm_step`) stays plain PyTorch.
 
 `jax.nn.softplus` is exact (`logaddexp(x, 0)`); torch's `softplus` turns
 linear above 20, so `torch.logaddexp` stands in for it.
@@ -20,9 +22,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.ops import ssd_heads_op
 from repro_torch.models.lm.config import SSMConfig
 from repro_torch.models.lm.layers import dense_init, rmsnorm
-from repro_torch.models.lm.scan_core import chunked_decay_scan
 
 CONV_K = 4
 
@@ -79,29 +81,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return F.silu(y), xp[..., -(CONV_K - 1):, :]
 
 
-def _ssd(xh: torch.Tensor, dt: torch.Tensor, logw: torch.Tensor,
-         bt: torch.Tensor, ct: torch.Tensor, state: torch.Tensor,
-         chunk: int):
-    """The SSD heads' scan, mapped onto the scan core (`wkv6`).
-
-    xh (B, T, H, hd); dt, logw (B, T, H) and bt, ct (B, T, N) in f32;
-    state (B, H, N, hd) f32. Returns (o (B, T, H, hd) f32 without the D
-    skip, s_final)."""
-    B, T, H, _ = xh.shape
-    N = bt.shape[-1]
-    # Map onto the scan core: r = C (.) w_t (decay includes current step),
-    # k = B_t, v = dt * x_t; diagonal handled explicitly below. k and logw
-    # are broadcast views (stride 0 over heads / the state dim).
-    r = ct[:, None, :, :] * torch.exp(logw).transpose(1, 2)[..., None]
-    k = bt[:, None, :, :].expand(B, H, T, N)
-    v = (xh.float() * dt[..., None]).transpose(1, 2)     # (B,H,T,hd)
-    lw = logw.transpose(1, 2)[..., None].expand(B, H, T, N)
-    o, s_final = chunked_decay_scan(r, k, v, lw, state, chunk=chunk)
-    o = o.transpose(1, 2)                                # (B,T,H,hd)
-    # Diagonal (i == t): (C_t . B_t) dt x_t.
-    diag = torch.einsum("btn,btn->bt", ct, bt)[..., None, None] \
-        * v.transpose(1, 2)
-    return o + diag, s_final
+def _conv_tail(xs: torch.Tensor, x_prev: torch.Tensor | None):
+    """The conv's last K-1 input rows, the next segment's `x_prev`: xs
+    (..., T, D) after x_prev (..., K-1, D) (zeros if None)."""
+    T, D = xs.shape[-2:]
+    if x_prev is None:
+        x_prev = torch.zeros(xs.shape[:-2] + (CONV_K - 1, D), dtype=xs.dtype,
+                             device=xs.device)
+    keep = xs[..., max(T - (CONV_K - 1), 0):, :]
+    return torch.cat([x_prev, keep], dim=-2)[..., -(CONV_K - 1):, :]
 
 
 def ssm_forward(p: dict, x: torch.Tensor, cfg: SSMConfig,
@@ -120,40 +108,22 @@ def ssm_stacked(p: dict, x: torch.Tensor, cfg: SSMConfig, seq_len: int,
     """The SSD heads over a stack of clients: x (G, B*T, d_model) holds B
     sequences of T = seq_len rows per client, and every leaf of `p` has a
     leading (G,) axis. Projections are one batched product per client
-    ((G, B*T, d) @ (G, d, e)); the scan folds the clients into its batch,
-    (G*B, H, T, .): one `wkv6` launch for the whole stack. `state`
-    (G*B, H, N, hd) and `conv_tail` (G, B, K-1, d_inner) default to zeros.
-    Returns (y (G, B*T, d_model), (state in x's dtype, conv_tail))."""
+    ((G, B*T, d) @ (G, d, e)); the SSD op folds the clients into its
+    batch, (G*B, H, T, .): one launch of each kernel for the whole stack.
+    `state` (G*B, H, N, hd) and `conv_tail` (G, B, K-1, d_inner) default
+    to zeros. Returns (y (G, B*T, d_model), (state in x's dtype, conv_tail))."""
     G, n, d = x.shape
     T = seq_len
-    B = n // T
     d_inner = cfg.expand * d
-    H = d_inner // cfg.head_dim
-    N = cfg.state_dim
-    row = lambda t: t.unsqueeze(-2)                       # (G, e) -> (G, 1, e)
-
     xz = x @ p["in_proj"]
-    xs, z = xz.chunk(2, dim=-1)
-    xs, tail = _causal_conv(xs.reshape(G, B, T, d_inner),
-                            p["conv_w"][:, None, None],
-                            p["conv_b"][:, None, None], conv_tail)
-    xh = xs.reshape(G * B, T, H, cfg.head_dim)
-    dt = _softplus((x @ p["dt_w"] + row(p["dt_b"])).float())
-    logw = -dt * torch.exp(row(p["a_log"]))              # (G, B*T, H) <= 0
-    bt = (x @ p["b_proj"]).float()
-    ct = (x @ p["c_proj"]).float()
-    fold = lambda t: t.reshape(G * B, T, t.shape[-1])
-    if state is None:
-        state = torch.zeros((G * B, H, N, cfg.head_dim), dtype=torch.float32,
-                            device=x.device)
-    o, s_final = _ssd(xh, fold(dt), fold(logw), fold(bt), fold(ct),
-                      state.float(), chunk)
-    o = o.view(G, B, T, H, cfg.head_dim) \
-        + p["d_skip"][:, None, None, :, None] \
-        * xh.float().view(G, B, T, H, cfg.head_dim)
-    y = o.reshape(G, n, d_inner).to(x.dtype)
-    y = rmsnorm(y * F.silu(z), row(p["out_norm"]))
-    return y @ p["out_proj"], (s_final.to(x.dtype), tail)
+    y, s_final = ssd_heads_op(
+        xz, x @ p["dt_w"], x @ p["b_proj"], x @ p["c_proj"], p["conv_w"],
+        p["conv_b"], p["dt_b"], p["a_log"], p["d_skip"], p["out_norm"],
+        state, conv_tail, seq_len=T,
+        head_dim=cfg.head_dim, chunk=chunk)
+    xs = xz[..., :d_inner].reshape(G, n // T, T, d_inner)
+    return y @ p["out_proj"], (s_final.to(x.dtype),
+                               _conv_tail(xs, conv_tail))
 
 
 def ssm_step(p: dict, x: torch.Tensor, cfg: SSMConfig, state, conv_tail):

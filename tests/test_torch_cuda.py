@@ -1499,3 +1499,176 @@ def test_apply_moe_ep_on_card_matches_one_row_view(dev, dtype):
         _close(aux[name], aux1[name], tol)
     for a, b in zip(g, g1):
         _close(a, b, tol, tol * max(1.0, float(b.float().abs().max())))
+
+
+# ------------------------------------------------- the SSD heads' kernels
+# Each kernel against its plain version (`ref.ssd_*_ref`) on the same card
+# inputs at hymba-1.5b's widths (d_inner 3,200, 50 heads of 64, state 16).
+# In f32 both sides compute one arithmetic in other orders: 1e-4 of each
+# output's scale. In bf16 the model-dtype values (xh, u, y and the
+# gradients) round once on each side, and an f32 result a hair either side
+# of a rounding boundary lands one bf16 step (2^-8) apart: 2e-2 of the
+# scale, as the other bf16 kernels.
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+HYMBA_D_INNER, HYMBA_SSD_HEADS = 3200, 50
+
+
+def _ssd_inputs(dev, B, T, dtype, tail, E=HYMBA_D_INNER, G=1, seed=0):
+    """The op's inputs at the model's scale, seeded: (xz, dt_raw, bt, ct,
+    conv_w, conv_b, dt_b, a_log, d_skip, out_norm, conv_tail)."""
+    H = E // 64
+    g = torch.Generator(device=dev).manual_seed(seed + B * T)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    a_log = torch.log(torch.linspace(1.0, 8.0, H, device=dev)).expand(G, H)
+    out = (rnd(G, B * T, 2 * E), 0.5 * rnd(G, B * T, H),
+           0.3 * rnd(G, B * T, 16), 0.3 * rnd(G, B * T, 16),
+           0.1 * rnd(G, 4, E), 0.1 * rnd(G, E), -2.0 + 0.1 * rnd(G, H),
+           a_log + 0.1 * rnd(G, H), 1.0 + 0.1 * rnd(G, H), 0.1 * rnd(G, E),
+           rnd(G, B, 3, E) if tail else None)
+    return tuple(None if t is None else t.to(dtype).contiguous()
+                 for t in out)
+
+
+def _ssd_close(got, want, dtype):
+    tol = SSD_TOL[dtype]
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, tol, tol * max(1e-6, float(want.float().abs().max())))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,tail", [(1, 2048, False), (4, 2048, False),
+                                      (1, 200, True), (4, 200, True)])
+def test_ssd_kernels_match_plain(dev, B, T, tail, dtype):
+    """Forward and every gradient of the four kernels (and the weights'
+    reduction) against the plain versions, kernel by kernel on the plain
+    chain's inputs; two launches give the same bits."""
+    from repro_torch.kernels import ssd
+    (xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, d_skip, out_norm,
+     conv_tail) = _ssd_inputs(dev, B, T, dtype, tail)
+    E, H, G = HYMBA_D_INNER, HYMBA_SSD_HEADS, 1
+    front_in = (xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, conv_tail,
+                T, 64)
+    want = ref.ssd_front_ref(*front_in)
+    got = ssd.ssd_front(*front_in)
+    for a, w in zip(got, want):
+        _ssd_close(a, w, dtype)
+    xh, _, _, _, dt, logw = want
+    g = torch.Generator(device=dev).manual_seed(7)
+    rnd = lambda *s: torch.randn(s, generator=g, device=dev)
+    o = rnd(B, T, H, 64)
+    back_in = (o, xh, xz, bt, ct, dt, d_skip, out_norm)
+    y, rstd = ref.ssd_back_ref(*back_in, 64)
+    for a, w in zip(ssd.ssd_back(*back_in, 64), (y, rstd)):
+        _ssd_close(a, w, dtype)
+    dy = rnd(G, B * T, E).to(dtype)
+    du, dz, p2, dnorm = ref.ssd_back_bwd_ref(dy, *back_in, rstd, 64)
+    outs = []
+    for _ in range(2):
+        dxz = torch.empty_like(xz)
+        du_k, p2_k, norm_part = ssd.ssd_back_bwd(dy, *back_in, rstd, 64, dxz)
+        dv, dr, dk, dlw = (rnd(B, H, T, 64), rnd(B, H, T, 16),
+                           rnd(B, H, T, 16), rnd(B, H, T, 16))
+        front_bwd_in = (du, dv, dr, dk, dlw, p2, xz, dt_raw, bt, ct, conv_w,
+                        conv_b, dt_b, a_log, d_skip, conv_tail, dt, logw)
+        grads = ssd.ssd_front_bwd(*front_bwd_in, T, 64, dxz, norm_part)
+        outs.append((du_k, p2_k, dxz, grads))
+        g.manual_seed(7)
+        rnd(B, T, H, 64), rnd(G, B * T, E)           # the same draws again
+    torch.cuda.synchronize()
+    (du_k, p2_k, dxz, grads), again = outs
+    assert torch.equal(dxz, again[2]) and all(
+        a is None or torch.equal(a, b) for a, b in zip(grads, again[3]))
+    _ssd_close(du_k, du, dtype)
+    _ssd_close(p2_k, p2, dtype)
+    _ssd_close(dxz[..., E:], dz, dtype)
+    dxs, *want_grads, dtail = ref.ssd_front_bwd_ref(*front_bwd_in, T, 64)
+    _ssd_close(dxz[..., :E], dxs, dtype)
+    *got_grads, dnorm_k, dtail_k = grads
+    for a, w in zip(got_grads, want_grads):
+        _ssd_close(a, w, dtype)
+    _ssd_close(dnorm_k, dnorm.to(dtype), dtype)
+    assert (dtail_k is None) == (dtail is None)
+    if dtail is not None:
+        _ssd_close(dtail_k, dtail, dtype)
+
+
+def test_ssd_heads_op_matches_plain_op(dev):
+    """The whole op (front, scan, back and their backward) on the card
+    against the plain op on the same card tensors, with a conv tail, a
+    start state and an end-state gradient, at two clients of hymba-1.5b's
+    width in f32."""
+    G, B, T = 2, 2, 200
+    leaves = [t.requires_grad_(True) for t in
+              _ssd_inputs(dev, B, T, torch.float32, True, G=G)]
+    s0 = torch.randn((G * B, HYMBA_SSD_HEADS, 16, 64), device=dev,
+                     requires_grad=True)
+    args = leaves[:10] + [s0, leaves[10]]
+    outs = []
+    for plain in (False, True):
+        before = dict(ops.LAUNCHES)
+        orig = ops._plain
+        ops._plain = (lambda t: True) if plain else orig
+        try:
+            y, s = ops.ssd_heads_op(*args, seq_len=T, head_dim=64)
+            gy = torch.randn(y.shape, generator=torch.Generator(
+                device=dev).manual_seed(1), device=dev)
+            grads = torch.autograd.grad((y, s), args, (gy, torch.ones_like(s)))
+        finally:
+            ops._plain = orig
+        torch.cuda.synchronize()
+        moved = {n: ops.LAUNCHES[n] - before[n] for n in ops.LAUNCHES}
+        outs.append((y, s, grads, moved))
+    (y, s, grads, moved), (y1, s1, grads1, moved1) = outs
+    assert not any(moved1.values())
+    assert {n: c for n, c in moved.items() if c} == {
+        "ssd_front": 1, "ssd_back": 1, "wkv6": 1, "ssd_back_bwd": 1,
+        "wkv6_bwd": 1, "ssd_front_bwd": 1, "ssd_reduce": 1}
+    _ssd_close(y, y1, torch.float32)
+    _ssd_close(s, s1, torch.float32)
+    for a, b in zip(grads, grads1):
+        _ssd_close(a, b, torch.float32)
+
+
+def test_ssd_heads_launch_once_a_layer(dev):
+    """One `lm_loss` and its gradient on the reduced hymba-1.5b (2 hybrid
+    layers): each SSD kernel launches once a layer, as the scan does."""
+    from repro_torch.train.step import lm_loss
+    cfg = get_config("hymba-1.5b").reduced()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 70), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1))
+    leaves = _leaves(params)
+    ops.reset_launches()
+    loss = lm_loss(cfg, params, {"tokens": tokens})[0]
+    grads = torch.autograd.grad(loss, leaves)
+    torch.cuda.synchronize()
+    n = cfg.n_layers
+    for name in ("ssd_front", "ssd_back", "ssd_back_bwd", "ssd_front_bwd",
+                 "ssd_reduce", "wkv6", "wkv6_bwd"):
+        assert ops.LAUNCHES[name] == n, (name, dict(ops.LAUNCHES))
+    assert all(bool(torch.isfinite(g).all()) for g in grads)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree.requires_grad_(True)]
+
+
+def test_ssd_kernels_reject_other_widths(dev):
+    from repro_torch.kernels import ssd
+    xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, *_ = _ssd_inputs(
+        dev, 1, 64, torch.float32, False, E=256)
+    with pytest.raises(ValueError, match="head_dim 64"):
+        ssd.ssd_front(xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, None,
+                      64, 32)
+    with pytest.raises(ValueError, match="state 16"):
+        ssd.ssd_front(xz, dt_raw, bt[..., :8].contiguous(),
+                      ct[..., :8].contiguous(), conv_w, conv_b, dt_b, a_log,
+                      None, 64, 64)
+    with pytest.raises(TypeError, match="float32"):
+        ssd.ssd_front(xz, dt_raw.double(), bt, ct, conv_w, conv_b, dt_b,
+                      a_log, None, 64, 64)

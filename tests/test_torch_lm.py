@@ -195,6 +195,115 @@ def test_ssm_forward_and_step_match(T):
     _close(t1t, t1j)
 
 
+# The SSD heads' kernels' plain versions (`ref.ssd_*_ref`): their
+# hand-written backward against autograd of the composition they replace
+# (the causal conv as shifted adds, softplus, the scan as plain ops, the
+# diagonal, the D skip, the gate and the RMSNorm), every input gradient.
+def _ssd_composition(xz, dt_raw, bt, ct, conv_w, conv_b, dt_b, a_log, d_skip,
+                     out_norm, s0, conv_tail, T: int):
+    G, n, E2 = xz.shape
+    E, B = E2 // 2, n // T
+    H = E // 64
+    xs, z = xz.chunk(2, dim=-1)
+    xs, _ = ssm._causal_conv(xs.reshape(G, B, T, E), conv_w[:, None, None],
+                             conv_b[:, None, None], conv_tail)
+    xh = xs.reshape(G * B, T, H, 64)
+    u = (dt_raw + dt_b[:, None]).float()
+    dt = torch.logaddexp(u, torch.zeros(()))
+    logw = (-dt * torch.exp(a_log[:, None])).reshape(G * B, T, H)
+    dt = dt.reshape(G * B, T, H)
+    b32, c32 = (t.float().reshape(G * B, T, -1) for t in (bt, ct))
+    r = c32[:, None] * torch.exp(logw).transpose(1, 2)[..., None]
+    k = b32[:, None].expand(G * B, H, T, 16)
+    v = (xh.float() * dt[..., None]).transpose(1, 2)
+    lw = logw.transpose(1, 2)[..., None].expand(G * B, H, T, 16)
+    o, s_final = ops.ref.wkv6_ref(r, k, v, lw, s0)
+    o = o.transpose(1, 2) + torch.einsum("btn,btn->bt", c32, b32)[
+        ..., None, None] * v.transpose(1, 2)
+    o = o.reshape(G, B, T, H, 64) + d_skip[:, None, None, :, None] \
+        * xh.float().reshape(G, B, T, H, 64)
+    y = o.reshape(G, n, E).to(xz.dtype)
+    return layers.rmsnorm(y * torch.nn.functional.silu(z),
+                          out_norm[:, None]), s_final
+
+
+@pytest.mark.parametrize("T,tail", [(64, False), (64, True), (70, False),
+                                    (70, True), (2, True)])
+def test_ssd_plain_backward_matches_autograd(T, tail):
+    """The op's plain path (`ref.ssd_front_ref` / `ssd_back_ref` around the
+    plain scan, and the hand-written `ssd_back_bwd_ref` /
+    `ssd_front_bwd_ref` around `wkv6_bwd_ref`) against autograd of the
+    composition, two clients of two sequences, with and without a conv
+    tail, at T a multiple of 64 and not (and T = 2, shorter than the
+    tail): outputs and every input gradient within 1e-5 of each one's
+    scale (f32, sums in other orders)."""
+    G, B, E, H = 2, 2, 128, 2
+    rng = np.random.default_rng(T + 10 * tail)
+    rnd = lambda *s, scale=1.0: torch.tensor(
+        scale * rng.normal(size=s), dtype=torch.float32)
+    args = [rnd(G, B * T, 2 * E), rnd(G, B * T, H, scale=0.5),
+            rnd(G, B * T, 16, scale=0.3), rnd(G, B * T, 16, scale=0.3),
+            rnd(G, 4, E, scale=0.3), rnd(G, E, scale=0.1),
+            -2.0 + rnd(G, H, scale=0.3), rnd(G, H, scale=0.5),
+            1.0 + rnd(G, H, scale=0.3), rnd(G, E, scale=0.1),
+            rnd(G * B, H, 16, 64, scale=0.3),
+            rnd(G, B, 3, E) if tail else None]
+    leaves = [a.requires_grad_(True) for a in args if a is not None]
+    gy, gs = rnd(G, B * T, E), rnd(G * B, H, 16, 64)
+    got = ops.ssd_heads_op(*args, seq_len=T, head_dim=64)
+    want = _ssd_composition(*args, T)
+    for a, w in zip(got, want):
+        _close(a, w.detach().numpy(), 1e-5)
+    g_got = torch.autograd.grad(got, leaves, (gy, gs))
+    g_want = torch.autograd.grad(want, leaves, (gy, gs))
+    for a, w in zip(g_got, g_want):
+        scale = float(w.abs().max())
+        np.testing.assert_allclose(a.numpy(), w.numpy(), rtol=1e-5,
+                                   atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("T,tail", [(64, False), (70, True)])
+def test_ssm_gradients_match_jax_grad(T, tail):
+    """`ssm_forward`'s gradients (through the op's plain path) at the
+    reduced hymba-1.5b's SSD heads against `jax.grad` of the reference's
+    `ssm_forward`: x, every weight, the start state and the conv tail,
+    within 1e-4 of each one's scale (f32; the reference differentiates
+    its jnp scan, the port the scan's hand-written backward)."""
+    cfg, tree = _ssm_params()
+    rng = np.random.default_rng(T)
+    x = rng.normal(size=(2, T, 128)).astype(np.float32)
+    s0 = (0.3 * rng.normal(size=(2, 4, 16, 64))).astype(np.float32)
+    tail_np = rng.normal(size=(2, 3, 256)).astype(np.float32) if tail \
+        else None
+    gy = rng.normal(size=(2, T, 128)).astype(np.float32)
+    gs = rng.normal(size=(2, 4, 16, 64)).astype(np.float32)
+    names = sorted(tree)
+
+    def jax_loss(p, x, s0, tail_):
+        y, (s, _) = jssm.ssm_forward(p, x, cfg, s0, tail_)
+        return jnp.sum(y * gy) + jnp.sum(s * gs)
+
+    argnums = (0, 1, 2, 3) if tail else (0, 1, 2)
+    want = jax.grad(jax_loss, argnums=argnums)(
+        {k: jnp.asarray(v) for k, v in tree.items()}, jnp.asarray(x),
+        jnp.asarray(s0), None if tail_np is None else jnp.asarray(tail_np))
+    pt = lm_params_from_jax(tree, "cpu")
+    leaves = [pt[k].requires_grad_(True) for k in names]
+    xt, st = (torch.tensor(a, requires_grad=True) for a in (x, s0))
+    tt = None if tail_np is None else torch.tensor(tail_np,
+                                                   requires_grad=True)
+    y, (s, _) = ssm.ssm_forward(pt, xt, cfg, st, tt)
+    loss = (y * torch.tensor(gy)).sum() + (s * torch.tensor(gs)).sum()
+    inputs = leaves + [xt, st] + ([tt] if tail else [])
+    got = torch.autograd.grad(loss, inputs)
+    wants = [want[0][k] for k in names] + list(want[1:])
+    for name, a, w in zip(names + ["x", "state", "tail"], got, wants):
+        w = np.asarray(w, np.float32)
+        np.testing.assert_allclose(
+            a.numpy(), w, rtol=1e-4, atol=1e-4 * float(np.abs(w).max()),
+            err_msg=name)
+
+
 # --------------------------------------------------------------- params
 @functools.lru_cache(maxsize=None)
 def _jax_init(arch: str, dtype: str = "float32"):
