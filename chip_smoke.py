@@ -238,7 +238,8 @@ Drives the port (`src/repro_torch`, never `jax` or `repro`) on the card:
              each LM kernel the model runs (hymba: 32 of each of
              flash_attention, flash_attention_bwd, wkv6, wkv6_bwd and the
              five SSD kernels;
-             rwkv6: 24 of wkv6 and wkv6_bwd; whisper: 72 of
+             rwkv6: 24 of wkv6_bwd and 30 of wkv6, its first 6 layers
+             recomputed in the backward; whisper: 72 of
              flash_attention and its backward; llava: 4), finite losses;
              s/step, tokens/s, peak device memory; then 4 steps of the
              same configuration on one fixed batch (one of them under
@@ -357,6 +358,7 @@ from repro_torch.configs.shapes import INPUT_SHAPES, InputShape  # noqa: E402
 from repro_torch.launch import dryrun, serve, train  # noqa: E402
 from repro_torch.launch import mesh as mesh_consts  # noqa: E402
 from repro_torch.launch.fl_round import make_fl_round_step  # noqa: E402
+from repro_torch.models.lm.rwkv import recomputed_layers  # noqa: E402
 from repro_torch.core.client import vmapped_client_update  # noqa: E402
 from repro_torch.core.workload import get_workload, lm_workload  # noqa: E402
 from repro_torch.models.femnist_cnn import femnist_cnn_init  # noqa: E402
@@ -3407,6 +3409,9 @@ def phase_lm_train(dev, arch: str = TRAIN_ARCH, batch: int = TRAIN_BATCH,
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
     want = {k: n * TRAIN_STEPS for k, n in _layer_launches(cfg).items()}
+    # a recomputed layer's forward again in the backward
+    want["wkv6"] += recomputed_layers(cfg, getattr(torch, cfg.dtype)) \
+        * TRAIN_STEPS
     require(all(launches[k] == n for k, n in want.items()),
             f"train {arch} launched {launches}; expected {want}")
     losses = done["losses"]

@@ -17,6 +17,10 @@ The kernel takes all four strides of every input, so broadcast views
 where they lie. `o` keeps v's memory layout where v is dense
 (`torch.empty_like`).
 
+Each launch counts under `wkv6.fixed` or `wkv6.generic` (`repro_torch.
+obs`, while tracing is on): the build it ran, so a profile shows whether
+a path took the faster fixed build.
+
 `wkv6(..., return_states=True)` also returns the chunk start states the
 kernel hands from block to block, which `wkv6_bwd` takes to launch the
 gradient's kernel (`repro_torch/csrc/wkv6_bwd.cu`, one block per (b, h,
@@ -33,9 +37,13 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.stream import current_stream
+from repro_torch.obs import count
 
 # The scan's default chunk length (the reference kernel's too).
 DEFAULT_CHUNK = 64
+# The (K, V, chunk) that `wkv6_f32` launches through a build fixed at them
+# (`csrc/wkv6.cu` `run`): hymba's SSD heads and rwkv6's time mix.
+FIXED_BUILDS = ((16, 64, 64), (64, 64, 64))
 # Shared memory a block may use on the H100 (227 KB).
 MAX_SMEM_BYTES = 232_448
 # The backward kernel's register tiles: K, V and the chunk multiples of 4,
@@ -55,6 +63,13 @@ def bwd_smem_bytes(K: int, V: int, chunk: int) -> int:
 
 def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
+
+
+def build_name(K: int, V: int, chunk: int, generic: bool = False) -> str:
+    """The build a forward launch at (K, V, chunk) runs: "fixed" or
+    "generic"."""
+    return "generic" if generic or (K, V, chunk) not in FIXED_BUILDS \
+        else "fixed"
 
 
 def smem_bytes(K: int, V: int, chunk: int) -> int:
@@ -102,6 +117,7 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     strides = (ctypes.c_int64 * 28)(*(
         s for t in (r, k, v, logw, s0, o, s_final) for s in t.stride()))
     fn = build.entry("wkv6_generic_f32" if generic else "wkv6_f32")
+    count("wkv6." + build_name(K, V, chunk, generic))
     build.check(fn(r.data_ptr(), k.data_ptr(), v.data_ptr(),
                    logw.data_ptr(), s0.data_ptr(), o.data_ptr(),
                    s_final.data_ptr(), strides, B, H, T, K, V, chunk,

@@ -22,6 +22,29 @@ the decay's LoRA sum is bf16 and turns f32 only before `-exp`; r, k, v
 and the state go to f32 for the scan, the bonus term is f32, and the
 output returns to x's dtype before the GroupNorm; the end state comes
 back in x's dtype, so a bf16 model's decode cache holds a bf16 state.
+
+Except in a bf16 model's training forward, where this port departs from
+the reference's bf16 flow: its activations are f32 from the embeddings
+to the logits, over the bf16 weights (`transformer.forward_train_stacked`,
+`f32_activations`). The gradient of full-width rwkv6 at a seeded init
+is ill-conditioned: at the start of each sequence the wkv state is
+young, so the GroupNorm's variance is near its eps and the bonus
+r.(u k) cancels; most of the loss's gradient passes through those
+positions and grows down the stack. Activations held in bf16 moved the
+gradient of full-width rwkv6-1.6b on 2 x 2,048 tokens by 1.7-7.7x at the
+median leaf against the f32 gradient of the same weights, and forward
+products short of f32 (TF32 or bf16 pieces of the activations) by
+0.1-0.5. So the forward's weight products are f32 products of the bf16
+values; the backward's take bf16 pieces of the gradient
+(`_F32Product`). The first layers are recomputed in the backward, so
+that the f32 activations fit (`recomputed_layers`). Prefill and decode keep
+the reference's flow.
+
+Spans (`repro_torch.obs`, off unless enabled): `rwkv.time_mix` around
+its parts `.shift` (the ddlerp), `.decay`, `.scan` and `.out` (bonus,
+GroupNorm, gate, output projection; the r, k, v and g projections are
+the outer span's own), and `rwkv.channel_mix`; each once a layer, and
+once more for a layer recomputed in the backward.
 """
 from __future__ import annotations
 
@@ -32,6 +55,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.lm.layers import dense_init
 from repro_torch.models.lm.scan_core import chunked_decay_scan, \
     decay_scan_step
+from repro_torch.obs import span
 
 LORA_TM = 32     # ddlerp LoRA rank
 LORA_DECAY = 64  # decay LoRA rank
@@ -132,18 +156,24 @@ def _ddlerp(p: dict, x: torch.Tensor, x_prev: torch.Tensor) -> torch.Tensor:
     dx = x_prev - x
     # First-stage mix for the LoRA input (RWKV6 uses mu_x; reuse mu[0]).
     xx = x + dx * _row(p["mu"][:, 0])
-    lora = torch.tanh(xx @ p["tm_w1"])                    # (G, N, 5 r)
-    lora = lora.reshape(lora.shape[:-1] + (5, LORA_TM))
-    adj = torch.einsum("gnfr,gfrd->fgnd", lora, p["tm_w2"])  # (5, G, N, d)
+    lora = torch.tanh(weight_product(xx, p["tm_w1"]))     # (G, N, 5 r)
+    # The 5 adjustments as one batch of 5 G products.
+    G, N = lora.shape[:2]
+    adj = weight_product(
+        lora.view(G, N, 5, LORA_TM).transpose(1, 2).reshape(G * 5, N,
+                                                            LORA_TM),
+        p["tm_w2"].reshape(G * 5, LORA_TM, -1))
+    adj = adj.view(G, 5, N, -1).transpose(0, 1)           # (5, G, N, d)
     mu = p["mu"].transpose(0, 1)[:, :, None, :]          # (5, G, 1, d)
     return x[None] + dx[None] * (mu + adj)
 
 
 def _decay(p: dict, xw: torch.Tensor) -> torch.Tensor:
-    """Log decay, f32, clipped to [-40, -1e-4]: the LoRA sum in the
-    params' dtype, then -exp in f32."""
-    lw = -torch.exp((_row(p["w0"]) + torch.tanh(xw @ p["td_w1"])
-                     @ p["td_w2"]).float())
+    """Log decay, f32, clipped to [-40, -1e-4]: the LoRA sum in xw's
+    dtype, then -exp in f32."""
+    lora = torch.tanh(weight_product(xw, p["td_w1"]))
+    lw = -torch.exp((_row(p["w0"]) + weight_product(lora, p["td_w2"]))
+                    .float())
     return torch.clamp(lw, -40.0, -1e-4)
 
 
@@ -160,28 +190,35 @@ def rwkv_time_mix_stacked(p: dict, x: torch.Tensor, head_dim: int,
     T = seq_len
     B = n // T
     H = d // head_dim
-    xr, xk, xv, xw, xg = _ddlerp(p, x, _shift(x, T, x_prev))
     heads = lambda z: z.reshape(G * B, T, H, head_dim)
-    r = heads(xr @ p["wr"]).float()
-    k = heads(xk @ p["wk"]).float()
-    v = heads(xv @ p["wv"]).float()
-    g = F.silu(xg @ p["wg"])
-    logw = heads(_decay(p, xw))
     bhtk = lambda z: z.transpose(1, 2)                   # (GB, H, T, hd)
-    if state is None:
-        state = torch.zeros((G * B, H, head_dim, head_dim),
-                            dtype=torch.float32, device=x.device)
-    o, s_final = chunked_decay_scan(bhtk(r), bhtk(k), bhtk(v), bhtk(logw),
-                                    state.float(), chunk=chunk)
-    # Diagonal bonus term: r.(u (.) k_t) v_t, per client's u.
-    u = p["u"].float()[:, None, None]                    # (G, 1, 1, H, hd)
-    diag = (r.view(G, B, T, H, head_dim) * u
-            * k.view(G, B, T, H, head_dim)).sum(-1).view(G * B, T, H)
-    o = o.transpose(1, 2) + diag[..., None] * v
-    o = o.reshape(G, n, d).to(x.dtype)
-    o = _group_norm(o, _row(p["ln_x_g"]), _row(p["ln_x_b"]), H)
+    with span("rwkv.time_mix"):
+        with span("rwkv.time_mix.shift"):
+            xr, xk, xv, xw, xg = _ddlerp(p, x, _shift(x, T, x_prev))
+        r = heads(weight_product(xr, p["wr"])).float()
+        k = heads(weight_product(xk, p["wk"])).float()
+        v = heads(weight_product(xv, p["wv"])).float()
+        g = F.silu(weight_product(xg, p["wg"]))
+        with span("rwkv.time_mix.decay"):
+            logw = heads(_decay(p, xw))
+        with span("rwkv.time_mix.scan"):
+            if state is None:
+                state = torch.zeros((G * B, H, head_dim, head_dim),
+                                    dtype=torch.float32, device=x.device)
+            o, s_final = chunked_decay_scan(bhtk(r), bhtk(k), bhtk(v),
+                                            bhtk(logw), state.float(),
+                                            chunk=chunk)
+        with span("rwkv.time_mix.out"):
+            # Diagonal bonus term: r.(u (.) k_t) v_t, per client's u.
+            u = p["u"].float()[:, None, None]            # (G, 1, 1, H, hd)
+            diag = (r.view(G, B, T, H, head_dim) * u
+                    * k.view(G, B, T, H, head_dim)).sum(-1).view(G * B, T, H)
+            o = o.transpose(1, 2) + diag[..., None] * v
+            o = o.reshape(G, n, d).to(x.dtype)
+            o = _group_norm(o, _row(p["ln_x_g"]), _row(p["ln_x_b"]), H)
+            out = weight_product(o * g, p["wo"])
     last = x.view(G * B, T, d)[:, -1]
-    return (o * g) @ p["wo"], (last, s_final.to(x.dtype))
+    return out, (last, s_final.to(x.dtype))
 
 
 def rwkv_time_mix(p: dict, x: torch.Tensor, head_dim: int,
@@ -223,11 +260,13 @@ def rwkv_channel_mix_stacked(p: dict, x: torch.Tensor, seq_len: int,
     ...), `x_prev` as in `rwkv_time_mix_stacked`. Returns (out, last input
     (G*B, d))."""
     G, n, d = x.shape
-    dx = _shift(x, seq_len, x_prev) - x
-    xk = x + dx * _row(p["mu_k"])
-    xr = x + dx * _row(p["mu_r"])
-    h = torch.square(torch.relu(xk @ p["wk"]))
-    out = torch.sigmoid(xr @ p["wr"]) * (h @ p["wv"])
+    with span("rwkv.channel_mix"):
+        dx = _shift(x, seq_len, x_prev) - x
+        xk = x + dx * _row(p["mu_k"])
+        xr = x + dx * _row(p["mu_r"])
+        h = torch.square(torch.relu(weight_product(xk, p["wk"])))
+        out = torch.sigmoid(weight_product(xr, p["wr"])) \
+            * weight_product(h, p["wv"])
     return out, x.view(G * (n // seq_len), seq_len, d)[:, -1]
 
 
@@ -239,3 +278,69 @@ def rwkv_channel_mix(p: dict, x: torch.Tensor,
         {name: w[None] for name, w in p.items()}, x.reshape(1, B * T, d), T,
         x_prev)
     return out.view(B, T, d), last
+
+
+# ------------------------------------------- f32 activations in training
+# Layers of a bf16 attention-free model's f32 training forward that are
+# recomputed in the backward (the first ones): the f32 activations of all
+# 24 of rwkv6-1.6b's layers at 4 x 2,048 tokens would not fit beside the
+# weights on one H100.
+RECOMPUTED_LAYERS = 6
+
+
+class _F32Product(torch.autograd.Function):
+    """x (M, N, a) f32 @ w (M, a, b) of a lower precision -> (M, N, b) f32.
+
+    The forward is an f32 product of w's values: the gradient of a full-
+    width rwkv6 rests on the forward's activations to f32's last bits
+    (products of TF32 pieces of x, some 21 bits, or of bf16 pieces, whose
+    f32-output product holds some 16, move it by 0.1-0.5 at the median
+    leaf). The backward bears rounding: x's gradient takes the output's
+    gradient as two pieces of w's dtype, each product with an f32 output
+    (one f32 product on the CPU); the weight's gradient is one product in
+    w's dtype (a leaf's, rounded once where it lands, not carried down
+    the stack)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x.to(w.dtype), w)
+        return x @ w.float()
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        wt = w.transpose(-1, -2)
+        hi = dy.to(w.dtype)
+        if dy.device.type == "cuda":
+            lo = (dy - hi.float()).to(w.dtype)
+            dx = torch.bmm(hi, wt, out_dtype=torch.float32) \
+                + torch.bmm(lo, wt, out_dtype=torch.float32)
+        else:
+            dx = dy @ wt.float()
+        return dx, x.transpose(-1, -2) @ hi
+
+
+def weight_product(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (M, N, a) @ w (M, a, b): through `_F32Product` where x is f32 and
+    w is not, else a plain product."""
+    if x.dtype == torch.float32 and w.dtype != torch.float32:
+        return _F32Product.apply(x, w)
+    return x @ w
+
+
+def f32_activations(cfg, dtype: torch.dtype) -> bool:
+    """Whether the training forward of `cfg`, its embeddings in `dtype`,
+    runs with f32 activations over its weights: an attention-free (`rwkv`)
+    model in bf16 or f16."""
+    return cfg.attention_free and dtype in (torch.bfloat16, torch.float16)
+
+
+def recomputed_layers(cfg, dtype: torch.dtype) -> int:
+    """How many of its first layers the training forward of `cfg`, its
+    embeddings in `dtype`, recomputes in the backward: every layer under
+    `cfg.remat`, else the first RECOMPUTED_LAYERS where the activations
+    are f32 (`f32_activations`), else none."""
+    n = sum(s.n_layers for s in cfg.resolved_segments)
+    if cfg.remat:
+        return n
+    return min(RECOMPUTED_LAYERS, n) if f32_activations(cfg, dtype) else 0

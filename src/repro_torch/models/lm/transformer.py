@@ -115,13 +115,16 @@ from repro_torch.sharding.ctx import (
     ep_axis,
 )
 from repro_torch.models.lm.rwkv import (
+    f32_activations,
     init_rwkv_channel_mix,
     init_rwkv_time_mix,
+    recomputed_layers,
     rwkv_channel_mix,
     rwkv_channel_mix_stacked,
     rwkv_time_mix,
     rwkv_time_mix_stacked,
     rwkv_time_mix_step,
+    weight_product,
 )
 from repro_torch.models.lm.ssm import (
     CONV_K,
@@ -652,12 +655,14 @@ def _apply_layer_train(cfg: ModelConfig, seg: Segment, lp: dict, x,
     x = constrain_batch(x, dim=1)     # hint: the batch stays data-parallel
     if seg.kind == "rwkv":
         hd = cfg.resolved_head_dim
-        o, _ = rwkv_time_mix_stacked(
-            lp["tm"], rmsnorm(x, _row(lp["norm1"]), cfg.norm_eps), hd,
-            seq_len)
+        # The norms' weights in x's dtype: f32 activations (`rwkv.
+        # f32_activations`) take 1 + gamma in f32.
+        norm = lambda t, w: rmsnorm(t, _row(w.to(t.dtype)), cfg.norm_eps)
+        o, _ = rwkv_time_mix_stacked(lp["tm"], norm(x, lp["norm1"]), hd,
+                                     seq_len)
         x = x + o
-        o, _ = rwkv_channel_mix_stacked(
-            lp["cm"], rmsnorm(x, _row(lp["norm2"]), cfg.norm_eps), seq_len)
+        o, _ = rwkv_channel_mix_stacked(lp["cm"], norm(x, lp["norm2"]),
+                                        seq_len)
         return x + o, None
     window = _seg_window(cfg, seg)
     h = rmsnorm(x, _row(lp["norm1"]), cfg.norm_eps)
@@ -744,23 +749,33 @@ def forward_train_stacked(cfg: ModelConfig, params, tokens: torch.Tensor,
     S = x.shape[2]
     x = x.reshape(G, B * S, -1)
     moe_aux = torch.zeros((G,), dtype=torch.float32, device=tokens.device)
+    # A bf16 attention-free (rwkv) model trains with f32 activations over
+    # its weights, its first layers recomputed in the backward
+    # (`rwkv.f32_activations`, `rwkv.recomputed_layers`).
+    recompute = recomputed_layers(cfg, x.dtype)
+    f32 = f32_activations(cfg, x.dtype)
+    if f32:
+        x = x.float()
+    layer = 0
     for seg, sp in zip(cfg.resolved_segments, params["segments"]):
         for lp in _layer_views(sp):
-            if cfg.remat:
+            if layer < recompute:
                 x, aux = checkpoint(_apply_layer_train, cfg, seg, lp, x,
                                     positions, S, enc_out, n_frames,
                                     use_reentrant=False)
             else:
                 x, aux = _apply_layer_train(cfg, seg, lp, x, positions, S,
                                             enc_out, n_frames)
+            layer += 1
             if aux is not None:
                 moe_aux = moe_aux + aux
-    h = rmsnorm(x, _row(params["final_norm"]), cfg.norm_eps)
+    h = rmsnorm(x, _row(params["final_norm"].to(x.dtype)), cfg.norm_eps)
     aux = {"moe_aux": moe_aux}
     if cfg.mtp and "mtp_head" in params:
         aux["mtp_logits"] = (h @ params["mtp_head"]).reshape(G, B, S, -1)
-    logits = h @ (params["embed"].transpose(-1, -2) if cfg.tie_embeddings
-                  else params["lm_head"])
+    head = params["embed"].transpose(-1, -2) if cfg.tie_embeddings \
+        else params["lm_head"]
+    logits = weight_product(h, head)
     return logits.reshape(G, B, S, -1), aux
 
 

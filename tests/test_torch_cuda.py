@@ -962,6 +962,40 @@ def test_wkv6_rwkv6_views_match_plain(dev, B, T, H):
         _close(b, w, 2e-4)
 
 
+def test_wkv6_counts_the_build_it_launched(dev):
+    """With `obs` tracing on, each launch counts under the build it ran:
+    rwkv6's (64, 64, 64) and hymba's (16, 64, 64) the fixed builds, any
+    other chunk and `generic=True` the generic one; reduced rwkv6's
+    forward counts one a layer."""
+    from repro_torch import obs
+    from repro_torch.kernels.wkv6 import wkv6
+    _, (r, k, v, lw) = _rwkv_views(dev, 1, 130, 2, 64)
+    s0 = torch.zeros((1, 2, 64, 64), device=dev)
+    with obs.tracing() as tracer:
+        wkv6(r, k, v, lw, s0)
+        wkv6(r, k, v, lw, s0, generic=True)
+        wkv6(r, k, v, lw, s0, chunk=32)
+        wkv6(r[..., :16], k[..., :16], v, lw[..., :16], s0[:, :, :16])
+    torch.cuda.synchronize()
+    assert tracer.summary()["counters"] == {"wkv6.fixed": 2,
+                                            "wkv6.generic": 2}
+    # reduced rwkv6's training step: one fixed-build launch and each of
+    # the rwkv spans once a layer
+    from repro_torch.models.lm.transformer import init_params
+    from repro_torch.train.step import lm_loss
+    cfg = get_config("rwkv6-1.6b").reduced()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(0), dev)
+    toks = torch.randint(0, cfg.vocab_size, (2, 130), device=dev)
+    with obs.tracing() as tracer:
+        lm_loss(cfg, params, {"tokens": toks})[0].item()
+    summary = tracer.summary()
+    assert summary["counters"] == {"wkv6.fixed": cfg.n_layers}
+    for name in ("rwkv.time_mix", "rwkv.time_mix.shift", "rwkv.time_mix.decay",
+                 "rwkv.time_mix.scan", "rwkv.time_mix.out",
+                 "rwkv.channel_mix"):
+        assert summary["spans"][name]["count"] == cfg.n_layers, name
+
+
 def test_wkv6_bwd_rwkv6_views_match_plain(dev):
     """The time mix's gradient through `wkv6_op` at K = V = 64 on the
     transposed views: one `wkv6_bwd` launch, each input's gradient within

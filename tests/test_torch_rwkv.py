@@ -16,6 +16,7 @@ after a local step, and within 10x the one-ulp envelope of a 2-round run
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import jax
@@ -40,7 +41,9 @@ from repro.train.step import make_serve_step as jax_make_serve_step
 from repro_torch.configs import get_config
 from repro_torch.core import ALGORITHMS, get_workload
 from repro_torch.core.workload import lm_layout
+from repro_torch import obs
 from repro_torch.kernels import ops
+from repro_torch.kernels import wkv6 as wkv6_kernel
 from repro_torch.launch import serve, train
 from repro_torch.models.lm import rwkv
 from repro_torch.models.lm.params import (
@@ -327,6 +330,78 @@ def test_forward_train_launches_one_scan_a_layer_for_the_stack():
     for c, tree in enumerate(trees):
         want, _ = step.lm_loss(cfg, tree, {"tokens": toks[c]})
         assert abs(float(got[c]) - float(want)) <= TOL
+
+
+def test_bf16_gradient_holds_to_f32_at_full_width():
+    """rwkv6-1.6b at its published widths (d 2,048, heads of 64, d_ff
+    7,168) with 3 layers and the vocabulary cut to 512, one row of 96
+    tokens: each leaf of the port's bf16 gradient within 0.02 of
+    `jax.grad` of the reference's f32 `lm_loss` at the same bf16-valued
+    weights (the norm of the difference over the reference's norm). The
+    gradient is ill-conditioned where each sequence starts: the wkv state
+    is young, so the GroupNorm's variance is near its eps and the bonus
+    r.(u k) cancels; most of the gradient passes there and grows down the
+    stack. With bf16 activations (the reference's bf16 flow) it moved by
+    0.23 at the median leaf and 0.40 at the worst; with the f32
+    activations a bf16 model trains with (`rwkv.rwkv_layer_stacked`),
+    0.003 at the worst: the rounding of the bf16 gradients, which the
+    limit leaves seven times."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=3, vocab_size=512,
+                              segments=(), dtype="bfloat16")
+    jcfg = dataclasses.replace(jax_get_config(ARCH), n_layers=3,
+                               vocab_size=512, segments=(), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(3), "cpu")
+    toks = np.random.default_rng(3).integers(0, cfg.vocab_size, (1, 96),
+                                             dtype=np.int32)
+    jp = jax.tree.map(jnp.asarray, lm_params_to_numpy(
+        map_tree(lambda t: t.float(), params)))
+    want = jax.tree.leaves(jax.device_get(jax.grad(
+        lambda p: jax_step.lm_loss(jcfg, p, {"tokens": jnp.asarray(toks)})[0]
+    )(jp)))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(min(threads, 4))
+    try:
+        got = tree_leaves(lm_params_to_numpy(map_tree(
+            lambda t: t.float(),
+            _grads(cfg, params, torch.as_tensor(toks).long())[2])))
+    finally:
+        torch.set_num_threads(threads)
+    assert len(got) == len(want)
+    rel = [float(np.linalg.norm(np.asarray(a, np.float64) - b)
+                 / np.linalg.norm(np.asarray(b, np.float64)))
+           for a, b in zip(got, want)]
+    assert max(rel) < 0.02, rel
+
+
+RWKV_SPANS = ("rwkv.time_mix", "rwkv.time_mix.shift", "rwkv.time_mix.decay",
+              "rwkv.time_mix.scan", "rwkv.time_mix.out", "rwkv.channel_mix")
+
+
+def test_spans_once_a_layer_and_values_unchanged():
+    """With `obs` tracing on, a training step of reduced rwkv6 opens each
+    of the time mix's and channel mix's spans once a layer and counts no
+    `wkv6` build (the CPU launches none: `test_torch_cuda.py` counts the
+    card's); the loss and every gradient are bitwise those of the
+    untraced step. The launcher names the build a card launch takes:
+    rwkv6's (64, 64, 64) and hymba's (16, 64, 64) the fixed ones."""
+    cfg = get_config(ARCH).reduced()
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 65))).long()
+    loss, _, grads = _grads(cfg, params, toks)
+    with obs.tracing() as tracer:
+        t_loss, _, t_grads = _grads(cfg, params, toks)
+    summary = tracer.summary()
+    for name in RWKV_SPANS:
+        assert summary["spans"][name]["count"] == cfg.n_layers, name
+    assert summary["counters"] == {}
+    assert torch.equal(loss, t_loss)
+    for a, b in zip(tree_leaves(grads), tree_leaves(t_grads)):
+        assert torch.equal(a, b)
+    assert wkv6_kernel.build_name(64, 64, 64) == "fixed"
+    assert wkv6_kernel.build_name(16, 64, 64) == "fixed"
+    assert wkv6_kernel.build_name(64, 64, 32) == "generic"
+    assert wkv6_kernel.build_name(64, 64, 64, generic=True) == "generic"
 
 
 # ---------------------------------------------------------- the workload
